@@ -1,0 +1,136 @@
+"""Port parity: BiasField and Noise against the JAX package.
+
+Both packages draw the same parameters from the same ``seed``. The device
+normals differ by design (``torch.Generator`` against ``jax.random``), so
+the port's one device draw, ``torchio_tpu_torch.random.device_normal``,
+is replaced by :func:`jax_device_normal`, which derives the JAX package's
+keys from the same arguments. Outputs then agree within rtol 1e-5,
+atol 1e-6 (exp and the lerps round differently in XLA and torch).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torchio_tpu as tj
+import torchio_tpu_torch as tt
+from torchio_tpu.data.batch import SubjectsBatch as JaxBatch
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def jax_device_normal(seed, shape, device, index):
+    """The JAX package's draw ``index`` of ``seed``: index 0 is
+    ``PRNGKey(seed)`` itself (BiasField); Noise image ``n`` splits the key
+    ``n + 1`` times and takes ``k1`` (index ``2n + 1``) or ``k2``
+    (index ``2n + 2``)."""
+    key = jax.random.PRNGKey(seed)
+    if index > 0:
+        for _ in range((index - 1) // 2 + 1):
+            key, k1, k2 = jax.random.split(key, 3)
+        key = k1 if index % 2 == 1 else k2
+    normal = np.array(jax.random.normal(key, tuple(shape), jnp.float32))
+    return torch.as_tensor(normal, device=device)
+
+
+@pytest.fixture
+def jax_normals(monkeypatch):
+    monkeypatch.setattr(tt.random, "device_normal", jax_device_normal)
+
+
+def make_batches(b=2, shape=(1, 14, 16, 18), seed=0, names=("t1",)):
+    """The same numpy volumes as a JAX batch and a port batch."""
+    rng = np.random.default_rng(seed)
+    arrays = [
+        {n: (rng.random(shape, np.float32) + 0.5) for n in names} for _ in range(b)
+    ]
+    jax_batch = JaxBatch.from_subjects(
+        [tj.Subject(**{n: tj.ScalarImage(a[n]) for n in names}) for a in arrays]
+    )
+    port_batch = tt.SubjectsBatch.from_subjects(
+        [tt.Subject(**{n: tt.ScalarImage(a[n]) for n in names}) for a in arrays]
+    )
+    return jax_batch, port_batch
+
+
+def run_both(make, jax_batch, port_batch, seed=7, fuse=False):
+    """One transform (or a fused one-transform Compose) in both packages
+    from the same seed; returns both outputs."""
+    pkg_out = []
+    for pkg, batch in ((tj, jax_batch), (tt, port_batch)):
+        transform = make(pkg)
+        if fuse:
+            transform = pkg.Compose([transform], fuse=True)
+        pkg.seed(seed)
+        pkg_out.append(transform(batch))
+    return pkg_out
+
+
+def assert_same(jax_out, port_out, names=("t1",)):
+    assert [h.name for h in jax_out.applied_transforms] == [
+        h.name for h in port_out.applied_transforms
+    ]
+    for hj, hp in zip(jax_out.applied_transforms, port_out.applied_transforms):
+        assert hj.params == hp.params
+    for n in names:
+        np.testing.assert_allclose(
+            port_out.images[n].data.numpy(),
+            np.asarray(jax_out.images[n].data),
+            rtol=RTOL,
+            atol=ATOL,
+        )
+
+
+TRANSFORMS = {
+    "bias-per-element": lambda pkg: pkg.BiasField(std=(0.2, 0.8)),
+    "bias-shared": lambda pkg: pkg.BiasField(std=(0.2, 0.8), per_instance=False),
+    "bias-gated": lambda pkg: pkg.BiasField(std=0.5, p=0.5),
+    "noise-gaussian": lambda pkg: pkg.Noise(mean=(-0.1, 0.1), std=(0.05, 0.2)),
+    "noise-shared": lambda pkg: pkg.Noise(std=0.1, per_instance=False),
+    "noise-rician": lambda pkg: pkg.Noise(std=(0.05, 0.2), rician=True),
+    "noise-rician-gated": lambda pkg: pkg.Noise(std=0.1, rician=True, p=0.5),
+}
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("name", list(TRANSFORMS))
+def test_matches_jax(name, fuse, jax_normals):
+    jax_batch, port_batch = make_batches(b=4 if "gated" in name else 2)
+    jax_out, port_out = run_both(TRANSFORMS[name], jax_batch, port_batch, fuse=fuse)
+    if "gated" in name:
+        keep = port_out.applied_transforms[0].params["_keep"]
+        assert any(keep) and not all(keep)
+    assert_same(jax_out, port_out)
+
+
+def test_noise_draws_follow_image_order(jax_normals):
+    """Two images: the second takes the key after the first's split."""
+    jax_batch, port_batch = make_batches(names=("t1", "t2"))
+    jax_out, port_out = run_both(
+        lambda pkg: pkg.Noise(std=0.1, rician=True), jax_batch, port_batch
+    )
+    assert_same(jax_out, port_out, names=("t1", "t2"))
+
+
+def test_replay_regenerates_the_same_field():
+    """Within the port, a recorded seed regenerates the same field."""
+    _, batch = make_batches()
+    tt.seed(3)
+    first = tt.Compose([tt.BiasField(), tt.Noise(rician=True)])(batch)
+    again = batch
+    for record in first.applied_transforms:
+        transform = {"BiasField": tt.BiasField, "Noise": tt.Noise}[record.name]()
+        again = transform.apply_transform(again, record.params)
+    assert torch.equal(again.t1.data, first.t1.data)
+
+
+def test_default_device_normal_is_seeded_per_draw():
+    a = tt.random.device_normal(5, (3, 4), "cpu", 1)
+    assert a.dtype == torch.float32 and a.shape == (3, 4)
+    assert torch.equal(a, tt.random.device_normal(5, (3, 4), "cpu", 1))
+    assert not torch.equal(a, tt.random.device_normal(5, (3, 4), "cpu", 2))
+    assert not torch.equal(a, tt.random.device_normal(6, (3, 4), "cpu", 1))

@@ -1,0 +1,33 @@
+"""Shared helpers for transform implementations."""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..data.image import as_tensor
+
+__all__ = ["as_tensor", "broadcast_param", "restore_gated"]
+
+
+def broadcast_param(value: Any, like: torch.Tensor):
+    """Scalar passthrough, or per-element list -> (B, 1, 1, 1, 1) float32
+    tensor on ``like``'s device."""
+    if isinstance(value, (list, np.ndarray, torch.Tensor)):
+        arr = torch.as_tensor(np.asarray(value, dtype=np.float32), device=like.device)
+        return arr.reshape((-1,) + (1,) * (like.ndim - 1))
+    return value
+
+
+def restore_gated(transformed: torch.Tensor, original: torch.Tensor, keep):
+    """Gated-out elements keep their original values (bit-exact)."""
+    if keep is None:
+        return transformed
+    flags = np.asarray(keep, dtype=bool)
+    if flags.all():
+        return transformed
+    mask = torch.as_tensor(flags, device=transformed.device)
+    mask = mask.reshape((-1,) + (1,) * (transformed.ndim - 1))
+    return torch.where(mask, transformed, original.to(transformed.dtype))

@@ -1,0 +1,646 @@
+"""Unified spatial transform: affine + elastic in ONE grid pass.
+
+Counterpart of ``torchio_tpu/transforms/spatial/spatial.py``:
+
+- One sampling grid per call composes a world affine (scales, degrees,
+  translation about ``center``) and a dense elastic field upsampled from
+  coarse control points (mm), with the ``affine_first`` ordering flag.
+- The output voxel -> input voxel map ``A_in^-1 @ T^-1 @ A_out`` is
+  float64 host math; only the float32 map reaches the device.
+- Out-of-bounds fill: a number, or ``"minimum"`` computed per element
+  and channel on the device; ``default_pad_label`` for label maps.
+- Per-instance geometry with bit-exact passthrough of gated-out
+  elements; the input dtype is restored after sampling.
+
+The parameters are drawn by the same host numpy code as the JAX package,
+so the same seed records the same params. The resample itself is one
+call of :func:`torchio_tpu_torch.ops.resample.resample_fused`, which
+runs the CUDA kernel on a CUDA batch.
+
+Not yet ported: ``target=`` (and ``Resample``), the "label"
+partial-volume mode, B-spline orders 2-7, antialias, the "mean" and
+"otsu" fills, and inverses.
+"""
+
+from __future__ import annotations
+
+import warnings
+from numbers import Number
+from typing import Any
+
+import numpy as np
+import torch
+
+from ... import random as tio_random
+from ...core.affine import AffineMatrix
+from ...data.batch import ImagesBatch, SubjectsBatch
+from ...data.image import LabelMap
+from ...ops.resample import resample_fused
+from ..parameter_range import _ParameterRange
+from ..transform import SpatialTransform
+
+_INTERPOLATIONS = ("nearest", "linear")
+_SPLINE_ORDER = 3  # coarse-grid folding heuristic, matches the JAX package
+
+
+def _parse_interpolation(value) -> str:
+    name = {0: "nearest", 1: "linear", "trilinear": "linear"}.get(value, value)
+    name = str(name).lower()
+    if name not in _INTERPOLATIONS:
+        raise NotImplementedError(
+            f"Interpolation {value!r} is not ported yet; use 'linear' or 'nearest'"
+        )
+    return name
+
+
+# --------------------------------------------------------------------------
+# Host geometry helpers (float64 numpy)
+# --------------------------------------------------------------------------
+
+
+def _euler_rotation(degrees: np.ndarray) -> np.ndarray:
+    """XYZ-intrinsic (ZYX-extrinsic) Euler angles (deg) -> 3x3 rotation."""
+    rx, ry, rz = np.radians(np.asarray(degrees, np.float64))
+    cx, sx = np.cos(rx), np.sin(rx)
+    cy, sy = np.cos(ry), np.sin(ry)
+    cz, sz = np.cos(rz), np.sin(rz)
+    r_x = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    r_y = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    r_z = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return r_z @ r_y @ r_x
+
+
+def _image_center_world(shape, affine: AffineMatrix) -> np.ndarray:
+    center_index = (np.asarray(shape, np.float64) - 1) / 2
+    m = affine.data
+    return m[:3, 3] + m[:3, :3] @ center_index
+
+
+def _forward_affine(
+    *, scales, degrees, translation, center: str, shape, affine: AffineMatrix
+) -> np.ndarray:
+    """4x4 world-space affine: T = R @ S pivoting about the image center."""
+    scaling = np.asarray(scales, np.float64).copy()
+    rotation = np.asarray(degrees, np.float64).copy()
+    shift = np.asarray(translation, np.float64).copy()
+    if shape[-1] == 1:  # 2D slice: suppress out-of-plane components
+        scaling[2] = 1.0
+        rotation[0] = rotation[1] = 0.0
+        shift[2] = 0.0
+    rs = _euler_rotation(rotation) @ np.diag(scaling)
+    t = np.eye(4, dtype=np.float64)
+    t[:3, :3] = rs
+    if center == "image":
+        c = _image_center_world(shape, affine)
+        t[:3, 3] = c - rs @ c
+    t[:3, 3] += shift
+    return t
+
+
+def _sample_control_points(grid_shape, max_displacement, locked_borders: int):
+    """Random uniform [-max, max] field (n_i, n_j, n_k, 3) with zeroed borders."""
+    rng = tio_random.get_rng()
+    field = rng.uniform(-1.0, 1.0, size=tuple(grid_shape) + (3,)).astype(np.float32)
+    for axis in range(3):
+        field[..., axis] *= max_displacement[axis]
+    for border in range(locked_borders):
+        field[border, :] = 0
+        field[-1 - border, :] = 0
+        field[:, border] = 0
+        field[:, -1 - border] = 0
+        field[:, :, border] = 0
+        field[:, :, -1 - border] = 0
+    return field
+
+
+def _check_folding(control_points, max_displacement, shape, spacing) -> None:
+    num_cp = np.array(control_points.shape[:-1], np.float64)
+    bounds = np.array(shape, np.float64) * np.asarray(spacing, np.float64)
+    grid_spacing = bounds / (num_cp - _SPLINE_ORDER)
+    conflicts = np.asarray(max_displacement, np.float64) > grid_spacing / 2
+    if conflicts.any():
+        (where,) = np.where(conflicts)
+        warnings.warn(
+            "The maximum displacement is larger than half the coarse-grid"
+            f" spacing for dimensions {where.tolist()}, so folding may occur",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+
+def _field_displacement_extent(control_points) -> tuple[float, float, float]:
+    m = np.abs(np.asarray(control_points)).reshape(-1, 3).max(axis=0)
+    return (float(m[0]), float(m[1]), float(m[2]))
+
+
+def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_label):
+    """Out-of-bounds fill: a number, or a (B, C) tensor of per-element,
+    per-channel minima computed on the batch's device."""
+    if issubclass(img_batch.image_class, LabelMap):
+        return float(default_pad_label)
+    if isinstance(default_pad_value, Number):
+        return float(default_pad_value)
+    return torch.amin(img_batch.data, dim=(-3, -2, -1))
+
+
+# --------------------------------------------------------------------------
+# Grid construction (host matrix math)
+# --------------------------------------------------------------------------
+
+
+def _mapping_matrix(input_affine, output_affine, affine_matrix) -> np.ndarray:
+    """Output voxel -> input voxel 4x4 (``A_in^-1 @ T^-1 @ A_out``, f64)."""
+    t_inv = (
+        np.eye(4)
+        if affine_matrix is None
+        else np.linalg.inv(np.asarray(affine_matrix, np.float64))
+    )
+    return np.linalg.inv(input_affine.data) @ t_inv @ output_affine.data
+
+
+def _build_grid(
+    *,
+    input_affine: AffineMatrix,
+    output_shape,
+    output_affine: AffineMatrix,
+    affine_matrix,
+    control_points,
+    max_displacement,
+    affine_first: bool,
+):
+    """(4x4 output->input map, pre-folded control points or None).
+
+    The trilinear upsample is linear in the control points, so spacing
+    and, for affine-last ordering, the rotation fold into the coarse
+    field on the host (float64) and the resample upsamples it directly.
+    """
+    mapping = _mapping_matrix(input_affine, output_affine, affine_matrix)
+    if control_points is None:
+        return mapping, None
+    if max_displacement is None:
+        max_displacement = _field_displacement_extent(control_points)
+    _check_folding(
+        np.asarray(control_points),
+        max_displacement,
+        output_shape,
+        np.asarray(output_affine.spacing),
+    )
+    cp = np.asarray(control_points, np.float64)
+    if affine_first:
+        return mapping, cp / np.asarray(input_affine.spacing, np.float64)
+    folded = (cp / np.asarray(output_affine.spacing, np.float64)) @ mapping[:3, :3].T
+    return mapping, folded
+
+
+# --------------------------------------------------------------------------
+# Parameter (de)serialization
+# --------------------------------------------------------------------------
+
+
+def _serialize_space(space):
+    if space is None:
+        return None
+    shape, affine = space
+    return {"shape": [int(s) for s in shape], "affine": AffineMatrix(affine).tolist()}
+
+
+def _serialize_matrix(matrix):
+    return None if matrix is None else np.asarray(matrix, np.float64).tolist()
+
+
+def _deserialize_matrix(data):
+    return None if data is None else np.asarray(data, np.float64)
+
+
+def _serialize_control_points(cp):
+    return None if cp is None else np.asarray(cp, np.float32).tolist()
+
+
+def _deserialize_control_points(data):
+    return None if data is None else np.asarray(data, np.float32)
+
+
+# --------------------------------------------------------------------------
+# The transform
+# --------------------------------------------------------------------------
+
+
+class Spatial(SpatialTransform):
+    r"""Apply a world affine and an elastic field through a single
+    sampling grid.
+
+    Args:
+        scales, degrees, translation: affine parameter specs (see
+            :mod:`..parameter_range`).
+        isotropic: one scale for all axes.
+        center: ``"image"`` or ``"origin"``, the rotation pivot.
+        control_points: fixed coarse field (n_i, n_j, n_k, 3) in mm.
+        num_control_points: coarse grid size when the field is drawn.
+        max_displacement: elastic displacement spec in mm.
+        locked_borders: coarse border layers held at zero (0, 1 or 2).
+        affine_first: apply the affine before the elastic field.
+        image_interpolation: "linear" or "nearest" for scalar images.
+        label_interpolation: "linear" or "nearest" for label maps.
+        default_pad_value: a number, or "minimum" (per element and
+            channel) for scalar images.
+        default_pad_label: fill value for label maps.
+    """
+
+    def __init__(
+        self,
+        *,
+        target=None,
+        scales=1.0,
+        degrees=0.0,
+        translation=0.0,
+        isotropic: bool = False,
+        center: str = "image",
+        control_points=None,
+        num_control_points=7,
+        max_displacement=0.0,
+        locked_borders: int = 2,
+        affine_first: bool = True,
+        image_interpolation="linear",
+        label_interpolation="nearest",
+        one_hot_label_interpolation="linear",
+        antialias: bool = False,
+        default_pad_value="minimum",
+        default_pad_label: float = 0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if target is not None:
+            raise NotImplementedError("Spatial(target=...) is not ported yet")
+        if antialias:
+            raise NotImplementedError("Spatial(antialias=True) is not ported yet")
+        self.target = target
+        if isotropic and isinstance(scales, (tuple, list)) and len(scales) not in (1, 2):
+            raise ValueError(
+                "isotropic=True requires a scalar or (lo, hi) range for scales"
+            )
+        self.scales = _ParameterRange(scales)
+        for lo, hi in self.scales._ranges:
+            if lo < 0 or hi < 0:
+                raise ValueError(f"scales must be non-negative, got {scales}")
+        self.degrees = _ParameterRange(degrees)
+        self.translation = _ParameterRange(translation)
+        self.isotropic = isotropic
+        if center not in ("image", "origin"):
+            raise ValueError(f'center must be "image" or "origin", got {center!r}')
+        self.center = center
+        self.control_points = (
+            np.asarray(control_points, np.float32) if control_points is not None else None
+        )
+        if self.control_points is not None and (
+            self.control_points.ndim != 4 or self.control_points.shape[-1] != 3
+        ):
+            raise ValueError(
+                "control_points must have shape (n_i, n_j, n_k, 3),"
+                f" got {self.control_points.shape}"
+            )
+        ncp = (
+            (int(num_control_points),) * 3
+            if isinstance(num_control_points, (int, np.integer))
+            else tuple(int(n) for n in num_control_points)
+        )
+        if any(n < 4 for n in ncp):
+            raise ValueError(f"num_control_points must be >= 4, got {ncp}")
+        self.num_control_points = ncp
+        self.max_displacement = _ParameterRange(max_displacement)
+        for lo, hi in self.max_displacement._ranges:
+            if lo < 0 or hi < 0:
+                raise ValueError(
+                    f"max_displacement must be non-negative, got {max_displacement}"
+                )
+        if locked_borders not in (0, 1, 2):
+            raise ValueError(f"locked_borders must be 0, 1, or 2, got {locked_borders}")
+        if locked_borders == 2 and 4 in ncp:
+            raise ValueError(
+                "locked_borders=2 with 4 control points along any axis yields"
+                " an identity elastic field"
+            )
+        self.locked_borders = locked_borders
+        self.affine_first = affine_first
+        self.image_interpolation = _parse_interpolation(image_interpolation)
+        self.label_interpolation = _parse_interpolation(label_interpolation)
+        self.one_hot_label_interpolation = _parse_interpolation(
+            one_hot_label_interpolation
+        )
+        self.antialias = antialias
+        if isinstance(default_pad_value, str) and default_pad_value != "minimum":
+            if default_pad_value in ("mean", "otsu"):
+                raise NotImplementedError(
+                    f'default_pad_value="{default_pad_value}" is not ported yet'
+                )
+            raise ValueError(f'Unknown default_pad_value "{default_pad_value}"')
+        if not isinstance(default_pad_value, (str, Number)):
+            raise TypeError(
+                f"default_pad_value must be a string or number, got {type(default_pad_value)}"
+            )
+        self.default_pad_value = default_pad_value
+        if not isinstance(default_pad_label, Number):
+            raise TypeError(
+                f"default_pad_label must be numeric, got {type(default_pad_label)}"
+            )
+        self.default_pad_label = float(default_pad_label)
+
+    # --- capabilities ---
+
+    @property
+    def supports_per_instance_params(self) -> bool:
+        return True
+
+    @property
+    def supports_per_instance_p(self) -> bool:
+        return True
+
+    # --- sampling ---
+
+    def _sample_scales(self):
+        if self.isotropic:
+            s = self.scales.sample_1d()
+            return (s, s, s)
+        return self.scales.sample()
+
+    def _sample_one(self, shape, affine: AffineMatrix):
+        scales = self._sample_scales()
+        degrees = self.degrees.sample()
+        translation = self.translation.sample()
+        has_affine = (
+            tuple(scales) != (1.0, 1.0, 1.0)
+            or tuple(degrees) != (0.0, 0.0, 0.0)
+            or tuple(translation) != (0.0, 0.0, 0.0)
+        )
+        if self.control_points is not None:
+            cp = self.control_points.copy()
+            disp = _field_displacement_extent(cp)
+        else:
+            sampled = self.max_displacement.sample()
+            if all(v == 0.0 for v in sampled):
+                cp, disp = None, None
+            else:
+                cp = _sample_control_points(
+                    self.num_control_points, sampled, self.locked_borders
+                )
+                disp = sampled
+        forward = None
+        if has_affine:
+            forward = _forward_affine(
+                scales=scales,
+                degrees=degrees,
+                translation=translation,
+                center=self.center,
+                shape=shape,
+                affine=affine,
+            )
+        return forward, cp, disp, (has_affine or cp is not None)
+
+    def make_params(self, batch: SubjectsBatch) -> dict[str, Any]:
+        images = self._get_images(batch)
+        if not images:
+            return {"selected_images": []}
+        first = next(iter(images.values()))
+        first_shape = tuple(int(s) for s in first.data.shape[-3:])
+        first_affine = first.affines[0]
+        params: dict[str, Any] = {
+            "selected_images": list(images),
+            "original": _serialize_space((first_shape, first_affine)),
+            "affine_first": self.affine_first,
+            "image_interpolation": self.image_interpolation,
+            "label_interpolation": self.label_interpolation,
+            "one_hot_label_interpolation": self.one_hot_label_interpolation,
+            "antialias": self.antialias,
+            "default_pad_value": self.default_pad_value,
+            "default_pad_label": self.default_pad_label,
+        }
+        n = self._resolve_n(batch)
+        if n is None:
+            forward, cp, disp, has_geometry = self._sample_one(first_shape, first_affine)
+            if has_geometry:
+                _check_shared_space(images, first_shape, first_affine)
+            params["target"] = None
+            params["affine_matrix"] = _serialize_matrix(forward)
+            params["control_points"] = _serialize_control_points(cp)
+            params["max_displacement"] = list(disp) if disp else None
+            return params
+        keep = self._keep_mask(batch, n)
+        affines, cps, disps = [], [], []
+        any_geometry = False
+        for index in range(n):
+            if keep is not None and not keep[index]:
+                affines.append(None)
+                cps.append(None)
+                disps.append(None)
+                continue
+            forward, cp, disp, has_geometry = self._sample_one(first_shape, first_affine)
+            any_geometry = any_geometry or has_geometry
+            affines.append(_serialize_matrix(forward))
+            cps.append(_serialize_control_points(cp))
+            disps.append(list(disp) if disp else None)
+        if any_geometry:
+            _check_shared_space(images, first_shape, first_affine)
+        params["target"] = None
+        params["affine_matrix"] = affines
+        params["control_points"] = cps
+        params["max_displacement"] = disps
+        self._tag_batched(
+            params, batch, n, keep,
+            ["affine_matrix", "control_points", "max_displacement"],
+        )
+        return params
+
+    # --- application ---
+
+    def apply_transform(
+        self, batch: SubjectsBatch, params: dict[str, Any]
+    ) -> SubjectsBatch:
+        selected = params.get("selected_images", [])
+        if not selected:
+            return batch
+        if params.get("target") is not None:
+            raise NotImplementedError("Spatial target spaces are not ported yet")
+        for key in ("image_interpolation", "label_interpolation"):
+            _parse_interpolation(params[key])
+        if params.get("antialias", False):
+            raise NotImplementedError("Spatial antialias is not ported yet")
+        n = batch.batch_size
+        per_sample = "affine_matrix" in (params.get("_batched_keys") or [])
+        if per_sample:
+            affines = [_deserialize_matrix(m) for m in params["affine_matrix"]]
+            cps = [_deserialize_control_points(c) for c in params["control_points"]]
+            disps = [tuple(d) if d else None for d in params["max_displacement"]]
+            passthrough = [
+                i for i in range(n) if affines[i] is None and cps[i] is None
+            ]
+        else:
+            if params["affine_matrix"] is None and params["control_points"] is None:
+                return batch
+            md = params["max_displacement"]
+            affines = [_deserialize_matrix(params["affine_matrix"])] * n
+            cps = [_deserialize_control_points(params["control_points"])] * n
+            disps = [tuple(md) if md else None] * n
+            passthrough = []
+        _run_spatial_pipeline(
+            batch=batch,
+            image_names=selected,
+            affines=affines,
+            control_points=cps,
+            max_displacements=disps,
+            per_sample=per_sample,
+            passthrough=passthrough,
+            affine_first=params["affine_first"],
+            image_interpolation=params["image_interpolation"],
+            label_interpolation=params["label_interpolation"],
+            default_pad_value=params["default_pad_value"],
+            default_pad_label=float(params["default_pad_label"]),
+        )
+        return batch
+
+
+def _check_shared_space(images, reference_shape, reference_affine) -> None:
+    for name, img_batch in images.items():
+        shape = tuple(img_batch.data.shape[-3:])
+        if shape != tuple(reference_shape):
+            raise RuntimeError(
+                f'Image "{name}" has spatial shape {shape}, expected'
+                f" {tuple(reference_shape)}: spatial transforms need a shared space"
+            )
+        if not np.allclose(img_batch.affines[0].data, reference_affine.data, atol=1e-5):
+            raise RuntimeError(
+                f'Image "{name}" has a different affine from the reference'
+                " image; spatial transforms need a shared space"
+            )
+
+
+def _run_spatial_pipeline(
+    *,
+    batch: SubjectsBatch,
+    image_names,
+    affines,
+    control_points,
+    max_displacements,
+    per_sample: bool,
+    passthrough: list[int],
+    affine_first: bool,
+    image_interpolation: str,
+    label_interpolation: str,
+    default_pad_value,
+    default_pad_label: float,
+) -> None:
+    """Resample every selected image of ``batch`` through one grid spec
+    per element; ``passthrough`` elements stay bit-exact.
+
+    As in the JAX package, batch-shared params build one grid from the
+    first element's affine, per-element params one grid per element's
+    affine, and every output takes the first element's affine."""
+    first = batch.images[image_names[0]]
+    shape = tuple(first.data.shape[-3:])
+    output_affine = first.affines[0]
+    shared = not per_sample
+    grids = [
+        _build_grid(
+            input_affine=output_affine if shared else first.affines[i],
+            output_shape=shape,
+            output_affine=output_affine if shared else first.affines[i],
+            affine_matrix=affines[i],
+            control_points=control_points[i],
+            max_displacement=max_displacements[i],
+            affine_first=affine_first,
+        )
+        for i in range(1 if shared else len(affines))
+    ]
+    if shared:
+        grids = grids * len(affines)
+    keep_original = None
+    if passthrough:
+        mask = np.zeros(len(affines), bool)
+        mask[passthrough] = True
+        keep_original = torch.as_tensor(mask, device=first.device).reshape(-1, 1, 1, 1, 1)
+    for name in image_names:
+        img_batch = batch.images[name]
+        data = img_batch.data
+        is_label = issubclass(img_batch.image_class, LabelMap)
+        fill = _batch_fill_value(
+            img_batch,
+            default_pad_value=default_pad_value,
+            default_pad_label=default_pad_label,
+        )
+        sampled = resample_fused(
+            data,
+            [g[0] for g in grids],
+            [g[1] for g in grids],
+            out_shape=shape,
+            mode=label_interpolation if is_label else image_interpolation,
+            fill=fill,
+        )
+        # the input dtype comes back after sampling (integer labels stay
+        # integer)
+        sampled = sampled.to(data.dtype)
+        if keep_original is not None:
+            sampled = torch.where(keep_original, data, sampled)
+        img_batch.data = sampled
+        img_batch.affines = [
+            a if i in passthrough else AffineMatrix(output_affine)
+            for i, a in enumerate(img_batch.affines)
+        ]
+
+
+# --------------------------------------------------------------------------
+# Wrappers
+# --------------------------------------------------------------------------
+
+
+class Affine(Spatial):
+    r"""Random affine: scales / degrees / translation about a pivot."""
+
+    def __init__(
+        self,
+        *,
+        scales=1.0,
+        degrees=0.0,
+        translation=0.0,
+        isotropic: bool = False,
+        center: str = "image",
+        default_pad_value="minimum",
+        default_pad_label: float = 0,
+        image_interpolation="linear",
+        label_interpolation="nearest",
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            scales=scales,
+            degrees=degrees,
+            translation=translation,
+            isotropic=isotropic,
+            center=center,
+            default_pad_value=default_pad_value,
+            default_pad_label=default_pad_label,
+            image_interpolation=image_interpolation,
+            label_interpolation=label_interpolation,
+            **kwargs,
+        )
+
+
+class ElasticDeformation(Spatial):
+    r"""Random dense elastic deformation from a coarse control grid."""
+
+    def __init__(
+        self,
+        *,
+        control_points=None,
+        num_control_points=7,
+        max_displacement=7.5,
+        locked_borders: int = 2,
+        image_interpolation="linear",
+        label_interpolation="nearest",
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            control_points=control_points,
+            num_control_points=num_control_points,
+            max_displacement=max_displacement,
+            locked_borders=locked_borders,
+            image_interpolation=image_interpolation,
+            label_interpolation=label_interpolation,
+            **kwargs,
+        )
