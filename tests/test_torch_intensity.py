@@ -42,19 +42,37 @@ def jax_normals(monkeypatch):
     monkeypatch.setattr(tt.random, "device_normal", jax_device_normal)
 
 
-def make_batches(b=2, shape=(1, 14, 16, 18), seed=0, names=("t1",)):
-    """The same numpy volumes as a JAX batch and a port batch."""
+def block_labels(rng, spatial, block=4):
+    """(1, *spatial) int32 labels in {0, 1, 2, 4} (the BraTS label set),
+    constant on blocks of ``block`` voxels: region boundaries, not a
+    boundary at every voxel."""
+    coarse = rng.integers(0, 4, [-(-s // block) for s in spatial])
+    labels = coarse.repeat(block, 0).repeat(block, 1).repeat(block, 2)
+    labels = labels[: spatial[0], : spatial[1], : spatial[2]].astype(np.int32)
+    labels[labels == 3] = 4
+    return labels[None]
+
+
+def make_batches(b=2, shape=(1, 14, 16, 18), seed=0, names=("t1",), labels=()):
+    """The same numpy volumes as a JAX batch and a port batch: ScalarImages
+    ``names`` of ``shape``, then int32 LabelMaps ``labels`` (one channel,
+    :func:`block_labels`), all drawn from one numpy seed."""
     rng = np.random.default_rng(seed)
     arrays = [
         {n: (rng.random(shape, np.float32) + 0.5) for n in names} for _ in range(b)
     ]
-    jax_batch = JaxBatch.from_subjects(
-        [tj.Subject(**{n: tj.ScalarImage(a[n]) for n in names}) for a in arrays]
-    )
-    port_batch = tt.SubjectsBatch.from_subjects(
-        [tt.Subject(**{n: tt.ScalarImage(a[n]) for n in names}) for a in arrays]
-    )
-    return jax_batch, port_batch
+    segs = [{n: block_labels(rng, shape[1:]) for n in labels} for _ in range(b)]
+    batches = []
+    for pkg, batch_class in ((tj, JaxBatch), (tt, tt.SubjectsBatch)):
+        subjects = [
+            pkg.Subject(
+                **{n: pkg.ScalarImage(a[n]) for n in names},
+                **{n: pkg.LabelMap(s[n]) for n in labels},
+            )
+            for a, s in zip(arrays, segs)
+        ]
+        batches.append(batch_class.from_subjects(subjects))
+    return tuple(batches)
 
 
 def run_both(make, jax_batch, port_batch, seed=7, fuse=False):

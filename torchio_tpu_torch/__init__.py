@@ -6,9 +6,12 @@ and a batch runs on the device its tensors live on. The JAX package
 ``torchio_tpu`` is the reference this port is held against; the two
 packages draw identical parameters from the same :func:`seed`.
 
-This first slice covers the headline augmentation pipeline:
+It covers the headline augmentation pipeline,
 ``Compose([Spatial(...), BiasField(...), Noise(...)], fuse=True)``, with
-the resample running in a hand-written CUDA kernel on a CUDA batch.
+every interpolation of ``Spatial`` (nearest, linear, B-spline orders 2-7
+and the partial-volume "label" mode). On a CUDA batch the resampling runs
+in hand-written CUDA kernels (``csrc/``); on a CPU batch in their plain
+PyTorch versions.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Resampling: trilinear/nearest resample of a batch from grid specs.
+"""Resampling: trilinear/nearest and label-vote resample from grid specs.
 
 Counterpart of ``torchio_tpu/ops/resample.py``. Semantics match
 ``torch.nn.functional.grid_sample(align_corners=True,
@@ -19,9 +19,17 @@ The sample point of output voxel ``(i, j, k)`` of element ``b`` is
 coarse displacement field (:func:`upsample_field`), both in float32 in
 the operation order of the JAX package.
 
-:func:`resample_fused` sends a CUDA batch to the hand-written kernel
-(:mod:`.resample_kernel`, ``csrc/resample.cu``) and a CPU batch to
-:func:`resample_plain`, the plain PyTorch version of the same function.
+The partial-volume label vote (:func:`resample_label_fused`) takes the 8
+corner labels with the same weights: each corner's label scores the
+summed weight of the corners carrying it, the top score wins (ties to the
+smallest label), and ``pad_label`` applies where the in-bounds weight is
+<= 0.5. It equals one-hot -> trilinear -> argmax without the label set.
+
+:func:`resample_fused` and :func:`resample_label_fused` send a CUDA
+batch to the hand-written kernels (:mod:`.resample_kernel`,
+``csrc/resample.cu`` and ``csrc/label_resample.cu``) and a CPU batch to
+:func:`resample_plain` and :func:`resample_label_plain`, the plain
+PyTorch versions of the same functions.
 The JAX package's TPU machinery (pre-shear pass, windowed and tiled
 Pallas kernels, eligibility guards and their gather fallback) has no
 counterpart here: it exists because the TPU has no fast gather.
@@ -151,6 +159,15 @@ def _sample(vol, ci, cj, ck, fill, mode: str, apply_fill: bool):
     return torch.where(mask > 0.5, acc, fill.reshape(-1, 1, 1, 1))
 
 
+def _element_coords(maps, fields, b: int, out_shape):
+    """Element ``b``'s three (Io, Jo, Ko) sample-coordinate arrays."""
+    ci, cj, ck = build_coords(maps[b], out_shape)
+    if fields is not None:
+        disp = upsample_field(fields[b], out_shape)
+        ci, cj, ck = ci + disp[..., 0], cj + disp[..., 1], ck + disp[..., 2]
+    return ci, cj, ck
+
+
 def resample_plain(
     vol: torch.Tensor,
     maps: torch.Tensor,
@@ -166,12 +183,83 @@ def resample_plain(
     fill (B, C) float32. Runs one element at a time."""
     outs = []
     for b in range(vol.shape[0]):
-        ci, cj, ck = build_coords(maps[b], out_shape)
-        if fields is not None:
-            disp = upsample_field(fields[b], out_shape)
-            ci, cj, ck = ci + disp[..., 0], cj + disp[..., 1], ck + disp[..., 2]
+        ci, cj, ck = _element_coords(maps, fields, b, out_shape)
         outs.append(_sample(vol[b], ci, cj, ck, fill[b], mode, apply_fill))
     return torch.stack(outs)
+
+
+def _vote(labels: torch.Tensor, ci, cj, ck, pad) -> torch.Tensor:
+    """One element: labels (I, J, K) int32 or float32, coords (Io, Jo,
+    Ko) each. Returns the (Io, Jo, Ko) winners."""
+    si, sj, sk = labels.shape
+    flat = labels.reshape(-1)
+    if si == 1:
+        ci = torch.zeros_like(ci)
+    if sj == 1:
+        cj = torch.zeros_like(cj)
+    if sk == 1:
+        ck = torch.zeros_like(ck)
+    i0, wi = _axis_weights(ci, si)
+    j0, wj = _axis_weights(cj, sj)
+    k0, wk = _axis_weights(ck, sk)
+    weights, labs = [], []
+    wsum = torch.zeros_like(ci)
+    for di in (0, 1):
+        for dj in (0, 1):
+            for dk in (0, 1):
+                w = wi[di] * wj[dj] * wk[dk]
+                weights.append(w)
+                wsum = wsum + w
+                idx = (
+                    (i0 + di).clamp(0, si - 1) * (sj * sk)
+                    + (j0 + dj).clamp(0, sj - 1) * sk
+                    + (k0 + dk).clamp(0, sk - 1)
+                )
+                labs.append(flat[idx])
+    # each corner's score: the weight of the corners carrying its label,
+    # summed in corner order
+    scores = []
+    for lab in labs:
+        score = torch.zeros_like(ci)
+        for other, w in zip(labs, weights):
+            score = score + torch.where(other == lab, w, 0.0)
+        scores.append(score)
+    top = scores[0]
+    for score in scores[1:]:
+        top = torch.maximum(top, score)
+    big = float("inf") if labels.dtype.is_floating_point else torch.iinfo(labels.dtype).max
+    winner = torch.full_like(labs[0], big)
+    for score, lab in zip(scores, labs):
+        winner = torch.minimum(winner, torch.where(score == top, lab, big))
+    return torch.where(wsum > 0.5, winner, pad)
+
+
+def resample_label_plain(
+    vol: torch.Tensor,
+    maps: torch.Tensor,
+    fields: torch.Tensor | None,
+    out_shape: tuple[int, int, int],
+    pad_label: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of the label-vote kernel, same arguments as
+    :func:`.resample_kernel.resample_label_cuda`: vol (B, 1, I, J, K)
+    int32 or float32 labels, maps (B, 3, 4), fields (B, ni, nj, nk, 3) or
+    None. Returns (B, 1, Io, Jo, Ko) labels of ``vol``'s type."""
+    if vol.shape[1] != 1:
+        raise ValueError(f"the label vote takes one channel, got {vol.shape[1]}")
+    pad = _pad_value(pad_label, vol.dtype)
+    outs = []
+    for b in range(vol.shape[0]):
+        ci, cj, ck = _element_coords(maps, fields, b, out_shape)
+        outs.append(_vote(vol[b, 0], ci, cj, ck, pad))
+    return torch.stack(outs)[:, None]
+
+
+def _pad_value(pad_label: float, dtype: torch.dtype):
+    """``pad_label`` cast to the label type (float -> int truncates)."""
+    if dtype.is_floating_point:
+        return float(np.float32(pad_label))
+    return int(np.asarray(pad_label).astype(np.int32))
 
 
 # --------------------------------------------------------------------
@@ -258,3 +346,41 @@ def resample_fused(
     if data.device.type != "cpu":
         raise ValueError(f"resample_fused runs on cuda or cpu, got {data.device}")
     return resample_plain(vol, maps, fields, fill_bc, out_spatial, mode, apply_fill)
+
+
+def resample_label_fused(
+    data: torch.Tensor,
+    matrices,
+    control_points,
+    *,
+    out_shape=None,
+    pad_label: float = 0.0,
+) -> torch.Tensor:
+    """Partial-volume label resample of a (B, 1, I, J, K) label batch
+    from per-element grid specs (arguments as :func:`resample_fused`).
+
+    Integer labels vote in int32 (values above 2^24 survive, which a
+    float32 round trip would not), float labels in float32; the result
+    comes back in ``data``'s dtype. A CUDA batch goes through the CUDA
+    kernel, a CPU batch through :func:`resample_label_plain`.
+    """
+    b = data.shape[0]
+    if data.ndim != 5 or data.shape[1] != 1:
+        raise ValueError(f"labels must be (B, 1, I, J, K), got {tuple(data.shape)}")
+    if len(matrices) != b or len(control_points) != b:
+        raise ValueError(f"Expected {b} maps and {b} control-point entries")
+    out_spatial = tuple(
+        int(s) for s in (out_shape if out_shape is not None else data.shape[-3:])
+    )
+    work = torch.float32 if data.dtype.is_floating_point else torch.int32
+    vol = data.to(work).contiguous()
+    maps, fields = _marshal_maps(matrices, control_points, data.device)
+    if data.device.type == "cuda":
+        from .resample_kernel import resample_label_cuda
+
+        out = resample_label_cuda(vol, maps, fields, out_spatial, pad_label)
+    elif data.device.type == "cpu":
+        out = resample_label_plain(vol, maps, fields, out_spatial, pad_label)
+    else:
+        raise ValueError(f"resample_label_fused runs on cuda or cpu, got {data.device}")
+    return out.to(data.dtype)

@@ -1,100 +1,73 @@
-"""Wrapper of the hand-written CUDA resample kernel (``csrc/resample.cu``).
+"""Wrappers of the hand-written CUDA resample kernels.
 
-The kernel stands in for the JAX package's Pallas resample kernels
-(``ops/shear_resample.py`` and ``ops/window_resample.py``); the source
-file's head says what it computes and what bounds it. Its plain PyTorch
-version is :func:`torchio_tpu_torch.ops.resample.resample_plain`, which
-takes the same arguments.
+- :func:`resample_cuda` (``csrc/resample.cu``): trilinear / nearest, in
+  place of the JAX package's Pallas shear and window resample kernels;
+  its plain version is :func:`..resample.resample_plain`.
+- :func:`resample_label_cuda` (``csrc/label_resample.cu``): the
+  partial-volume label vote, in place of their "corners" mode; its plain
+  version is :func:`..resample.resample_label_plain`.
 
-The shared library is built at first use with ``nvcc`` into the
-package's ``_build/`` directory, under a name keyed by a hash of the
-source and the flags, so a stale build is never loaded. It has a plain C
-interface and is loaded with ``ctypes``. A launch goes on the current
-CUDA stream and adds one to :data:`LAUNCHES`.
+The source files' heads say what each kernel computes and what bounds
+it. :mod:`.kernel_lib` builds and loads the libraries and counts the
+launches (``LAUNCHES["resample"]``, ``LAUNCHES["label_vote"]``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-
 import torch
 
-from .. import config
+from .kernel_lib import F32, I32, P, KernelLibrary, check_tensor, field_ratio, stream
+from .resample import _pad_value
 
-#: Number of kernel launches since import (reset it to count a run).
-LAUNCHES = 0
-
-#: ``nvcc``'s report (``-Xptxas -v``: registers, spills) of the last build
-#: made by this process, or "" when the library was already built.
-BUILD_LOG = ""
-
-SOURCE = config.CSRC_DIR / "resample.cu"
-FLAGS = (
-    *config.NVCC_ARCH,
-    "-std=c++17",
-    "-O3",
-    "-fmad=false",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
+RESAMPLE = KernelLibrary(
+    "resample.cu",
+    {"tio_resample": [P] * 5 + [I32] * 11 + [F32] * 3 + [I32, I32, P]},
+    kernels=("resample",),
+)
+LABEL = KernelLibrary(
+    "label_resample.cu",
+    {"tio_resample_label": [P] * 4 + [I32] * 10 + [F32] * 3 + [I32, I32, F32, P]},
+    kernels=("label_vote",),
 )
 
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+
+def _check_grid(vol, maps, fields, out_shape) -> tuple:
+    """Validate a resample's common arguments; returns (out_shape, the
+    field's (ni, nj, nk) or zeros)."""
+    if vol.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels need a CUDA tensor, got {vol.device}")
+    if vol.ndim != 5:
+        raise ValueError(f"vol must be (B, C, I, J, K), got {tuple(vol.shape)}")
+    b = vol.shape[0]
+    io, jo, ko = (int(s) for s in out_shape)
+    if min(io, jo, ko) < 1:
+        raise ValueError(f"out_shape must be positive, got {out_shape}")
+    if max(*vol.shape, io, jo, ko) >= 2**31:
+        raise ValueError("every dimension must be below 2**31")
+    check_tensor("maps", maps, (b, 3, 4), vol.device)
+    ni = nj = nk = 0
+    if fields is not None:
+        if fields.ndim != 5 or fields.shape[0] != b or fields.shape[-1] != 3:
+            raise ValueError(f"fields must be (B, ni, nj, nk, 3), got {tuple(fields.shape)}")
+        ni, nj, nk = (int(n) for n in fields.shape[1:4])
+        check_tensor("fields", fields, (b, ni, nj, nk, 3), vol.device)
+    return (io, jo, ko), (ni, nj, nk)
 
 
-def library_path():
-    digest = hashlib.sha256(" ".join(FLAGS).encode() + SOURCE.read_bytes())
-    return config.BUILD_DIR / f"libtio_resample-{digest.hexdigest()[:16]}.so"
+def grid_args(vol, out_shape, coarse) -> tuple:
+    """The (B, [C,] I, J, K, Io, Jo, Ko, ni, nj, nk, ri, rj, rk) launch
+    arguments shared by every resample kernel, C omitted."""
+    b, _, si, sj, sk = vol.shape
+    io, jo, ko = out_shape
+    ni, nj, nk = coarse
+    return (
+        b, si, sj, sk, io, jo, ko, ni, nj, nk,
+        field_ratio(ni, io), field_ratio(nj, jo), field_ratio(nk, ko),
+    )
 
 
-def build() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library."""
-    global _lib, BUILD_LOG
-    with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
-        if not path.exists():
-            config.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            cmd = [config.nvcc(), *FLAGS, "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
-            BUILD_LOG = proc.stdout + proc.stderr
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tio_resample.argtypes = [p, p, p, p, p] + [i] * 11 + [f] * 3 + [i, i, p]
-        lib.tio_resample.restype = ctypes.c_int
-        lib.tio_error_string.argtypes = [ctypes.c_int]
-        lib.tio_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
-
-
-def _ratio(n_in: int, n_out: int) -> float:
-    return 0.0 if n_out == 1 else (n_in - 1) / (n_out - 1)
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def resample_cuda(
@@ -108,46 +81,52 @@ def resample_cuda(
 ) -> torch.Tensor:
     """Resample on the card; see :func:`..resample.resample_plain` for
     the arguments. Returns a new (B, C, Io, Jo, Ko) float32 tensor."""
-    global LAUNCHES
-    if vol.device.type != "cuda":
-        raise ValueError(f"resample_cuda needs a CUDA tensor, got {vol.device}")
-    if vol.ndim != 5:
-        raise ValueError(f"vol must be (B, C, I, J, K), got {tuple(vol.shape)}")
+    out_shape, coarse = _check_grid(vol, maps, fields, out_shape)
     if mode not in ("linear", "nearest"):
         raise ValueError(f"Unsupported resampling mode: {mode!r}")
-    b, c, si, sj, sk = vol.shape
-    io, jo, ko = (int(s) for s in out_shape)
-    if min(io, jo, ko) < 1:
-        raise ValueError(f"out_shape must be positive, got {out_shape}")
-    if max(b, c, si, sj, sk, io, jo, ko) >= 2**31:
-        raise ValueError("every dimension must be below 2**31")
-    dev = vol.device
-    _check("vol", vol, tuple(vol.shape), dev)
-    _check("maps", maps, (b, 3, 4), dev)
-    _check("fill", fill, (b, c), dev)
-    ni = nj = nk = 0
-    if fields is not None:
-        if fields.ndim != 5 or fields.shape[0] != b or fields.shape[-1] != 3:
-            raise ValueError(f"fields must be (B, ni, nj, nk, 3), got {tuple(fields.shape)}")
-        ni, nj, nk = (int(n) for n in fields.shape[1:4])
-        _check("fields", fields, (b, ni, nj, nk, 3), dev)
-    out = torch.empty((b, c, io, jo, ko), dtype=torch.float32, device=dev)
+    b, c = vol.shape[:2]
+    check_tensor("vol", vol, tuple(vol.shape), vol.device)
+    check_tensor("fill", fill, (b, c), vol.device)
+    out = torch.empty((b, c, *out_shape), dtype=torch.float32, device=vol.device)
     if out.numel() == 0:
         return out
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.tio_resample(
-            vol.data_ptr(), maps.data_ptr(),
-            None if fields is None else fields.data_ptr(),
-            fill.data_ptr(), out.data_ptr(),
-            b, c, si, sj, sk, io, jo, ko, ni, nj, nk,
-            _ratio(ni, io), _ratio(nj, jo), _ratio(nk, ko),
-            int(mode == "nearest"), int(apply_fill),
-            torch.cuda.current_stream(dev).cuda_stream,
+    g = grid_args(vol, out_shape, coarse)
+    with torch.cuda.device(vol.device):
+        RESAMPLE.launch(
+            "resample", "tio_resample",
+            vol.data_ptr(), maps.data_ptr(), _ptr(fields), fill.data_ptr(), out.data_ptr(),
+            g[0], c, *g[1:], int(mode == "nearest"), int(apply_fill),
+            stream(vol.device),
         )
-    if err != 0:
-        raise RuntimeError(
-            f"resample kernel launch failed: {lib.tio_error_string(err).decode()}"
+    return out
+
+
+def resample_label_cuda(
+    vol: torch.Tensor,
+    maps: torch.Tensor,
+    fields: torch.Tensor | None,
+    out_shape: tuple[int, int, int],
+    pad_label: float,
+) -> torch.Tensor:
+    """Partial-volume label vote on the card; see
+    :func:`..resample.resample_label_plain` for the arguments. Returns a
+    new (B, 1, Io, Jo, Ko) tensor of ``vol``'s type (int32 or float32)."""
+    out_shape, coarse = _check_grid(vol, maps, fields, out_shape)
+    if vol.dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"labels must be int32 or float32, got {vol.dtype}")
+    if vol.shape[1] != 1:
+        raise ValueError(f"the label vote takes one channel, got {vol.shape[1]}")
+    check_tensor("vol", vol, tuple(vol.shape), vol.device, vol.dtype)
+    out = torch.empty((vol.shape[0], 1, *out_shape), dtype=vol.dtype, device=vol.device)
+    if out.numel() == 0:
+        return out
+    pad_int = _pad_value(pad_label, torch.int32)
+    with torch.cuda.device(vol.device):
+        LABEL.launch(
+            "label_vote", "tio_resample_label",
+            vol.data_ptr(), maps.data_ptr(), _ptr(fields), out.data_ptr(),
+            *grid_args(vol, out_shape, coarse),
+            int(vol.dtype == torch.float32), pad_int, float(pad_label),
+            stream(vol.device),
         )
-    LAUNCHES += 1
     return out

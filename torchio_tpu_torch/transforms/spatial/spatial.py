@@ -7,18 +7,25 @@ Counterpart of ``torchio_tpu/transforms/spatial/spatial.py``:
   coarse control points (mm), with the ``affine_first`` ordering flag.
 - The output voxel -> input voxel map ``A_in^-1 @ T^-1 @ A_out`` is
   float64 host math; only the float32 map reaches the device.
+- Interpolation orders 0-7 by name or number (``"bspline"`` is cubic),
+  and ``label_interpolation="label"``: partial-volume label resampling
+  (one-hot -> interpolate -> argmax, with the > 50 % in-bounds rule).
 - Out-of-bounds fill: a number, or ``"minimum"`` computed per element
   and channel on the device; ``default_pad_label`` for label maps.
 - Per-instance geometry with bit-exact passthrough of gated-out
   elements; the input dtype is restored after sampling.
 
 The parameters are drawn by the same host numpy code as the JAX package,
-so the same seed records the same params. The resample itself is one
-call of :func:`torchio_tpu_torch.ops.resample.resample_fused`, which
-runs the CUDA kernel on a CUDA batch.
+so the same seed records the same params. Each image is resampled by one
+call on the batch's device, each with a hand-written CUDA kernel behind
+it: orders 0-1 by :func:`torchio_tpu_torch.ops.resample.resample_fused`,
+orders 2-7 by :func:`torchio_tpu_torch.ops.bspline.bspline_resample_fused`
+(prefilter, then taps), and a one-channel label map in "label" mode with
+linear one-hot interpolation by
+:func:`torchio_tpu_torch.ops.resample.resample_label_fused` (the corner
+vote, which gives the one-hot result without the label set).
 
-Not yet ported: ``target=`` (and ``Resample``), the "label"
-partial-volume mode, B-spline orders 2-7, antialias, the "mean" and
+Not yet ported: ``target=`` (and ``Resample``), antialias, the "mean" and
 "otsu" fills, and inverses.
 """
 
@@ -35,20 +42,43 @@ from ... import random as tio_random
 from ...core.affine import AffineMatrix
 from ...data.batch import ImagesBatch, SubjectsBatch
 from ...data.image import LabelMap
-from ...ops.resample import resample_fused
+from ...ops.bspline import bspline_resample_fused
+from ...ops.resample import resample_fused, resample_label_fused
+from .._utils import unique_labels
 from ..parameter_range import _ParameterRange
 from ..transform import SpatialTransform
 
-_INTERPOLATIONS = ("nearest", "linear")
+_INTERPOLATION_TO_ORDER = {
+    "nearest": 0,
+    "linear": 1,
+    "quadratic": 2,
+    "cubic": 3,
+    "fourth": 4,
+    "fifth": 5,
+    "sixth": 6,
+    "seventh": 7,
+}
+_ORDER_TO_INTERPOLATION = {v: k for k, v in _INTERPOLATION_TO_ORDER.items()}
+LABEL_INTERPOLATION = "label"
 _SPLINE_ORDER = 3  # coarse-grid folding heuristic, matches the JAX package
 
 
 def _parse_interpolation(value) -> str:
-    name = {0: "nearest", 1: "linear", "trilinear": "linear"}.get(value, value)
-    name = str(name).lower()
-    if name not in _INTERPOLATIONS:
-        raise NotImplementedError(
-            f"Interpolation {value!r} is not ported yet; use 'linear' or 'nearest'"
+    if isinstance(value, (int, np.integer)):
+        if int(value) not in _ORDER_TO_INTERPOLATION:
+            raise ValueError(f"Interpolation order must be 0-7, got {value}")
+        return _ORDER_TO_INTERPOLATION[int(value)]
+    name = str(value).lower()
+    if name == LABEL_INTERPOLATION:
+        return LABEL_INTERPOLATION
+    if name == "bspline":
+        return "cubic"
+    if name == "trilinear":
+        return "linear"
+    if name not in _INTERPOLATION_TO_ORDER:
+        raise ValueError(
+            f"Unknown interpolation {value!r}; use one of"
+            f" {list(_INTERPOLATION_TO_ORDER)} or 'label'"
         )
     return name
 
@@ -239,8 +269,13 @@ class Spatial(SpatialTransform):
         max_displacement: elastic displacement spec in mm.
         locked_borders: coarse border layers held at zero (0, 1 or 2).
         affine_first: apply the affine before the elastic field.
-        image_interpolation: "linear" or "nearest" for scalar images.
-        label_interpolation: "linear" or "nearest" for label maps.
+        image_interpolation: interpolation of scalar images: a name
+            ("nearest", "linear", "quadratic", "cubic" or "bspline",
+            "fourth" ... "seventh") or an order 0-7.
+        label_interpolation: the same for label maps, or "label" for
+            partial-volume label resampling.
+        one_hot_label_interpolation: interpolation of the one-hot
+            channels in "label" mode (not "label" itself).
         default_pad_value: a number, or "minimum" (per element and
             channel) for scalar images.
         default_pad_label: fill value for label maps.
@@ -321,11 +356,18 @@ class Spatial(SpatialTransform):
             )
         self.locked_borders = locked_borders
         self.affine_first = affine_first
-        self.image_interpolation = _parse_interpolation(image_interpolation)
+        parsed = _parse_interpolation(image_interpolation)
+        if parsed == LABEL_INTERPOLATION:
+            raise ValueError(
+                'image_interpolation cannot be "label"; that mode is only'
+                " valid for label_interpolation"
+            )
+        self.image_interpolation = parsed
         self.label_interpolation = _parse_interpolation(label_interpolation)
-        self.one_hot_label_interpolation = _parse_interpolation(
-            one_hot_label_interpolation
-        )
+        one_hot = _parse_interpolation(one_hot_label_interpolation)
+        if one_hot == LABEL_INTERPOLATION:
+            raise ValueError('one_hot_label_interpolation cannot be "label"')
+        self.one_hot_label_interpolation = one_hot
         self.antialias = antialias
         if isinstance(default_pad_value, str) and default_pad_value != "minimum":
             if default_pad_value in ("mean", "otsu"):
@@ -461,6 +503,7 @@ class Spatial(SpatialTransform):
             raise NotImplementedError("Spatial target spaces are not ported yet")
         for key in ("image_interpolation", "label_interpolation"):
             _parse_interpolation(params[key])
+        one_hot = _parse_interpolation(params.get("one_hot_label_interpolation", "linear"))
         if params.get("antialias", False):
             raise NotImplementedError("Spatial antialias is not ported yet")
         n = batch.batch_size
@@ -491,6 +534,7 @@ class Spatial(SpatialTransform):
             affine_first=params["affine_first"],
             image_interpolation=params["image_interpolation"],
             label_interpolation=params["label_interpolation"],
+            one_hot_label_interpolation=one_hot,
             default_pad_value=params["default_pad_value"],
             default_pad_label=float(params["default_pad_label"]),
         )
@@ -524,6 +568,7 @@ def _run_spatial_pipeline(
     affine_first: bool,
     image_interpolation: str,
     label_interpolation: str,
+    one_hot_label_interpolation: str,
     default_pad_value,
     default_pad_label: float,
 ) -> None:
@@ -551,6 +596,8 @@ def _run_spatial_pipeline(
     ]
     if shared:
         grids = grids * len(affines)
+    maps = [g[0] for g in grids]
+    fields = [g[1] for g in grids]
     keep_original = None
     if passthrough:
         mask = np.zeros(len(affines), bool)
@@ -560,29 +607,82 @@ def _run_spatial_pipeline(
         img_batch = batch.images[name]
         data = img_batch.data
         is_label = issubclass(img_batch.image_class, LabelMap)
-        fill = _batch_fill_value(
-            img_batch,
-            default_pad_value=default_pad_value,
-            default_pad_label=default_pad_label,
-        )
-        sampled = resample_fused(
-            data,
-            [g[0] for g in grids],
-            [g[1] for g in grids],
-            out_shape=shape,
-            mode=label_interpolation if is_label else image_interpolation,
-            fill=fill,
-        )
-        # the input dtype comes back after sampling (integer labels stay
-        # integer)
-        sampled = sampled.to(data.dtype)
+        interpolation = label_interpolation if is_label else image_interpolation
+        if is_label and interpolation == LABEL_INTERPOLATION:
+            sampled = _resample_label_partial_volume(
+                data, maps, fields, shape,
+                one_hot_label_interpolation=one_hot_label_interpolation,
+                default_pad_label=default_pad_label,
+            )
+        else:
+            fill = _batch_fill_value(
+                img_batch,
+                default_pad_value=default_pad_value,
+                default_pad_label=default_pad_label,
+            )
+            sampled = _dispatch_resample(
+                data, maps, fields, shape, mode=interpolation, fill=fill
+            )
+            # the input dtype comes back after sampling (integer labels
+            # stay integer)
+            sampled = sampled.to(data.dtype)
         if keep_original is not None:
-            sampled = torch.where(keep_original, data, sampled)
+            sampled = torch.where(keep_original, data.to(sampled.dtype), sampled)
         img_batch.data = sampled
         img_batch.affines = [
             a if i in passthrough else AffineMatrix(output_affine)
             for i, a in enumerate(img_batch.affines)
         ]
+
+
+def _dispatch_resample(data, maps, fields, out_shape, *, mode: str, fill):
+    """Orders 2-7 through the B-spline path, 0-1 through the
+    trilinear/nearest resample; float32 out."""
+    order = _INTERPOLATION_TO_ORDER[mode]
+    if order >= 2:
+        return bspline_resample_fused(
+            data, maps, fields, order=order, out_shape=out_shape, fill=fill
+        )
+    return resample_fused(data, maps, fields, out_shape=out_shape, mode=mode, fill=fill)
+
+
+def _resample_label_partial_volume(
+    data, maps, fields, out_shape, *, one_hot_label_interpolation: str,
+    default_pad_label: float,
+):
+    """Partial-volume label resampling (one-hot + argmax), routed as the
+    JAX package routes it:
+
+    - one channel with linear one-hot interpolation: the corner vote
+      (:func:`resample_label_fused`), equal to the one-hot path;
+    - several channels: each channel is resampled as a float map (float
+      labels keep their dtype; integer ones come back float32);
+    - otherwise the one-hot path over the sorted unique labels, ties to
+      the smallest label, ``default_pad_label`` where the summed one-hot
+      weight is <= 0.5.
+    """
+    if data.shape[1] == 1 and one_hot_label_interpolation == "linear":
+        return resample_label_fused(
+            data, maps, fields, out_shape=out_shape, pad_label=default_pad_label
+        )
+    if data.shape[1] > 1:
+        sampled = _dispatch_resample(
+            data.to(torch.float32), maps, fields, out_shape,
+            mode=one_hot_label_interpolation, fill=0.0,
+        )
+        return sampled.to(data.dtype) if data.dtype.is_floating_point else sampled
+    labels = unique_labels(data)
+    values = torch.as_tensor(labels, dtype=data.dtype, device=data.device)
+    one_hot = (data[:, 0:1] == values.reshape(1, -1, 1, 1, 1)).to(torch.float32)
+    sampled = _dispatch_resample(
+        one_hot, maps, fields, out_shape, mode=one_hot_label_interpolation, fill=0.0
+    )
+    winners = torch.argmax(sampled, dim=1)
+    resampled = torch.as_tensor(labels, dtype=torch.int32, device=data.device)[winners]
+    # as in the JAX package, the vote goes through float32 with the pad
+    in_bounds = torch.sum(sampled, dim=1) > 0.5
+    resampled = torch.where(in_bounds, resampled.to(torch.float32), float(default_pad_label))
+    return resampled[:, None].to(data.dtype)
 
 
 # --------------------------------------------------------------------------
