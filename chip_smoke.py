@@ -20,9 +20,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    - prefilter: within 1e-5 of the plain coefficients' largest magnitude,
      orders 2-7;
    - spline: within 1e-5 max abs for orders 2-7 on inputs in [0, 1);
-4. small batches on the card against the CPU path: the headline (1e-4)
-   and the labelled BraTS-style pipeline (images 1e-4, labels equal off
-   near ties);
+   - dense-coordinate resample: equal, linear and nearest, shared and
+     per-element grids, every fill form, points outside the volume and
+     a size-1 axis;
+   - dense-coordinate spline: within 1e-5 max abs for orders 2-7;
+4. small batches on the card against the CPU path: the headline (1e-4),
+   the labelled BraTS-style pipeline (images 1e-4, labels equal off
+   near ties) and the k-space pair (1e-4, labels untouched);
 5. headline: ``Compose([Spatial, BiasField, Noise], fuse=True)`` on
    B=4 x 1 x 256^3 float32 through ``Compose.__call__``, 2 warm-up and 5
    timed calls, with the launch counts read around the run;
@@ -30,8 +34,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    label_interpolation="label"), BiasField, Noise], fuse=True)`` on B=4
    subjects of a 4-channel 240x240x155 float32 ``mri`` and a 1-channel
    int32 ``seg`` (labels {0, 1, 2, 4}), the same way;
-7. each kernel against its plain version at its path's shape, timed
-   kernel, plain, kernel, plain with CUDA events.
+7. kspace-motion-ghosting: ``Compose([Motion(degrees=5, translation=3,
+   num_transforms=1, p=0.5), Ghosting(intensity=(0.3, 0.7), p=0.5)])``
+   on B=4 subjects of a 256^3 float32 ``t1`` and an int32 ``seg``, the
+   same way; the dense resample kernel must launch in exactly the calls
+   whose history keeps Motion;
+8. each kernel against its plain version at its path's shape, timed
+   kernel, plain, kernel, plain with CUDA events; the dense entry points
+   ``ops.resample`` (B=4 x 256^3, per-element Motion grids) and
+   ``ops.bspline.bspline_resample`` (cubic, B=1 of it) are called as a
+   user calls them, with the launch counts zeroed around the calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--profile PATH`` also writes a
@@ -41,6 +53,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import importlib
 import itertools
 import json
 import statistics
@@ -59,7 +72,10 @@ PREFILTER_RTOL = 1e-5
 SLICE_ATOL = 1e-4
 TIE_BAND = 1e-4
 ORDERS = range(2, 8)
-KERNELS = ("resample", "label_vote", "bspline_prefilter", "bspline_resample")
+KERNELS = (
+    "resample", "label_vote", "bspline_prefilter", "bspline_resample",
+    "resample_coords", "bspline_coords",
+)
 
 
 def fail(message: str) -> None:
@@ -529,20 +545,21 @@ def drive(torch, kl, pipeline, batch, kernels):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kl.reset_launches()
-    times, per_call, out = [], [], None
+    times, per_call, histories, out = [], [], [], None
     for _ in range(WARMUP + TIMED):
         before = dict(kl.LAUNCHES)
         t0 = time.perf_counter()
         out = pipeline(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        per_call.append({k: kl.LAUNCHES[k] - before[k] for k in kernels})
+        per_call.append({k: kl.LAUNCHES[k] - before[k] for k in KERNELS})
+        histories.append([h.name for h in out.applied_transforms])
     totals = {k: kl.LAUNCHES[k] for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     for k in kernels:
         if any(call[k] < 1 for call in per_call):
             fail(f"a call did not launch the {k} kernel: {[c[k] for c in per_call]}")
-    return out, times, per_call, totals, peak
+    return out, times, per_call, totals, peak, histories
 
 
 def profile_calls(torch, pipeline, batch, path, title):
@@ -565,7 +582,7 @@ def phase_slice(torch, tio, kl, profile: str | None):
     batch = make_batch(tio, torch, B, (S, S, S), dev, 0)
     pipeline = headline(tio)
     tio.seed(0)
-    out, times, per_call, totals, peak = drive(torch, kl, pipeline, batch, ("resample",))
+    out, times, per_call, totals, peak, _ = drive(torch, kl, pipeline, batch, ("resample",))
     data = out.t1.data
     if tuple(data.shape) != (B, C, S, S, S) or data.device.type != DEVICE:
         fail(f"slice output {tuple(data.shape)} on {data.device}")
@@ -594,7 +611,7 @@ def phase_brats(torch, tio, kl, profile: str | None):
     pipeline = brats_pipeline(tio)
     tio.seed(0)
     new = ("label_vote", "bspline_prefilter", "bspline_resample")
-    out, times, per_call, totals, peak = drive(torch, kl, pipeline, batch, new)
+    out, times, per_call, totals, peak, _ = drive(torch, kl, pipeline, batch, new)
     mri, seg = out.mri.data, out.seg.data
     if tuple(mri.shape) != (BRATS_B, BRATS_C, *BRATS_SHAPE) or mri.device.type != DEVICE:
         fail(f"brats mri output {tuple(mri.shape)} on {mri.device}")
@@ -615,7 +632,8 @@ def phase_brats(torch, tio, kl, profile: str | None):
         f" B={BRATS_B} x ({BRATS_C} + 1) x {'x'.join(map(str, BRATS_SHAPE))}"
         f" (median call {statistics.median(timed) * 1e3:.1f} ms, calls"
         f" {[round(t * 1e3, 1) for t in times]} ms, warm-up first);"
-        f" launches per call {per_call[-1]}; peak allocated {peak / 2**30:.2f} GiB"
+        f" launches per call {dict((k, per_call[-1][k]) for k in new)};"
+        f" peak allocated {peak / 2**30:.2f} GiB"
     )
     if profile:
         profile_calls(torch, pipeline, batch, profile, "brats-label-bspline")
@@ -723,6 +741,263 @@ def phase_brats_timing(torch, np, tio, rs, rk, bs, bk, batch):
     return results
 
 
+KSPACE_SEED = 0
+
+
+def kspace_pipeline(tio):
+    """BASELINE.json config 5's artifact pair (benchmarks/patches_bench.py:44-49)."""
+    return tio.Compose(
+        [
+            tio.Motion(degrees=5, translation=3, num_transforms=1, p=0.5),
+            tio.Ghosting(intensity=(0.3, 0.7), p=0.5),
+        ]
+    )
+
+
+def block_seg(torch, shape, device):
+    """(1, *shape) int32: label 1 on the central half of every axis, 0
+    elsewhere, as benchmarks/patches_bench.py builds its label maps."""
+    seg = torch.zeros((1, *shape), dtype=torch.int32, device=device)
+    i, j, k = (n // 4 for n in shape)
+    seg[0, i : shape[0] - i, j : shape[1] - j, k : shape[2] - k] = 1
+    return seg
+
+
+def make_kspace_batch(tio, torch, b, shape, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t1 = torch.rand((b, 1, *shape), generator=gen, device=device)
+    seg = block_seg(torch, shape, device)
+    subjects = [
+        tio.Subject(t1=tio.ScalarImage(t1[i]), seg=tio.LabelMap(seg.clone()))
+        for i in range(b)
+    ]
+    return tio.SubjectsBatch.from_subjects(subjects)
+
+
+def dense_grids(torch, rs, dev, in_shape, out_shape, b):
+    """Per-element (b, *out_shape, 3) coordinates: the kernel phases'
+    rotated, scaled and shifted maps (their borders leave the volume),
+    each coordinate jittered by up to one voxel."""
+    center = [(s - 1) / 2 for s in in_shape]
+    matrices = [
+        rot(0.15, -0.1, 0.12, 1.05, (1.5, -2.0, 0.7), center),
+        rot(-0.08, 0.17, -0.05, 0.93, (-3.0, 1.0, 2.5), center),
+    ][:b]
+    grids = torch.stack([rs.build_coords(out_shape, m, device=dev) for m in matrices])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return grids + (torch.rand(grids.shape, generator=gen, device=dev) * 2.0 - 1.0)
+
+
+def phase_coords_kernel(torch, np, rs, rk, kl):
+    """The dense-coordinate resample kernel against its plain version:
+    linear and nearest, per-element and shared grids, every fill form,
+    out-of-bounds points, a size-1 axis; equal voxel for voxel."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(5)
+    b, c = 2, 2
+    fills = {
+        "zero": 0.0,
+        "scalar": 1.5,
+        "(C,)": [0.5, -1.0],
+        "(B,C)": torch.as_tensor([[0.25, -1.0], [2.0, 0.5]], device=dev),
+    }
+    before = kl.LAUNCHES["resample_coords"]
+    cases = 0
+    for in_shape, out_shapes in KERNEL_SHAPES:
+        vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
+        for out_shape in out_shapes:
+            grids = dense_grids(torch, rs, dev, in_shape, out_shape, b)
+            for kind, coords in (("per-element", grids), ("shared", grids[:1].contiguous())):
+                for mode in ("linear", "nearest"):
+                    for fname, fill in fills.items():
+                        fill_bc, apply_fill = rs._fill_bc(fill, b, c, dev)
+                        args = (vol, coords, fill_bc, mode, apply_fill)
+                        got = rk.resample_coords_cuda(*args)
+                        want = rs.resample_coords_plain(*args)
+                        torch.cuda.synchronize()
+                        where = f"dense {mode} {kind} {in_shape}->{out_shape} fill {fname}"
+                        if got.shape != (b, c, *out_shape):
+                            fail(f"{where}: output shape {tuple(got.shape)}")
+                        differ = int((got != want).sum())
+                        if differ:
+                            err = float((got - want).abs().max())
+                            fail(f"{where}: {differ} voxels differ, max abs {err}")
+                        cases += 1
+    check_launches(kl, "resample_coords", before, cases)
+    print(
+        f"dense resample kernel vs plain: {cases} cases (linear and nearest,"
+        f" per-element and shared grids, 4 fill forms); max abs 0"
+    )
+
+
+def phase_coords_spline_kernel(torch, np, rs, bs, bk, kl):
+    """The dense-coordinate spline kernel against its plain version,
+    orders 2-7, within KERNEL_ATOL."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(6)
+    b, c = 2, 2
+    fill_bc = torch.as_tensor([[0.25, -1.0], [2.0, 0.5]], device=dev)
+    before = kl.LAUNCHES["bspline_coords"]
+    worst, cases = 0.0, 0
+    for in_shape, out_shapes in KERNEL_SHAPES:
+        vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
+        for order in ORDERS:
+            coeffs = bs.prefilter_plain(vol, order)
+            for out_shape in out_shapes:
+                grids = dense_grids(torch, rs, dev, in_shape, out_shape, b)
+                for kind, coords in (("per-element", grids), ("shared", grids[:1].contiguous())):
+                    got = bk.bspline_coords_cuda(coeffs, coords, fill_bc, order)
+                    want = bs.bspline_coords_plain(coeffs, coords, fill_bc, order)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    worst = max(worst, err)
+                    if got.shape != (b, c, *out_shape) or not err <= KERNEL_ATOL:
+                        fail(
+                            f"dense spline order {order} {kind} {in_shape}->{out_shape}:"
+                            f" shape {tuple(got.shape)}, max abs {err}"
+                        )
+                    cases += 1
+    check_launches(kl, "bspline_coords", before, cases)
+    print(
+        f"dense spline kernel vs plain: {cases} cases, orders 2-7, per-element and"
+        f" shared grids; max abs {worst:.3g} (limit {KERNEL_ATOL})"
+    )
+    return worst
+
+
+def phase_small_kspace(torch, tio, tio_random, kl):
+    """kspace-motion-ghosting on a small batch: card against the CPU path."""
+    shape = (40, 44, 48)
+    before = kl.LAUNCHES["resample_coords"]
+    cpu, gpu = run_on_both(
+        tio, tio_random, lambda: make_kspace_batch(tio, torch, B, shape, "cpu", 7),
+        kspace_pipeline, 10,
+    )
+    launched = kl.LAUNCHES["resample_coords"] - before
+    names = [h.name for h in gpu.applied_transforms]
+    if "Motion" not in names or launched != 1:
+        fail(f"small k-space batch: history {names}, {launched} dense resample launches")
+    err = float((gpu.t1.data.cpu() - cpu.t1.data).abs().max())
+    seg_in = block_seg(torch, shape, "cpu").expand(B, 1, *shape)
+    seg_ok = torch.equal(gpu.seg.data.cpu(), seg_in) and torch.equal(cpu.seg.data, seg_in)
+    print(
+        f"small k-space batch ({B} x 40x44x48, history {names}) cuda vs cpu: t1 max abs"
+        f" {err:.3g} (limit {SLICE_ATOL}); seg untouched {seg_ok}"
+    )
+    if not err <= SLICE_ATOL or not seg_ok:
+        fail("the small k-space batch differs from the CPU path")
+
+
+def phase_kspace(torch, tio, kl, profile: str | None):
+    """kspace-motion-ghosting: config 5's Compose on B=4 x 256^3 t1 + seg."""
+    dev = torch.device(DEVICE)
+    shape = (S, S, S)
+    batch = make_kspace_batch(tio, torch, B, shape, dev, 0)
+    seg_in = batch.seg.data.clone()
+    pipeline = kspace_pipeline(tio)
+    tio.seed(KSPACE_SEED)
+    out, times, per_call, totals, peak, histories = drive(torch, kl, pipeline, batch, ())
+    for names, call in zip(histories, per_call):
+        if call["resample_coords"] != int("Motion" in names):
+            fail(
+                f"k-space calls: histories {histories}, dense resample launches"
+                f" {[c['resample_coords'] for c in per_call]}"
+            )
+    kept = sum("Motion" in names for names in histories[WARMUP:])
+    if 2 * kept <= TIMED:
+        fail(f"only {kept} of {TIMED} timed calls kept Motion: {histories}")
+    t1, seg = out.t1.data, out.seg.data
+    if tuple(t1.shape) != (B, C, *shape) or t1.device.type != DEVICE or t1.dtype != torch.float32:
+        fail(f"k-space t1 output {tuple(t1.shape)} {t1.dtype} on {t1.device}")
+    if not bool(torch.isfinite(t1).all()):
+        fail("k-space t1 output has non-finite values")
+    if not torch.equal(seg, seg_in) or not torch.equal(batch.seg.data, seg_in):
+        fail("k-space seg output is not the input label map")
+    timed = times[WARMUP:]
+    vps = B * TIMED / sum(timed)
+    print(
+        f"kspace-motion-ghosting: {vps:.2f} volumes/s over {TIMED} timed calls of"
+        f" B={B} x {S}^3 t1 (+ int32 seg)"
+        f" (median call {statistics.median(timed) * 1e3:.1f} ms, calls"
+        f" {[round(t * 1e3, 1) for t in times]} ms, warm-up first); histories"
+        f" {histories}; dense resample launches per call"
+        f" {[c['resample_coords'] for c in per_call]}; peak allocated {peak / 2**30:.2f} GiB"
+    )
+    if profile:
+        profile_calls(torch, pipeline, batch, profile, "kspace-motion-ghosting")
+    return totals
+
+
+def phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl):
+    """The public dense-coordinate entry points at the slice's shape, as a
+    user calls them, with every launch count zeroed just before and read
+    just after: ``ops.resample`` on B=4 x 256^3 at the per-element grids
+    of one Motion draw, and ``ops.bspline.bspline_resample`` (cubic,
+    "minimum" fill) on B=1 of it. Then each kernel against its plain
+    version on the same inputs, and timed."""
+    from torchio_tpu_torch.transforms.intensity.motion import _rigid_voxel_matrix
+
+    dev = torch.device(DEVICE)
+    shape = (S, S, S)
+    batch = make_kspace_batch(tio, torch, B, shape, dev, 1)
+    tio.seed(5)
+    params = tio.Motion(degrees=5, translation=3, num_transforms=1).make_params(batch)
+    coords = torch.stack(
+        [
+            tio.ops.build_coords(
+                shape, _rigid_voxel_matrix(t[0]["degrees"], t[0]["translation"], shape),
+                device=dev,
+            )
+            for t in params["transforms"]
+        ]
+    )
+    vol = batch.t1.data.contiguous()
+    vol1, coords1 = vol[:1], coords[:1]
+    fill1 = torch.amin(vol1, dim=(-3, -2, -1))
+    torch.cuda.synchronize()
+    kl.reset_launches()
+    got_a = tio.ops.resample(vol, coords, mode="linear", fill=0.0)
+    got_b = bs.bspline_resample(vol1, coords1, order=3, fill=fill1)
+    torch.cuda.synchronize()
+    launches = {k: kl.LAUNCHES[k] for k in KERNELS}
+    want = {"resample_coords": 1, "bspline_coords": 1, "bspline_prefilter": 3}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"dense entry points: launches {launches}, expected {want}")
+
+    fill_a, apply_a = rs._fill_bc(0.0, B, C, dev)
+    args_a = (vol, coords, fill_a, "linear", apply_a)
+    err_a = float((got_a - rs.resample_coords_plain(*args_a)).abs().max())
+    coeffs = bk.prefilter_cuda(vol1, 3)
+    fill_b, _ = rs._fill_bc(fill1, 1, C, dev)
+    args_b = (coeffs, coords1, fill_b, 3)
+    err_b = float((got_b - bs.bspline_coords_plain(*args_b)).abs().max())
+    del got_a, got_b
+    if not err_a <= KERNEL_ATOL or not err_b <= KERNEL_ATOL:
+        fail(f"dense entry points vs plain: max abs {err_a} (resample), {err_b} (spline)")
+    results = {}
+    order, ms, plain_ms = time_pair(
+        torch, lambda: rk.resample_coords_cuda(*args_a),
+        lambda: rs.resample_coords_plain(*args_a),
+    )
+    results["resample_coords"] = (err_a, ms, plain_ms)
+    print(
+        f"dense resample B={B} x {S}^3 linear, per-element Motion grids: kernel"
+        f" {ms:.3f} ms, plain {plain_ms:.3f} ms (k, p, k, p:"
+        f" {', '.join(f'{t:.3f}' for t in order)}); max abs {err_a:.3g}"
+    )
+    order, ms, plain_ms = time_pair(
+        torch, lambda: bk.bspline_coords_cuda(*args_b),
+        lambda: bs.bspline_coords_plain(*args_b), plain_reps=2,
+    )
+    results["bspline_coords"] = (err_b, ms, plain_ms)
+    print(
+        f"dense spline order 3 B=1 x {S}^3, a Motion grid: kernel {ms:.3f} ms, plain"
+        f" {plain_ms:.3f} ms (k, p, k, p: {', '.join(f'{t:.3f}' for t in order)});"
+        f" max abs {err_b:.3g}; dense-entry launches {launches}"
+    )
+    return results, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -743,8 +1018,10 @@ def main() -> int:
     from torchio_tpu_torch.ops import bspline as bs
     from torchio_tpu_torch.ops import bspline_kernel as bk
     from torchio_tpu_torch.ops import kernel_lib as kl
-    from torchio_tpu_torch.ops import resample as rs
     from torchio_tpu_torch.ops import resample_kernel as rk
+
+    # the ops package exports the function ``resample`` under its module's name
+    rs = importlib.import_module("torchio_tpu_torch.ops.resample")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -756,12 +1033,18 @@ def main() -> int:
     phase_label_kernel(torch, np, rs, rk, kl)
     phase_prefilter_kernel(torch, np, bs, bk, kl)
     phase_spline_kernel(torch, np, rs, bs, bk, kl)
+    phase_coords_kernel(torch, np, rs, rk, kl)
+    phase_coords_spline_kernel(torch, np, rs, bs, bk, kl)
     phase_small_slice(torch, tio, tio_random)
     phase_small_labelled(torch, np, tio, tio_random, rs)
+    phase_small_kspace(torch, tio, tio_random, kl)
     headline_launches = phase_slice(torch, tio, kl, args.profile)
     brats_launches, brats_batch = phase_brats(torch, tio, kl, args.profile)
+    kspace_launches = phase_kspace(torch, tio, kl, args.profile)
     err, ms, plain_ms = phase_kernel_timing(torch, np, tio, rs, rk)
     timings = phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch)
+    del brats_batch
+    dense, dense_launches = phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl)
     window = "torchio_tpu/ops/window_resample.py:335"
     kernels = [
         {
@@ -810,6 +1093,30 @@ def main() -> int:
             "max_abs_err": timings["bspline_resample"][0],
             "ms": timings["bspline_resample"][1],
             "plain_ms": timings["bspline_resample"][2],
+        },
+        {
+            "name": "resample_coords",
+            "route": "cuda",
+            "source": "torchio_tpu_torch/csrc/resample.cu",
+            "replaces": "torchio_tpu/ops/pallas_resample.py:117",
+            "path": "kspace-motion-ghosting",
+            "launches": kspace_launches["resample_coords"],
+            "max_abs_err": dense["resample_coords"][0],
+            "ms": dense["resample_coords"][1],
+            "plain_ms": dense["resample_coords"][2],
+        },
+        {
+            "name": "bspline_coords",
+            "route": "cuda",
+            "source": "torchio_tpu_torch/csrc/bspline.cu",
+            "replaces": window,
+            "note": "dense-coordinate mode; the JAX package's dense bspline_resample"
+            " (torchio_tpu/ops/bspline.py:215) is an XLA gather",
+            "path": "dense-entry",
+            "launches": dense_launches["bspline_coords"],
+            "max_abs_err": dense["bspline_coords"][0],
+            "ms": dense["bspline_coords"][1],
+            "plain_ms": dense["bspline_coords"][2],
         },
     ]
     print(f"card: {smi}")

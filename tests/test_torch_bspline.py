@@ -18,6 +18,7 @@ card):
 
 from __future__ import annotations
 
+import importlib
 import pathlib
 
 import jax.numpy as jnp
@@ -25,12 +26,16 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
+
 from test_torch_label_spline import _maps
 from torchio_tpu.ops import bspline as jax_bspline
 from torchio_tpu.ops.resample import build_coords as jax_coords
 from torchio_tpu.ops.resample import upsample_field as jax_upsample
 from torchio_tpu_torch.ops import bspline as bs
-from torchio_tpu_torch.ops import resample as rs
+
+# the ops package exports the function ``resample`` under its module's name
+rs = importlib.import_module("torchio_tpu_torch.ops.resample")
 
 PREFILTER_RTOL = 1e-6
 SPLINE_ATOL = {2: 2e-5, 3: 2e-5, 4: 5e-5, 5: 5e-5, 6: 5e-5, 7: 5e-5}

@@ -22,10 +22,14 @@ JAX package in ``test_torch_bspline.py`` and
 
 from __future__ import annotations
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 
 import torchio_tpu as tj
 import torchio_tpu_torch as tt
@@ -36,9 +40,11 @@ from torchio_tpu.ops.shear_resample import shear_eligible, shear_resample_label_
 from torchio_tpu.ops.window_resample import window_eligible, window_resample_label_fused
 from torchio_tpu_torch.ops import bspline as bs
 from torchio_tpu_torch.ops import kernel_lib
-from torchio_tpu_torch.ops import resample as rs
 from torchio_tpu_torch.transforms._utils import unique_labels
 from torchio_tpu_torch.transforms.spatial.spatial import _build_grid
+
+# the ops package exports the function ``resample`` under its module's name
+rs = importlib.import_module("torchio_tpu_torch.ops.resample")
 
 TIE_BAND = 1e-4
 SLICE_ATOL = 1e-4

@@ -15,15 +15,21 @@ float pipelines may round either way.
 
 from __future__ import annotations
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
+
 from torchio_tpu.ops.resample import _resample_element_fused
 from torchio_tpu.ops.shear_resample import shear_eligible, shear_resample_fused
 from torchio_tpu.ops.window_resample import window_eligible, window_resample_fused
-from torchio_tpu_torch.ops import resample as rs
+
+# the ops package exports the function ``resample`` under its module's name
+rs = importlib.import_module("torchio_tpu_torch.ops.resample")
 
 GATHER_ATOL = 1e-5
 KERNEL_ATOL = 2e-5
@@ -122,7 +128,7 @@ def _off_ties(case) -> np.ndarray:
     maps, fields = rs._marshal_maps(case["ms"], case["cps"], "cpu")
     masks = []
     for b in range(maps.shape[0]):
-        coords = rs.build_coords(maps[b], case["out"])
+        coords = rs.coord_planes(maps[b], case["out"])
         if fields is not None:
             disp = rs.upsample_field(fields[b], case["out"])
             coords = [coords[a] + disp[..., a] for a in range(3)]

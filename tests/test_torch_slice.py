@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
+
 import torchio_tpu as tj
 import torchio_tpu_torch as tt
 from test_torch_intensity import jax_device_normal, make_batches

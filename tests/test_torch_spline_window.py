@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
+
 from test_torch_bspline import SPLINE_ATOL, _port_spline, _spline_case
 from torchio_tpu.ops.window_resample import cubic_resample_fused, cubic_window_eligible
 

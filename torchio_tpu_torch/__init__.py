@@ -9,9 +9,11 @@ packages draw identical parameters from the same :func:`seed`.
 It covers the headline augmentation pipeline,
 ``Compose([Spatial(...), BiasField(...), Noise(...)], fuse=True)``, with
 every interpolation of ``Spatial`` (nearest, linear, B-spline orders 2-7
-and the partial-volume "label" mode). On a CUDA batch the resampling runs
-in hand-written CUDA kernels (``csrc/``); on a CPU batch in their plain
-PyTorch versions.
+and the partial-volume "label" mode), and the MRI-artifact pair
+``Compose([Motion(...), Ghosting(...)])``. On a CUDA batch the resampling
+runs in hand-written CUDA kernels (``csrc/``); on a CPU batch in their
+plain PyTorch versions. The dense-coordinate entry (``ops.resample``,
+``ops.build_coords``) serves Motion's rigid moves.
 """
 
 __version__ = "0.1.0"
@@ -26,6 +28,8 @@ from .transforms import (
     Choice,
     Compose,
     ElasticDeformation,
+    Ghosting,
+    Motion,
     Noise,
     Spatial,
 )
@@ -37,8 +41,10 @@ __all__ = [
     "Choice",
     "Compose",
     "ElasticDeformation",
+    "Ghosting",
     "ImagesBatch",
     "LabelMap",
+    "Motion",
     "Noise",
     "ScalarImage",
     "Spatial",

@@ -1,6 +1,6 @@
 // B-spline resampling of orders 2-7 for NVIDIA Hopper (sm_90a): the
 // direct B-spline transform (prefilter) and the (order+1)^3-tap
-// evaluation at per-element grid specs.
+// evaluation at per-element grid specs or at dense coordinates.
 //
 // tio_prefilter_axis: the prefilter along one axis of a float32 volume.
 //   It has no Pallas counterpart: the JAX package runs it in XLA
@@ -27,8 +27,13 @@
 //   torchio_tpu/ops/bspline.py bspline_resample. The TPU kernel loops
 //   over candidate (i, j) offsets and lane-gathers along k; here each
 //   thread reads its taps directly.
-//   One thread per output voxel (b, io, jo, ko), ko fastest:
-//     1. the sample point (sample_point.cuh);
+// tio_bspline_coords: the same evaluation at the points of a dense
+//   (B or 1, Io, Jo, Ko, 3) coordinate tensor: the JAX package's
+//   bspline_resample on dense grids (an XLA gather there, no Pallas).
+//   The coordinate is read from memory; everything after it is shared.
+// Both: one thread per output voxel (b, io, jo, ko), ko fastest:
+//     1. the sample point (sample_point.cuh: built from the grid spec,
+//        or read from the coordinate tensor);
 //     2. the fill mask from the raw coordinate: the product over axes of
 //        the two in-bounds linear weights, as bspline_resample computes
 //        it (size-1 axes are not forced to 0 here);
@@ -58,6 +63,7 @@ namespace {
 
 using tio::Grid;
 using tio::kThreads;
+using tio::Source;
 
 constexpr int kMaxPoles = 3;
 
@@ -199,11 +205,10 @@ __device__ __forceinline__ float inbounds(float c, int size) {
   return w0 + w1;
 }
 
-template <int kOrder, bool kField>
+template <int kOrder, Source kSource>
 __global__ void __launch_bounds__(kThreads)
-    spline_kernel(const float* __restrict__ coeffs, const float* __restrict__ maps,
-                  const float* __restrict__ fields, const float* __restrict__ fill,
-                  float* __restrict__ out, Grid s) {
+    spline_kernel(const float* __restrict__ coeffs, tio::Points pts,
+                  const float* __restrict__ fill, float* __restrict__ out, Grid s) {
   constexpr int T = kOrder + 1;
   const int64_t out_spatial = tio::out_spatial(s);
   const int64_t in_spatial = tio::in_spatial(s);
@@ -212,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
        v += (int64_t)gridDim.x * blockDim.x) {
     const tio::Voxel p = tio::voxel_of(v, s);
     float c[3];
-    tio::sample_point<kField>(maps, fields, s, p, c);
+    tio::point_of<kSource>(pts, s, p, c);
     const float mask = inbounds(c[0], s.I) * inbounds(c[1], s.J) * inbounds(c[2], s.K);
     const bool use_fill = !(mask > 0.5f);
     int ti[T], tj[T], tk[T];
@@ -248,14 +253,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kOrder>
-void launch_spline(const float* coeffs, const float* maps, const float* fields,
-                   const float* fill, float* out, const Grid& s, cudaStream_t st) {
+template <Source kSource>
+void launch_spline(const float* coeffs, const tio::Points& pts, const float* fill,
+                   float* out, const Grid& s, int order, cudaStream_t st) {
   const unsigned grid = tio::blocks_for((int64_t)s.B * tio::out_spatial(s));
-  if (fields != nullptr) {
-    spline_kernel<kOrder, true><<<grid, kThreads, 0, st>>>(coeffs, maps, fields, fill, out, s);
-  } else {
-    spline_kernel<kOrder, false><<<grid, kThreads, 0, st>>>(coeffs, maps, fields, fill, out, s);
+  switch (order) {
+    case 2: spline_kernel<2, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 3: spline_kernel<3, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 4: spline_kernel<4, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 5: spline_kernel<5, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 6: spline_kernel<6, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 7: spline_kernel<7, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
   }
 }
 
@@ -292,17 +300,31 @@ extern "C" int tio_bspline_resample(const float* coeffs, const float* maps,
                                     int Io, int Jo, int Ko, int ni, int nj, int nk,
                                     float ri, float rj, float rk, int order,
                                     void* stream) {
+  if (order < 2 || order > 7) return (int)cudaErrorInvalidValue;
   const Grid s{B, C, I, J, K, Io, Jo, Ko, ni, nj, nk, ri, rj, rk};
   if ((int64_t)B * Io * Jo * Ko == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (order) {
-    case 2: launch_spline<2>(coeffs, maps, fields, fill, out, s, st); break;
-    case 3: launch_spline<3>(coeffs, maps, fields, fill, out, s, st); break;
-    case 4: launch_spline<4>(coeffs, maps, fields, fill, out, s, st); break;
-    case 5: launch_spline<5>(coeffs, maps, fields, fill, out, s, st); break;
-    case 6: launch_spline<6>(coeffs, maps, fields, fill, out, s, st); break;
-    case 7: launch_spline<7>(coeffs, maps, fields, fill, out, s, st); break;
-    default: return (int)cudaErrorInvalidValue;
+  const tio::Points pts{maps, fields, nullptr, 0};
+  if (fields != nullptr) {
+    launch_spline<Source::kMapField>(coeffs, pts, fill, out, s, order, st);
+  } else {
+    launch_spline<Source::kMap>(coeffs, pts, fill, out, s, order, st);
   }
+  return (int)cudaGetLastError();
+}
+
+// coords: (B or 1, Io, Jo, Ko, 3) float32; coord_batch_stride is
+// Io*Jo*Ko*3 for per-element grids and 0 for one shared grid.
+extern "C" int tio_bspline_coords(const float* coeffs, const float* coords,
+                                  const float* fill, float* out, int B, int C,
+                                  int I, int J, int K, int Io, int Jo, int Ko,
+                                  long long coord_batch_stride, int order,
+                                  void* stream) {
+  if (order < 2 || order > 7) return (int)cudaErrorInvalidValue;
+  const Grid s{B, C, I, J, K, Io, Jo, Ko, 0, 0, 0, 0.0f, 0.0f, 0.0f};
+  if ((int64_t)B * Io * Jo * Ko == 0) return 0;
+  const tio::Points pts{nullptr, nullptr, coords, (int64_t)coord_batch_stride};
+  launch_spline<Source::kDense>(coeffs, pts, fill, out, s, order,
+                                static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

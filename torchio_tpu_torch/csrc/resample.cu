@@ -1,5 +1,6 @@
-// Trilinear / nearest resample of a (B, C, I, J, K) float32 batch from
-// per-element grid specs, for NVIDIA Hopper (sm_90a).
+// Trilinear / nearest resample of a (B, C, I, J, K) float32 batch, for
+// NVIDIA Hopper (sm_90a), at sample points from per-element grid specs
+// (tio_resample) or from a dense coordinate tensor (tio_resample_coords).
 //
 // Replaces the TPU kernels of the JAX package's resample path, in their
 // linear and nearest modes:
@@ -8,13 +9,20 @@
 //     row pre-shear; folded in: this kernel reads source voxels directly)
 //   - torchio_tpu/ops/window_resample.py _kernel        (bounded-offset
 //     elastic maps with K <= 128)
-// The TPU needs the pre-shear, the 128-lane gathers, the candidate loops
-// and the per-tile bounds because it has no fast gather. Hopper has one,
-// so the whole family is one gather kernel.
+//   - torchio_tpu/ops/pallas_resample.py _kernel_body   (dense
+//     coordinates, through resample_tiles / pallas_resample; the dense
+//     mode below)
+// The TPU needs the pre-shear, the 128-lane gathers, the candidate loops,
+// the per-tile bounds and the host tile plans (plan_tiles: an input box
+// per (8, 8, 128) output tile, DMA'd to VMEM and contracted with triangle
+// weights on the MXU) because it has no fast gather. Hopper has one, so
+// the whole family is one gather kernel.
 //
 // One thread per output voxel (b, io, jo, ko), ko fastest:
-//   1. the sample point (sample_point.cuh: affine map plus upsampled
-//      elastic field, in the JAX package's operation order);
+//   1. the sample point: from the grid spec (sample_point.cuh: affine map
+//      plus upsampled elastic field, in the JAX package's operation
+//      order), or read from the coordinate tensor (batch stride 0 for a
+//      grid shared by the batch);
 //   2. the 8 trilinear corner weights (zero for corners outside the
 //      volume), or the rounded corner in nearest mode (rintf: half to
 //      even, like jnp.round);
@@ -28,14 +36,16 @@
 // channel it writes one float and reads the source neighbourhood once
 // from device memory; the other corner reads of neighbouring threads hit
 // L1/L2, since neighbouring output voxels sample neighbouring input
-// voxels under the near-identity maps of augmentation. No tensor-core
-// work applies. One thread per voxel with cached corner reads is the
-// simple, correct first form; tiling the source into shared memory with
-// TMA and vectorising along k are later work.
+// voxels under the near-identity maps of augmentation. The dense mode
+// also reads 12 bytes of coordinates per voxel (a warp reads 384
+// contiguous bytes), as much again as a one-channel output. No
+// tensor-core work applies. One thread per voxel with cached corner
+// reads is the simple, correct first form; tiling the source into shared
+// memory with TMA and vectorising along k are later work.
 //
-// Offsets are 64-bit: B*C*I*J*K passes 2^31 at realistic sizes. The
-// launch goes on the caller's stream, allocates nothing, and returns
-// cudaGetLastError().
+// Offsets are 64-bit: B*C*I*J*K and B*Io*Jo*Ko*3 pass 2^31 at realistic
+// sizes. Launches go on the caller's stream, allocate nothing, and
+// return cudaGetLastError().
 
 #include "sample_point.cuh"
 
@@ -43,11 +53,11 @@ namespace {
 
 using tio::Grid;
 using tio::kThreads;
+using tio::Source;
 
-template <bool kNearest, bool kField>
+template <bool kNearest, Source kSource>
 __global__ void __launch_bounds__(kThreads)
-    resample_kernel(const float* __restrict__ vol, const float* __restrict__ maps,
-                    const float* __restrict__ fields,
+    resample_kernel(const float* __restrict__ vol, tio::Points pts,
                     const float* __restrict__ fill, float* __restrict__ out,
                     Grid s, int apply_fill) {
   const int64_t out_spatial = tio::out_spatial(s);
@@ -58,7 +68,7 @@ __global__ void __launch_bounds__(kThreads)
     const tio::Voxel p = tio::voxel_of(v, s);
     const int b = p.b;
     float c[3];
-    tio::sample_point<kField>(maps, fields, s, p, c);
+    tio::point_of<kSource>(pts, s, p, c);
     // size-1 axes: every coordinate maps to index 0 with full weight
     if (s.I == 1) c[0] = 0.0f;
     if (s.J == 1) c[1] = 0.0f;
@@ -105,13 +115,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kNearest, bool kField>
-void launch(const float* vol, const float* maps, const float* fields,
-            const float* fill, float* out, const Grid& s, int apply_fill,
-            cudaStream_t stream) {
-  resample_kernel<kNearest, kField>
-      <<<tio::blocks_for((int64_t)s.B * tio::out_spatial(s)), kThreads, 0, stream>>>(
-          vol, maps, fields, fill, out, s, apply_fill);
+template <Source kSource>
+void launch(const float* vol, const tio::Points& pts, const float* fill, float* out,
+            const Grid& s, int nearest, int apply_fill, cudaStream_t stream) {
+  const unsigned grid = tio::blocks_for((int64_t)s.B * tio::out_spatial(s));
+  if (nearest) {
+    resample_kernel<true, kSource><<<grid, kThreads, 0, stream>>>(vol, pts, fill, out, s,
+                                                                  apply_fill);
+  } else {
+    resample_kernel<false, kSource><<<grid, kThreads, 0, stream>>>(vol, pts, fill, out, s,
+                                                                   apply_fill);
+  }
 }
 
 }  // namespace
@@ -125,13 +139,26 @@ extern "C" int tio_resample(const float* vol, const float* maps,
   const Grid s{B, C, I, J, K, Io, Jo, Ko, ni, nj, nk, ri, rj, rk};
   if ((int64_t)B * Io * Jo * Ko == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool field = fields != nullptr;
-  if (nearest) {
-    if (field) launch<true, true>(vol, maps, fields, fill, out, s, apply_fill, st);
-    else launch<true, false>(vol, maps, fields, fill, out, s, apply_fill, st);
+  const tio::Points pts{maps, fields, nullptr, 0};
+  if (fields != nullptr) {
+    launch<Source::kMapField>(vol, pts, fill, out, s, nearest, apply_fill, st);
   } else {
-    if (field) launch<false, true>(vol, maps, fields, fill, out, s, apply_fill, st);
-    else launch<false, false>(vol, maps, fields, fill, out, s, apply_fill, st);
+    launch<Source::kMap>(vol, pts, fill, out, s, nearest, apply_fill, st);
   }
+  return (int)cudaGetLastError();
+}
+
+// coords: (B or 1, Io, Jo, Ko, 3) float32; coord_batch_stride is
+// Io*Jo*Ko*3 for per-element grids and 0 for one shared grid.
+extern "C" int tio_resample_coords(const float* vol, const float* coords,
+                                   const float* fill, float* out, int B, int C,
+                                   int I, int J, int K, int Io, int Jo, int Ko,
+                                   long long coord_batch_stride, int nearest,
+                                   int apply_fill, void* stream) {
+  const Grid s{B, C, I, J, K, Io, Jo, Ko, 0, 0, 0, 0.0f, 0.0f, 0.0f};
+  if ((int64_t)B * Io * Jo * Ko == 0) return 0;
+  const tio::Points pts{nullptr, nullptr, coords, (int64_t)coord_batch_stride};
+  launch<Source::kDense>(vol, pts, fill, out, s, nearest, apply_fill,
+                         static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

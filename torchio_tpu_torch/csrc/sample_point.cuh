@@ -1,6 +1,7 @@
 // Device code shared by the port's resample kernels (resample.cu,
 // label_resample.cu, bspline.cu): the shape of a resample, the sample
-// point of one output voxel, and the in-bounds linear weights.
+// point of one output voxel (built from a grid spec, or read from a
+// dense coordinate tensor), and the in-bounds linear weights.
 //
 // The sample point of output voxel (io, jo, ko) of element b is
 // M_b [io, jo, ko, 1], summed ((i m0 + j m1) + k m2) + m3 in float32,
@@ -108,6 +109,40 @@ __device__ __forceinline__ void sample_point(const float* __restrict__ maps,
       }
       c[a] = c[a] + lerp(along_j[0], along_j[1], fk);
     }
+  }
+}
+
+// The input-voxel coordinate c[0..2] of output voxel p read from a dense
+// (B or 1, Io, Jo, Ko, 3) float32 coordinate tensor; batch_stride is 0
+// when one grid is shared by the batch.
+__device__ __forceinline__ void read_point(const float* __restrict__ coords,
+                                           int64_t batch_stride, const Grid& s,
+                                           const Voxel& p, float c[3]) {
+  const float* q = coords + (int64_t)p.b * batch_stride +
+                   (((int64_t)p.io * s.Jo + p.jo) * s.Ko + p.ko) * 3;
+  c[0] = __ldg(q);
+  c[1] = __ldg(q + 1);
+  c[2] = __ldg(q + 2);
+}
+
+// Where a kernel's sample points come from: a grid spec (map, with or
+// without an elastic field) or a dense coordinate tensor.
+enum class Source { kMap, kMapField, kDense };
+
+struct Points {
+  const float* maps;     // (B, 3, 4), grid specs
+  const float* fields;   // (B, ni, nj, nk, 3) or null, grid specs
+  const float* coords;   // (B or 1, Io, Jo, Ko, 3), dense
+  int64_t batch_stride;  // of coords: Io*Jo*Ko*3, or 0 for a shared grid
+};
+
+template <Source kSource>
+__device__ __forceinline__ void point_of(const Points& pts, const Grid& s,
+                                         const Voxel& p, float c[3]) {
+  if constexpr (kSource == Source::kDense) {
+    read_point(pts.coords, pts.batch_stride, s, p, c);
+  } else {
+    sample_point<kSource == Source::kMapField>(pts.maps, pts.fields, s, p, c);
   }
 }
 

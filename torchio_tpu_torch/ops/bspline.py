@@ -17,10 +17,13 @@ Counterpart of ``torchio_tpu/ops/bspline.py`` and of the spline modes of
   and 3 and the Cox-de Boor recursion for orders 4-7. The fill ALWAYS
   applies where the raw coordinate's bilinear in-bounds weight is
   <= 0.5 (the mirror-folded spline would leak past the volume).
+- :func:`bspline_resample`: the same at the points of a dense
+  coordinate tensor (the JAX package's ``bspline_resample``).
 
 A CUDA volume runs the hand-written kernels of ``csrc/bspline.cu``
 (:mod:`.bspline_kernel`); a CPU volume runs the plain versions here,
-:func:`prefilter_plain` and :func:`bspline_resample_plain`. Both divide
+:func:`prefilter_plain`, :func:`bspline_resample_plain` and
+:func:`bspline_coords_plain`. Both divide
 by a constant as a product with its float32 reciprocal (PyTorch's CUDA
 division by a scalar does so), so the kernels and the plain versions
 round alike on the card; against the JAX package's true divisions this
@@ -32,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .resample import _element_coords, _fill_bc, _marshal_maps
+from .resample import _element_coords, _fill_bc, _marshal_maps, dense_coords
 
 #: IIR poles of the direct B-spline filters (Unser 1993, table 1).
 POLES: dict[int, tuple[float, ...]] = {
@@ -236,12 +239,34 @@ def bspline_resample_plain(
     prefiltered float32, maps (B, 3, 4), fields (B, ni, nj, nk, 3) or
     None, fill (B, C). Returns (B, C, Io, Jo, Ko) float32."""
     _check_order(order)
+    return torch.stack([
+        _spline_element(coeffs[b], _element_coords(maps, fields, b, out_shape), fill[b], order)
+        for b in range(coeffs.shape[0])
+    ])
+
+
+def _spline_element(coeffs, coords, fill, order: int) -> torch.Tensor:
+    """One element: the masked spline of (C, I, J, K) coefficients at
+    three (Io, Jo, Ko) coordinate arrays, fill (C,)."""
+    mask = _inbounds_mask(coords, coeffs.shape[-3:])
+    vals = bspline_sample_plain(coeffs, *coords, order)
+    return torch.where(mask > 0.5, vals, fill.reshape(-1, 1, 1, 1))
+
+
+def bspline_coords_plain(
+    coeffs: torch.Tensor, coords: torch.Tensor, fill: torch.Tensor, order: int
+) -> torch.Tensor:
+    """Plain PyTorch version of the dense-coordinate spline kernel, same
+    arguments as :func:`.bspline_kernel.bspline_coords_cuda`: coeffs (B,
+    C, I, J, K) prefiltered float32, coords (1 or B, Io, Jo, Ko, 3), fill
+    (B, C). Returns (B, C, Io, Jo, Ko) float32."""
+    _check_order(order)
     outs = []
     for b in range(coeffs.shape[0]):
-        ci, cj, ck = _element_coords(maps, fields, b, out_shape)
-        mask = _inbounds_mask((ci, cj, ck), coeffs.shape[-3:])
-        vals = bspline_sample_plain(coeffs[b], ci, cj, ck, order)
-        outs.append(torch.where(mask > 0.5, vals, fill[b].reshape(-1, 1, 1, 1)))
+        grid = coords[b if coords.shape[0] > 1 else 0]
+        outs.append(
+            _spline_element(coeffs[b], (grid[..., 0], grid[..., 1], grid[..., 2]), fill[b], order)
+        )
     return torch.stack(outs)
 
 
@@ -276,3 +301,26 @@ def bspline_resample_fused(
 
         return bspline_resample_cuda(coeffs, maps, fields, fill_bc, out_spatial, order)
     return bspline_resample_plain(coeffs, maps, fields, fill_bc, out_spatial, order)
+
+
+def bspline_resample(data: torch.Tensor, coords, *, order: int, fill=0.0) -> torch.Tensor:
+    """B-spline resample of a (B, C, I, J, K) batch at dense input-voxel
+    coordinates: a shared (Io, Jo, Ko, 3) grid or (B, Io, Jo, Ko, 3)
+    per-element grids. The fill (scalar, (C,) or (B, C), host or tensor)
+    always applies. Returns (B, C, Io, Jo, Ko) float32 on ``data``'s
+    device: a CUDA batch runs the prefilter and dense spline kernels, a
+    CPU batch their plain versions."""
+    _check_order(order)
+    if data.ndim != 5:
+        raise ValueError(f"data must be (B, C, I, J, K), got {tuple(data.shape)}")
+    if data.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"bspline_resample runs on cuda or cpu, got {data.device}")
+    b, c = data.shape[:2]
+    grid = dense_coords(coords, b, data.device)
+    fill_bc, _ = _fill_bc(fill, b, c, data.device)
+    coeffs = prefilter(data, order)
+    if data.device.type == "cuda":
+        from .bspline_kernel import bspline_coords_cuda
+
+        return bspline_coords_cuda(coeffs, grid, fill_bc, order)
+    return bspline_coords_plain(coeffs, grid, fill_bc, order)

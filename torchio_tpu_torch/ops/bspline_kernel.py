@@ -8,6 +8,9 @@
   specs, in place of the spline modes of the JAX package's windowed
   Pallas kernel (``LAUNCHES["bspline_resample"]``); its plain version is
   :func:`..bspline.bspline_resample_plain`.
+- :func:`bspline_coords_cuda`: the same evaluation at dense coordinates
+  (``LAUNCHES["bspline_coords"]``), the JAX package's ``bspline_resample``;
+  its plain version is :func:`..bspline.bspline_coords_plain`.
 
 The source file's head says what each kernel computes and what bounds
 it; :mod:`.kernel_lib` builds and loads the library.
@@ -22,7 +25,7 @@ import torch
 
 from .bspline import _check_order, pole_constants
 from .kernel_lib import F32, I32, I64, P, KernelLibrary, check_tensor, stream
-from .resample_kernel import _check_grid, _ptr, grid_args
+from .resample_kernel import _check_grid, _ptr, check_dense, grid_args
 
 _FLOATS, _INTS = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
 
@@ -32,8 +35,9 @@ BSPLINE = KernelLibrary(
         "tio_prefilter_axis": [P, P, I64, I32, I64, I32, _FLOATS, _INTS, _FLOATS,
                                _FLOATS, F32, P],
         "tio_bspline_resample": [P] * 5 + [I32] * 11 + [F32] * 3 + [I32, P],
+        "tio_bspline_coords": [P] * 4 + [I32] * 8 + [I64, I32, P],
     },
-    kernels=("bspline_prefilter", "bspline_resample"),
+    kernels=("bspline_prefilter", "bspline_resample", "bspline_coords"),
 )
 
 
@@ -93,5 +97,28 @@ def bspline_resample_cuda(
             "bspline_resample", "tio_bspline_resample",
             coeffs.data_ptr(), maps.data_ptr(), _ptr(fields), fill.data_ptr(),
             out.data_ptr(), g[0], c, *g[1:], order, stream(coeffs.device),
+        )
+    return out
+
+
+def bspline_coords_cuda(
+    coeffs: torch.Tensor, coords: torch.Tensor, fill: torch.Tensor, order: int
+) -> torch.Tensor:
+    """Spline evaluation at dense coordinates on the card; see
+    :func:`..bspline.bspline_coords_plain` for the arguments. Returns a
+    new (B, C, Io, Jo, Ko) float32 tensor."""
+    _check_order(order)
+    out_shape, stride = check_dense(coeffs, coords)
+    b, c, si, sj, sk = coeffs.shape
+    check_tensor("coeffs", coeffs, tuple(coeffs.shape), coeffs.device)
+    check_tensor("fill", fill, (b, c), coeffs.device)
+    out = torch.empty((b, c, *out_shape), dtype=torch.float32, device=coeffs.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(coeffs.device):
+        BSPLINE.launch(
+            "bspline_coords", "tio_bspline_coords",
+            coeffs.data_ptr(), coords.data_ptr(), fill.data_ptr(), out.data_ptr(),
+            b, c, si, sj, sk, *out_shape, stride, order, stream(coeffs.device),
         )
     return out

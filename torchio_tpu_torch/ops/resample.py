@@ -1,4 +1,5 @@
-"""Resampling: trilinear/nearest and label-vote resample from grid specs.
+"""Resampling: trilinear/nearest and label-vote resample from grid specs,
+and trilinear/nearest resample at dense coordinates.
 
 Counterpart of ``torchio_tpu/ops/resample.py``. Semantics match
 ``torch.nn.functional.grid_sample(align_corners=True,
@@ -25,14 +26,20 @@ summed weight of the corners carrying it, the top score wins (ties to the
 smallest label), and ``pad_label`` applies where the in-bounds weight is
 <= 0.5. It equals one-hot -> trilinear -> argmax without the label set.
 
-:func:`resample_fused` and :func:`resample_label_fused` send a CUDA
-batch to the hand-written kernels (:mod:`.resample_kernel`,
+:func:`resample` takes the sample points from a dense (Io, Jo, Ko, 3)
+or (B, Io, Jo, Ko, 3) coordinate tensor (:func:`build_coords` builds one
+from a 4x4 map) instead of building them, with the same sampling rules.
+
+:func:`resample_fused`, :func:`resample_label_fused` and :func:`resample`
+send a CUDA batch to the hand-written kernels (:mod:`.resample_kernel`,
 ``csrc/resample.cu`` and ``csrc/label_resample.cu``) and a CPU batch to
-:func:`resample_plain` and :func:`resample_label_plain`, the plain
-PyTorch versions of the same functions.
+:func:`resample_plain`, :func:`resample_label_plain` and
+:func:`resample_coords_plain`, the plain PyTorch versions of the same
+functions.
 The JAX package's TPU machinery (pre-shear pass, windowed and tiled
-Pallas kernels, eligibility guards and their gather fallback) has no
-counterpart here: it exists because the TPU has no fast gather.
+Pallas kernels, host tile plans, eligibility guards and their gather
+fallback) has no counterpart here: it exists because the TPU has no fast
+gather.
 """
 
 from __future__ import annotations
@@ -91,7 +98,7 @@ def upsample_volume(x, out_shape: tuple[int, int, int]) -> torch.Tensor:
 # --------------------------------------------------------------------
 
 
-def build_coords(map34: torch.Tensor, out_shape) -> tuple[torch.Tensor, ...]:
+def coord_planes(map34: torch.Tensor, out_shape) -> tuple[torch.Tensor, ...]:
     """Three (Io, Jo, Ko) float32 coordinate arrays of ``map34 @ [i,j,k,1]``,
     summed as ``((i*m0 + j*m1) + k*m2) + m3`` like the JAX package."""
     io, jo, ko = out_shape
@@ -103,6 +110,19 @@ def build_coords(map34: torch.Tensor, out_shape) -> tuple[torch.Tensor, ...]:
         ri * map34[a, 0] + rj * map34[a, 1] + rk * map34[a, 2] + map34[a, 3]
         for a in range(3)
     )
+
+
+def build_coords(out_shape, matrix, device=None) -> torch.Tensor:
+    """(Io, Jo, Ko, 3) float32 input-voxel coordinates of each output voxel.
+
+    ``matrix`` is the 4x4 output-voxel -> input-voxel map (float64 host
+    math, rounded to float32); the grid is built on ``device`` from three
+    broadcast ramps, summed as ``((i*m0 + j*m1) + k*m2) + m3``, every
+    product rounded (XLA:CPU contracts the JAX package's sums into fused
+    multiply-adds, so about a fifth of its coordinates differ by one ulp).
+    """
+    m = torch.as_tensor(np.asarray(matrix, np.float64)[:3].astype(np.float32), device=device)
+    return torch.stack(coord_planes(m, tuple(int(s) for s in out_shape)), dim=-1)
 
 
 def _inb(index: torch.Tensor, size: int) -> torch.Tensor:
@@ -161,7 +181,7 @@ def _sample(vol, ci, cj, ck, fill, mode: str, apply_fill: bool):
 
 def _element_coords(maps, fields, b: int, out_shape):
     """Element ``b``'s three (Io, Jo, Ko) sample-coordinate arrays."""
-    ci, cj, ck = build_coords(maps[b], out_shape)
+    ci, cj, ck = coord_planes(maps[b], out_shape)
     if fields is not None:
         disp = upsample_field(fields[b], out_shape)
         ci, cj, ck = ci + disp[..., 0], cj + disp[..., 1], ck + disp[..., 2]
@@ -184,6 +204,25 @@ def resample_plain(
     outs = []
     for b in range(vol.shape[0]):
         ci, cj, ck = _element_coords(maps, fields, b, out_shape)
+        outs.append(_sample(vol[b], ci, cj, ck, fill[b], mode, apply_fill))
+    return torch.stack(outs)
+
+
+def resample_coords_plain(
+    vol: torch.Tensor,
+    coords: torch.Tensor,
+    fill: torch.Tensor,
+    mode: str,
+    apply_fill: bool,
+) -> torch.Tensor:
+    """Plain PyTorch version of the dense-coordinate resample kernel, same
+    arguments as :func:`.resample_kernel.resample_coords_cuda`: vol (B, C,
+    I, J, K) float32, coords (1 or B, Io, Jo, Ko, 3) float32 (one grid
+    shared by the batch, or one per element), fill (B, C) float32."""
+    outs = []
+    for b in range(vol.shape[0]):
+        grid = coords[b if coords.shape[0] > 1 else 0]
+        ci, cj, ck = grid[..., 0], grid[..., 1], grid[..., 2]
         outs.append(_sample(vol[b], ci, cj, ck, fill[b], mode, apply_fill))
     return torch.stack(outs)
 
@@ -346,6 +385,75 @@ def resample_fused(
     if data.device.type != "cpu":
         raise ValueError(f"resample_fused runs on cuda or cpu, got {data.device}")
     return resample_plain(vol, maps, fields, fill_bc, out_spatial, mode, apply_fill)
+
+
+def dense_coords(coords, b: int, device) -> torch.Tensor:
+    """Validate dense coordinates: a shared (Io, Jo, Ko, 3) grid or
+    per-element (B, Io, Jo, Ko, 3) grids -> a contiguous float32 (1 or B,
+    Io, Jo, Ko, 3) tensor on ``device``."""
+    if isinstance(coords, torch.Tensor):
+        grid = coords.to(device=device, dtype=torch.float32)
+    else:  # a host array, copied (it may be read-only)
+        grid = torch.tensor(np.asarray(coords, np.float32), device=device)
+    if grid.ndim == 4:
+        grid = grid[None]
+    if grid.ndim != 5 or grid.shape[-1] != 3 or grid.shape[0] not in (1, b):
+        raise ValueError(
+            f"coords must be (Io, Jo, Ko, 3) or ({b}, Io, Jo, Ko, 3),"
+            f" got {tuple(grid.shape)}"
+        )
+    return grid.contiguous()
+
+
+def _check_fill(fill, b: int, c: int) -> None:
+    """The JAX package's fill validation: scalar, (C,) or (B, C)."""
+    if isinstance(fill, torch.Tensor):
+        if fill.ndim not in (0, 1, 2):
+            raise ValueError(f"fill must be scalar/(C,)/(B, C), got {tuple(fill.shape)}")
+        return
+    arr = np.asarray(fill, np.float32)
+    if arr.ndim == 2:
+        if arr.shape != (b, c):
+            raise ValueError(f"2D fill must have shape (B, C) = {(b, c)}, got {arr.shape}")
+    elif arr.reshape(-1).shape[0] not in (1, c):
+        raise ValueError(
+            f"fill must be scalar, per-channel ({c},), or (B, C); got shape {arr.shape}"
+        )
+
+
+def resample(data: torch.Tensor, coords, *, mode: str = "linear", fill=0.0) -> torch.Tensor:
+    """Resample a (B, C, I, J, K) batch at input-voxel coordinates.
+
+    Args:
+        data: (B, C, I, J, K) tensor; the resample runs on its device.
+        coords: (Io, Jo, Ko, 3) grid shared by the batch, or (B, Io, Jo,
+            Ko, 3) per-element grids, in input voxel coordinates.
+        mode: "linear" or "nearest".
+        fill: scalar, per-channel (C,), or per-element-per-channel (B, C)
+            fill for out-of-bounds voxels, host or tensor (a host scalar
+            of 0 applies none).
+
+    Returns:
+        (B, C, Io, Jo, Ko) float32 tensor. A CUDA batch goes through the
+        dense-coordinate CUDA kernel, a CPU batch through
+        :func:`resample_coords_plain`.
+    """
+    if mode not in MODES:
+        raise ValueError(f"Unsupported resampling mode: {mode!r}")
+    if data.ndim != 5:
+        raise ValueError(f"data must be (B, C, I, J, K), got {tuple(data.shape)}")
+    b, c = data.shape[:2]
+    _check_fill(fill, b, c)
+    grid = dense_coords(coords, b, data.device)
+    vol = data.to(torch.float32).contiguous()
+    fill_bc, apply_fill = _fill_bc(fill, b, c, data.device)
+    if data.device.type == "cuda":
+        from .resample_kernel import resample_coords_cuda
+
+        return resample_coords_cuda(vol, grid, fill_bc, mode, apply_fill)
+    if data.device.type != "cpu":
+        raise ValueError(f"resample runs on cuda or cpu, got {data.device}")
+    return resample_coords_plain(vol, grid, fill_bc, mode, apply_fill)
 
 
 def resample_label_fused(

@@ -1,5 +1,7 @@
 from .compose import Compose
 from .intensity.bias_field import BiasField
+from .intensity.ghosting import Ghosting
+from .intensity.motion import Motion
 from .intensity.noise import Noise
 from .parameter_range import Choice
 from .spatial.spatial import Affine, ElasticDeformation, Spatial
@@ -11,7 +13,9 @@ __all__ = [
     "Choice",
     "Compose",
     "ElasticDeformation",
+    "Ghosting",
     "IntensityTransform",
+    "Motion",
     "Noise",
     "Spatial",
     "SpatialTransform",

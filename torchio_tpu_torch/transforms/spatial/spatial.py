@@ -24,9 +24,16 @@ orders 2-7 by :func:`torchio_tpu_torch.ops.bspline.bspline_resample_fused`
 linear one-hot interpolation by
 :func:`torchio_tpu_torch.ops.resample.resample_label_fused` (the corner
 vote, which gives the one-hot result without the label set).
+:func:`_dispatch_resample` also takes a dense coordinate tensor, as the
+JAX package's does for every non-lazy grid (Motion's rigid moves):
+orders 0-1 go to :func:`torchio_tpu_torch.ops.resample.resample`,
+orders 2-7 to :func:`torchio_tpu_torch.ops.bspline.bspline_resample`,
+each on a dense-coordinate CUDA kernel. The JAX package's ``plans`` and
+its opt-in Pallas tiled kernel (``TORCHIO_TPU_PALLAS``) have no
+counterpart: the port has one dense kernel.
 
 Not yet ported: ``target=`` (and ``Resample``), antialias, the "mean" and
-"otsu" fills, and inverses.
+"otsu" fills, the materialized grids of those paths, and inverses.
 """
 
 from __future__ import annotations
@@ -42,8 +49,8 @@ from ... import random as tio_random
 from ...core.affine import AffineMatrix
 from ...data.batch import ImagesBatch, SubjectsBatch
 from ...data.image import LabelMap
-from ...ops.bspline import bspline_resample_fused
-from ...ops.resample import resample_fused, resample_label_fused
+from ...ops.bspline import bspline_resample, bspline_resample_fused
+from ...ops.resample import resample, resample_fused, resample_label_fused
 from .._utils import unique_labels
 from ..parameter_range import _ParameterRange
 from ..transform import SpatialTransform
@@ -635,10 +642,21 @@ def _run_spatial_pipeline(
         ]
 
 
-def _dispatch_resample(data, maps, fields, out_shape, *, mode: str, fill):
+def _dispatch_resample(data, maps, fields=None, out_shape=None, *, mode: str, fill):
     """Orders 2-7 through the B-spline path, 0-1 through the
-    trilinear/nearest resample; float32 out."""
+    trilinear/nearest resample; float32 out.
+
+    ``maps`` is either a dense coordinate tensor (a shared (Io, Jo, Ko, 3)
+    grid or (B, Io, Jo, Ko, 3) per-element grids; ``fields`` and
+    ``out_shape`` unused), routed to :func:`resample` and
+    :func:`bspline_resample`, or the length-B list of 4x4 grid-spec maps
+    with their coarse ``fields`` and ``out_shape``, routed to the fused
+    resamples."""
     order = _INTERPOLATION_TO_ORDER[mode]
+    if isinstance(maps, torch.Tensor):
+        if order >= 2:
+            return bspline_resample(data, maps, order=order, fill=fill)
+        return resample(data, maps, mode=mode, fill=fill)
     if order >= 2:
         return bspline_resample_fused(
             data, maps, fields, order=order, out_shape=out_shape, fill=fill

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import copy as _copy
 import inspect
+import warnings
 from typing import Any
 
 import numpy as np
@@ -301,6 +302,10 @@ class Transform:
             return value.item()
         return value
 
+    @staticmethod
+    def _is_per_instance_params(params: dict[str, Any]) -> bool:
+        return "_batched_keys" in params
+
     def _tag_batched(
         self,
         params: dict[str, Any],
@@ -353,6 +358,16 @@ class Transform:
         return images
 
     # --- UX ---
+
+    def warn_if_noop(self, *, is_noop: bool, hint: str) -> None:
+        """Warn when default arguments make the transform a no-op."""
+        if is_noop:
+            warnings.warn(
+                f"{type(self).__name__} with default arguments is a no-op;"
+                f" consider e.g. {hint}",
+                RuntimeWarning,
+                stacklevel=3,
+            )
 
     def __repr__(self) -> str:
         from .parameter_range import _ParameterRange
