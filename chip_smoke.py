@@ -18,15 +18,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    - label vote: equal off near ties, on int32 labels (also above 2^24)
      and float32 labels;
    - prefilter: within 1e-5 of the plain coefficients' largest magnitude,
-     orders 2-7;
-   - spline: within 1e-5 max abs for orders 2-7 on inputs in [0, 1);
+     orders 2-7, on lines that do not fill the last block, lines of 2,100
+     samples on each axis (shared memory) and of 7,300 (device memory),
+     and on 2-4 channels, which must come out channels-last;
+   - spline: within 1e-5 max abs for orders 2-7 on inputs in [0, 1), on
+     2 and 4 channels (four a load), from planar coefficients and from
+     the prefilter kernel's channels-last ones, scale-downs by 2.6 and 4
+     included;
    - dense-coordinate resample: equal, linear and nearest, shared and
      per-element grids, every fill form, points outside the volume and
      a size-1 axis;
    - dense-coordinate spline: within 1e-5 max abs for orders 2-7;
 4. small batches on the card against the CPU path: the headline (1e-4),
    the labelled BraTS-style pipeline (images 1e-4, labels equal off
-   near ties) and the k-space pair (1e-4, labels untouched);
+   near ties) and the k-space pair (1e-4, labels untouched); a subject
+   and an array built from numpy go through the headline on the card
+   (host data lands there by default) and launch the resample kernel;
 5. headline: ``Compose([Spatial, BiasField, Noise], fuse=True)`` on
    B=4 x 1 x 256^3 float32 through ``Compose.__call__``, 2 warm-up and 5
    timed calls, with the launch counts read around the run;
@@ -40,14 +47,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    same way; the dense resample kernel must launch in exactly the calls
    whose history keeps Motion;
 8. each kernel against its plain version at its path's shape, timed
-   kernel, plain, kernel, plain with CUDA events; the dense entry points
+   kernel, plain, kernel, plain with CUDA events (the dense resample
+   also against ``F.grid_sample``, its one-call library equivalent at a
+   zero fill: kernel, library, kernel, library); the prefilter's three
+   axis passes also timed one by one; the dense entry points
    ``ops.resample`` (B=4 x 256^3, per-element Motion grids) and
    ``ops.bspline.bspline_resample`` (cubic, B=1 of it) are called as a
    user calls them, with the launch counts zeroed around the calls.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. ``--profile PATH`` also writes a
-``torch.profiler`` table of two calls of each pipeline to PATH.
+The line before the last is ``{"kernels": [...]}``: per kernel its
+launches on its path, its error against the plain version, its time, the
+plain version's and the library call's (or null), and its bound: the
+larger of the bytes it must move (each input read once, each output
+written once) over 3.35 TB/s and the float32 operations it does over 67
+TFLOP/s (an H100 SXM's peaks), with ``roofline`` = bound / time. The
+last line is ``{"ok": true, "device": {...}}``. ``--profile PATH`` also
+writes a ``torch.profiler`` table of two calls of each pipeline to PATH.
 """
 
 from __future__ import annotations
@@ -56,6 +71,7 @@ import argparse
 import importlib
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -76,6 +92,10 @@ KERNELS = (
     "resample", "label_vote", "bspline_prefilter", "bspline_resample",
     "resample_coords", "bspline_coords",
 )
+#: an H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s and
+#: float32 FLOP/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def fail(message: str) -> None:
@@ -154,6 +174,64 @@ def cuda_time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time of a kernel's work, the larger
+    of its bytes over the memory rate and its operations over the float32
+    rate."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_F32_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+#: float32 operations per output voxel of a sample point: the 3x4 map
+#: (9 products, 9 sums) and, with a field, 3 components x 7 lerps x 4
+def point_flops(fields) -> int:
+    return 18 + (84 if fields is not None else 0)
+
+
+def weight_flops(order: int) -> int:
+    """Operations per axis for the fold, the base and the order+1 tap
+    weights (closed forms at orders 2-3, Cox-de Boor's 2^order - 1 nodes of
+    5 operations per weight at 4-7)."""
+    if order == 2:
+        return 7 + 9
+    if order == 3:
+        return 7 + 28
+    return 7 + (order + 1) * 5 * (2**order - 1)
+
+
+def spline_flops(order: int, voxels: int, channels: int, fields) -> int:
+    """Per output voxel: its point, the 3-axis fill mask (6 each), the
+    weights and the T^2 products wi wj; per voxel and channel, T^2 k sums
+    of T products and T - 1 sums, each times its wi wj and added:
+    T^2 (2T + 1), 144 at order 3."""
+    t = order + 1
+    per_voxel = point_flops(fields) + 18 + 3 * weight_flops(order) + t * t
+    return voxels * per_voxel + voxels * channels * t * t * (2 * t + 1)
+
+
+def prefilter_flops(bs, order: int, shape) -> int:
+    """The gain, every pole's start sum (3 operations a term) and its two
+    sweeps (2 a sample, 3 for the anticausal start), per line and axis."""
+    total = 0
+    spatial = shape[-3:]
+    for axis, n in enumerate(spatial):
+        if n == 1:
+            continue
+        lines = math.prod(shape) // n
+        _, constants = bs.pole_constants(order, n)
+        per_line = n
+        for _, horizon, _, _ in constants:
+            terms = horizon if horizon < n else 2 * n - 2
+            per_line += 3 * terms + 4 * (n - 1) + 3
+        total += lines * per_line
+    return total
 
 
 def rot(ax, ay, az, scale=1.0, shift=(0.0, 0.0, 0.0), center=None):
@@ -381,68 +459,122 @@ def phase_label_kernel(torch, np, rs, rk, kl):
     return differ
 
 
-#: prefilter volumes: non-aligned, short axes (periodic start), a size-1 axis
-PREFILTER_SHAPES = ((2, 2, 37, 45, 51), (1, 1, 3, 5, 40), (2, 1, 23, 19, 1))
+#: prefilter volumes: non-aligned (lines that do not fill the last
+#: block), short axes (periodic start), a size-1 axis; 2-4 channels (the
+#: output channels-last, the i pass moving them); lines of 2,100 samples
+#: on each axis (smaller blocks), with 2 channels on the i axis; lines of
+#: 7,300, longer than shared memory holds, on the k and i axes (device
+#: memory)
+PREFILTER_SHAPES = (
+    (2, 2, 37, 45, 51), (1, 1, 3, 5, 40), (2, 1, 23, 19, 1), (1, 3, 20, 21, 22),
+    (2, 4, 9, 40, 33), (1, 1, 2100, 3, 5), (1, 2, 2100, 3, 5), (1, 1, 3, 2100, 5),
+    (1, 1, 3, 5, 2100), (1, 1, 2, 3, 7300), (1, 1, 7300, 4, 8),
+)
 
 
 def phase_prefilter_kernel(torch, np, bs, bk, kl):
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(3)
-    before = kl.LAUNCHES["bspline_prefilter"]
-    worst, cases = 0.0, 0
+    kernels = ("bspline_prefilter", "bspline_prefilter_global")
+    before = {k: kl.LAUNCHES[k] for k in kernels}
+    worst, cases, paths, moved = 0.0, 0, {}, 0
     for shape in PREFILTER_SHAPES:
         vol = torch.as_tensor(rng.random(shape, np.float32), device=dev)
+        channels_last, steps = bk.prefilter_steps(shape)
+        for step in steps:
+            paths[step.plan.path] = paths.get(step.plan.path, 0) + len(ORDERS)
+        moved += channels_last * len(ORDERS)
+        layout = torch.channels_last_3d if channels_last else torch.contiguous_format
         for order in ORDERS:
             got = bk.prefilter_cuda(vol, order)
             want = bs.prefilter_plain(vol, order)
             torch.cuda.synchronize()
             err = float((got - want).abs().max() / want.abs().max())
             worst = max(worst, err)
-            if not err <= PREFILTER_RTOL:
-                fail(f"prefilter order {order} {shape}: relative error {err}")
+            if not err <= PREFILTER_RTOL or not got.is_contiguous(memory_format=layout):
+                fail(f"prefilter order {order} {shape}: relative error {err}, layout {got.stride()}")
             cases += 1
-    check_launches(kl, "bspline_prefilter", before, cases, per_call=3)
+    grown = {k: kl.LAUNCHES[k] - before[k] for k in kernels}
+    if sum(grown.values()) != 3 * cases or grown["bspline_prefilter_global"] != paths["global"]:
+        fail(f"{cases} prefilter calls, plans {paths}, launches {grown}")
     print(
         f"prefilter kernel vs plain: {cases} cases, orders 2-7; max abs error over"
-        f" the largest coefficient {worst:.3g} (limit {PREFILTER_RTOL})"
+        f" the largest coefficient {worst:.3g} (limit {PREFILTER_RTOL}); {moved} came out"
+        f" channels-last; axis passes by path {paths}; launches {grown}"
     )
     return worst
 
 
+#: spline scale-downs (input shape, output shape, scale): each output
+#: step covers 2.6 or 4 input voxels, so a warp's taps spread over many
+#: rows and the mirror reflections at the faces
+SPLINE_SCALE_DOWNS = (((40, 90, 90), (8, 20, 20), 2.6), ((48, 100, 100), (9, 22, 22), 4.0))
+
+
+def scale_down_grids(np, rs, dev, in_shape, out_shape, scale):
+    """Two rotations that map the output's center onto the input's and
+    scale its steps by ``scale``, with and without the kernel phases'
+    elastic field."""
+    field = np.random.default_rng(1).uniform(-3.0, 3.0, (7, 7, 7, 3))
+    c_in = np.asarray([(n - 1) / 2 for n in in_shape])
+    c_out = np.asarray([(n - 1) / 2 for n in out_shape])
+    matrices = []
+    for angles in ((0.15, -0.1, 0.12), (-0.08, 0.17, -0.05)):
+        m = rot(*angles, scale, (0.0, 0.0, 0.0), c_out)
+        m[:3, 3] = c_in - m[:3, :3] @ c_out
+        matrices.append(m)
+    return [rs._marshal_maps(matrices, cps, dev) for cps in ([field, None], [None, None])]
+
+
 def phase_spline_kernel(torch, np, rs, bs, bk, kl):
+    """Orders 2-7 with 2 channels (one a load) and 4 (four a load), on
+    planar coefficients (the wrapper makes them channels-last) and on the
+    prefilter kernel's channels-last ones."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(4)
-    b, c = 2, 2
-    fills = {
-        "scalar": 0.0,
-        "(B,C)": torch.as_tensor([[0.25, -1.0], [2.0, 0.5]], device=dev),
-    }
+    b = 2
     before = kl.LAUNCHES["bspline_resample"]
     worst, cases = 0.0, 0
-    for in_shape, out_shapes in KERNEL_SHAPES:
-        vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
-        for order in ORDERS:
-            coeffs = bs.prefilter_plain(vol, order)
-            for out_shape in out_shapes:
-                for maps, fields in kernel_grids(np, rs, dev, in_shape):
-                    for fname, fill in fills.items():
-                        fill_bc, _ = rs._fill_bc(fill, b, c, dev)
-                        args = (coeffs, maps, fields, fill_bc, out_shape, order)
-                        got = bk.bspline_resample_cuda(*args)
-                        want = bs.bspline_resample_plain(*args)
-                        torch.cuda.synchronize()
-                        err = float((got - want).abs().max())
-                        worst = max(worst, err)
-                        if got.shape != (b, c, *out_shape) or not err <= KERNEL_ATOL:
-                            fail(
-                                f"spline order {order} {in_shape}->{out_shape} fill"
-                                f" {fname}: shape {tuple(got.shape)}, max abs {err}"
-                            )
-                        cases += 1
+
+    def check(kind, coeffs, maps, fields, fill, out_shape, order):
+        nonlocal worst, cases
+        c = coeffs.shape[1]
+        fill_bc, _ = rs._fill_bc(fill, b, c, dev)
+        args = (coeffs, maps, fields, fill_bc, out_shape, order)
+        got = bk.bspline_resample_cuda(*args)
+        want = bs.bspline_resample_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if got.shape != (b, c, *out_shape) or not err <= KERNEL_ATOL:
+            fail(
+                f"spline {kind} order {order} {tuple(coeffs.shape[-3:])}->{out_shape}:"
+                f" shape {tuple(got.shape)}, max abs {err}"
+            )
+        cases += 1
+
+    for c in (2, 4):
+        fill_bc = torch.as_tensor(rng.uniform(-1.0, 2.0, (b, c)).astype(np.float32), device=dev)
+        for in_shape, out_shapes in KERNEL_SHAPES:
+            vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
+            for order in ORDERS:
+                coeffs = bs.prefilter_plain(vol, order)
+                for out_shape in out_shapes:
+                    for maps, fields in kernel_grids(np, rs, dev, in_shape):
+                        for fill in (0.0, fill_bc):
+                            check("grid", coeffs, maps, fields, fill, out_shape, order)
+                check("grid, prefilter kernel's coefficients", bk.prefilter_cuda(vol, order),
+                      *kernel_grids(np, rs, dev, in_shape)[0], fill_bc, out_shapes[-1], order)
+        for in_shape, out_shape, scale in SPLINE_SCALE_DOWNS:
+            vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
+            for order in ORDERS:
+                coeffs = bs.prefilter_plain(vol, order)
+                for maps, fields in scale_down_grids(np, rs, dev, in_shape, out_shape, scale):
+                    check("scale-down", coeffs, maps, fields, fill_bc, out_shape, order)
     check_launches(kl, "bspline_resample", before, cases)
     print(
-        f"spline kernel vs plain: {cases} cases, orders 2-7; max abs {worst:.3g}"
-        f" (limit {KERNEL_ATOL})"
+        f"spline kernel vs plain: {cases} cases, orders 2-7, 2 and 4 channels"
+        f" (scale-downs by 2.6 and 4 included); max abs {worst:.3g} (limit {KERNEL_ATOL})"
     )
     return worst
 
@@ -536,6 +668,36 @@ def phase_small_labelled(torch, np, tio, tio_random, rs):
     )
     if not err <= SLICE_ATOL or off:
         fail("the small labelled slice differs from the CPU path")
+
+
+def phase_host_subject(torch, np, tio, kl):
+    """A subject and a bare array built from numpy go through the headline
+    with no device named: the data lands on the card and the resample
+    kernel launches; the array comes back as host numpy."""
+    arr = np.random.default_rng(12).random((1, 48, 52, 56), np.float32)
+    subject = tio.Subject(t1=tio.ScalarImage(arr))
+    if subject.t1.data.device.type != DEVICE:
+        fail(f"a numpy-built subject lies on {subject.t1.data.device}")
+    before = kl.LAUNCHES["resample"]
+    tio.seed(3)
+    out = headline(tio)(subject)
+    tio.seed(3)
+    out_arr = headline(tio)(arr)
+    torch.cuda.synchronize()
+    launched = kl.LAUNCHES["resample"] - before
+    data = out.t1.data
+    if data.device.type != DEVICE or launched != 2 or not bool(torch.isfinite(data).all()):
+        fail(f"numpy-built subject: output on {data.device}, {launched} resample launches")
+    if not isinstance(out_arr, np.ndarray) or out_arr.shape != arr.shape:
+        fail(f"numpy array through the headline came back as {type(out_arr).__name__}")
+    err = float(np.abs(out_arr - data.cpu().numpy()).max())
+    if err != 0.0:
+        fail(f"array and subject entries differ by {err} on the same seed")
+    print(
+        f"numpy-built subject and array (1 x 48x52x56) through the headline on"
+        f" {data.device}: resample launches {launched}; the array comes back as"
+        f" numpy, equal to the subject's output"
+    )
 
 
 def drive(torch, kl, pipeline, batch, kernels):
@@ -666,12 +828,20 @@ def phase_kernel_timing(torch, np, tio, rs, rk):
     order, ms, plain_ms = time_pair(
         torch, lambda: rk.resample_cuda(*args), lambda: rs.resample_plain(*args)
     )
+    voxels = B * S**3
+    # trilinear: 8 corner weights (16 products) a voxel, 8 products and 7
+    # sums a voxel and channel
+    work = bound(
+        nbytes(vol, maps, fields, fill) + vol.numel() * 4,
+        voxels * (point_flops(fields) + 16) + voxels * C * 15,
+    )
     print(
         f"resample B={B} x {S}^3 linear + elastic: kernel {ms:.3f} ms, plain"
         f" {plain_ms:.3f} ms (kernel, plain, kernel, plain:"
-        f" {', '.join(f'{t:.3f}' for t in order)}); max abs {err:.3g}"
+        f" {', '.join(f'{t:.3f}' for t in order)}); max abs {err:.3g};"
+        f" bound {work[0]:.3f} ms ({work[1]})"
     )
-    return err, ms, plain_ms
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": work}
 
 
 def phase_brats_timing(torch, np, tio, rs, rk, bs, bk, batch):
@@ -698,11 +868,23 @@ def phase_brats_timing(torch, np, tio, rs, rk, bs, bk, batch):
         torch, lambda: rk.resample_label_cuda(seg, maps, fields, BRATS_SHAPE, 0.0),
         lambda: rs.resample_label_plain(seg, maps, fields, BRATS_SHAPE, 0.0),
     )
-    results["label_vote"] = (label_err, ms, plain_ms)
+    voxels = BRATS_B * math.prod(BRATS_SHAPE)
+    # the vote: 8 corner weights (16 operations), each added to its
+    # label's total (7 sums: a label's first weight starts its total), the
+    # top total (7 compares) and the in-bounds weight (7 sums); the label
+    # compares are integer work and left out
+    work = bound(
+        nbytes(seg, maps, fields) + seg.numel() * 4,
+        voxels * (point_flops(fields) + 16 + 7 + 7 + 7),
+    )
+    results["label_vote"] = {
+        "max_abs_err": label_err, "ms": ms, "plain_ms": plain_ms, "bound": work,
+    }
     print(
         f"label vote B={BRATS_B} x 1 x {'x'.join(map(str, BRATS_SHAPE))} int32: kernel"
         f" {ms:.3f} ms, plain {plain_ms:.3f} ms (k, p, k, p:"
-        f" {', '.join(f'{t:.3f}' for t in order)}); voxels differing {differ}"
+        f" {', '.join(f'{t:.3f}' for t in order)}); voxels differing {differ};"
+        f" bound {work[0]:.3f} ms ({work[1]})"
     )
 
     coeffs = bk.prefilter_cuda(mri, 3)
@@ -715,28 +897,56 @@ def phase_brats_timing(torch, np, tio, rs, rk, bs, bk, batch):
     order, ms, plain_ms = time_pair(
         torch, lambda: bk.prefilter_cuda(mri, 3), lambda: bs.prefilter_plain(mri, 3)
     )
-    results["bspline_prefilter"] = (abs_err, ms, plain_ms)
+    # each axis pass alone: the first reads the volume and writes the
+    # coefficients channels-last, the others work in place, as in a call
+    work_buf = torch.empty_like(coeffs)
+    _, steps = bk.prefilter_steps(tuple(mri.shape))
+    pass_ms = []
+    for n, step in enumerate(steps):
+        src = mri if n == 0 else work_buf
+        pass_ms.append(cuda_time_ms(
+            torch, lambda st=step, x=src: bk.prefilter_pass(x, work_buf, st, 3), 20
+        ))
+    del work_buf
+    plans = [step.plan for step in steps]
+    work = bound(2 * nbytes(mri), prefilter_flops(bs, 3, tuple(mri.shape)))
+    results["bspline_prefilter"] = {
+        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "bound": work,
+        "pass_ms": pass_ms,
+    }
     print(
         f"prefilter order 3 B={BRATS_B} x {BRATS_C} x {'x'.join(map(str, BRATS_SHAPE))}:"
         f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (k, p, k, p:"
         f" {', '.join(f'{t:.3f}' for t in order)}); max abs {abs_err:.3g}, over the"
-        f" largest coefficient {err:.3g}"
+        f" largest coefficient {err:.3g}; passes i, j, k"
+        f" {', '.join(f'{t:.3f}' for t in pass_ms)} ms"
+        f" ({', '.join(f'{p.path} x {p.per_block}' for p in plans)});"
+        f" bound {work[0]:.3f} ms ({work[1]})"
     )
 
     fill, _ = rs._fill_bc(torch.amin(mri, dim=(-3, -2, -1)), BRATS_B, BRATS_C, dev)
     args = (coeffs, maps, fields, fill, BRATS_SHAPE, 3)
-    err = float((bk.bspline_resample_cuda(*args) - bs.bspline_resample_plain(*args)).abs().max())
+    got = bk.bspline_resample_cuda(*args)
+    err = float((got - bs.bspline_resample_plain(*args)).abs().max())
+    del got
     if not err <= KERNEL_ATOL:
         fail(f"spline at the slice's shape: max abs {err}")
     order, ms, plain_ms = time_pair(
         torch, lambda: bk.bspline_resample_cuda(*args),
         lambda: bs.bspline_resample_plain(*args), plain_reps=2,
     )
-    results["bspline_resample"] = (err, ms, plain_ms)
+    work = bound(
+        nbytes(coeffs, maps, fields, fill) + coeffs.numel() * 4,
+        spline_flops(3, voxels, BRATS_C, fields),
+    )
+    results["bspline_resample"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": work,
+    }
     print(
         f"spline order 3 B={BRATS_B} x {BRATS_C} x {'x'.join(map(str, BRATS_SHAPE))}:"
         f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (k, p, k, p:"
-        f" {', '.join(f'{t:.3f}' for t in order)}); max abs {err:.3g}"
+        f" {', '.join(f'{t:.3f}' for t in order)}); max abs {err:.3g};"
+        f" bound {work[0]:.3f} ms ({work[1]})"
     )
     return results
 
@@ -835,11 +1045,11 @@ def phase_coords_spline_kernel(torch, np, rs, bs, bk, kl):
     orders 2-7, within KERNEL_ATOL."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(6)
-    b, c = 2, 2
-    fill_bc = torch.as_tensor([[0.25, -1.0], [2.0, 0.5]], device=dev)
+    b = 2
     before = kl.LAUNCHES["bspline_coords"]
     worst, cases = 0.0, 0
-    for in_shape, out_shapes in KERNEL_SHAPES:
+    for c, (in_shape, out_shapes) in itertools.product((2, 4), KERNEL_SHAPES):
+        fill_bc = torch.as_tensor(rng.uniform(-1.0, 2.0, (b, c)).astype(np.float32), device=dev)
         vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
         for order in ORDERS:
             coeffs = bs.prefilter_plain(vol, order)
@@ -853,14 +1063,14 @@ def phase_coords_spline_kernel(torch, np, rs, bs, bk, kl):
                     worst = max(worst, err)
                     if got.shape != (b, c, *out_shape) or not err <= KERNEL_ATOL:
                         fail(
-                            f"dense spline order {order} {kind} {in_shape}->{out_shape}:"
+                            f"dense spline order {order} C={c} {kind} {in_shape}->{out_shape}:"
                             f" shape {tuple(got.shape)}, max abs {err}"
                         )
                     cases += 1
     check_launches(kl, "bspline_coords", before, cases)
     print(
-        f"dense spline kernel vs plain: {cases} cases, orders 2-7, per-element and"
-        f" shared grids; max abs {worst:.3g} (limit {KERNEL_ATOL})"
+        f"dense spline kernel vs plain: {cases} cases, orders 2-7, 2 and 4 channels,"
+        f" per-element and shared grids; max abs {worst:.3g} (limit {KERNEL_ATOL})"
     )
     return worst
 
@@ -967,6 +1177,7 @@ def phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl):
     fill_a, apply_a = rs._fill_bc(0.0, B, C, dev)
     args_a = (vol, coords, fill_a, "linear", apply_a)
     err_a = float((got_a - rs.resample_coords_plain(*args_a)).abs().max())
+    got_kernel_a = got_a
     coeffs = bk.prefilter_cuda(vol1, 3)
     fill_b, _ = rs._fill_bc(fill1, 1, C, dev)
     args_b = (coeffs, coords1, fill_b, 3)
@@ -979,21 +1190,55 @@ def phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl):
         torch, lambda: rk.resample_coords_cuda(*args_a),
         lambda: rs.resample_coords_plain(*args_a),
     )
-    results["resample_coords"] = (err_a, ms, plain_ms)
+    # the one PyTorch call of the same function at a zero fill: grid_sample
+    # takes (x, y, z) = (k, j, i) normalised to [-1, 1] (align_corners);
+    # the conversion is outside the timed window
+    scale = torch.tensor([2.0 / (n - 1) for n in reversed(shape)], device=dev)
+    grid = (coords.flip(-1) * scale - 1.0).contiguous()
+    library = torch.nn.functional.grid_sample
+    lib_args = dict(mode="bilinear", padding_mode="zeros", align_corners=True)
+    lib_err = float((library(vol, grid, **lib_args) - got_kernel_a).abs().max())
+    del got_kernel_a
+    lib_order, _, library_ms = time_pair(
+        torch, lambda: rk.resample_coords_cuda(*args_a),
+        lambda: library(vol, grid, **lib_args), plain_reps=20,
+    )
+    del grid
+    voxels = B * S**3
+    work = bound(
+        nbytes(vol, coords, fill_a) + vol.numel() * 4,
+        voxels * 16 + voxels * C * 15,
+    )
+    results["resample_coords"] = {
+        "max_abs_err": err_a, "ms": ms, "plain_ms": plain_ms, "bound": work,
+        "library_ms": library_ms,
+    }
     print(
         f"dense resample B={B} x {S}^3 linear, per-element Motion grids: kernel"
         f" {ms:.3f} ms, plain {plain_ms:.3f} ms (k, p, k, p:"
-        f" {', '.join(f'{t:.3f}' for t in order)}); max abs {err_a:.3g}"
+        f" {', '.join(f'{t:.3f}' for t in order)}); max abs {err_a:.3g};"
+        f" F.grid_sample {library_ms:.3f} ms (k, l, k, l:"
+        f" {', '.join(f'{t:.3f}' for t in lib_order)}), max abs vs the kernel"
+        f" {lib_err:.3g}; bound {work[0]:.3f} ms ({work[1]})"
     )
     order, ms, plain_ms = time_pair(
         torch, lambda: bk.bspline_coords_cuda(*args_b),
         lambda: bs.bspline_coords_plain(*args_b), plain_reps=2,
     )
-    results["bspline_coords"] = (err_b, ms, plain_ms)
+    voxels = S**3
+    # a read point needs no map: the mask and the weights
+    work = bound(
+        nbytes(coeffs, coords1, fill_b) + coeffs.numel() * 4,
+        spline_flops(3, voxels, C, None) - voxels * point_flops(None),
+    )
+    results["bspline_coords"] = {
+        "max_abs_err": err_b, "ms": ms, "plain_ms": plain_ms, "bound": work,
+    }
     print(
         f"dense spline order 3 B=1 x {S}^3, a Motion grid: kernel {ms:.3f} ms, plain"
         f" {plain_ms:.3f} ms (k, p, k, p: {', '.join(f'{t:.3f}' for t in order)});"
-        f" max abs {err_b:.3g}; dense-entry launches {launches}"
+        f" max abs {err_b:.3g}; dense-entry launches {launches};"
+        f" bound {work[0]:.3f} ms ({work[1]})"
     )
     return results, launches
 
@@ -1038,14 +1283,24 @@ def main() -> int:
     phase_small_slice(torch, tio, tio_random)
     phase_small_labelled(torch, np, tio, tio_random, rs)
     phase_small_kspace(torch, tio, tio_random, kl)
+    phase_host_subject(torch, np, tio, kl)
     headline_launches = phase_slice(torch, tio, kl, args.profile)
     brats_launches, brats_batch = phase_brats(torch, tio, kl, args.profile)
     kspace_launches = phase_kspace(torch, tio, kl, args.profile)
-    err, ms, plain_ms = phase_kernel_timing(torch, np, tio, rs, rk)
-    timings = phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch)
+    timings = {"resample": phase_kernel_timing(torch, np, tio, rs, rk)}
+    timings.update(phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch))
     del brats_batch
     dense, dense_launches = phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl)
+    timings.update(dense)
     window = "torchio_tpu/ops/window_resample.py:335"
+    launches = {
+        "resample": headline_launches["resample"],
+        "label_vote": brats_launches["label_vote"],
+        "bspline_prefilter": brats_launches["bspline_prefilter"],
+        "bspline_resample": brats_launches["bspline_resample"],
+        "resample_coords": kspace_launches["resample_coords"],
+        "bspline_coords": dense_launches["bspline_coords"],
+    }
     kernels = [
         {
             "name": "resample",
@@ -1054,10 +1309,6 @@ def main() -> int:
             "replaces": "torchio_tpu/ops/shear_resample.py:219",
             "also_replaces": ["torchio_tpu/ops/shear_resample.py:81", window],
             "path": "headline",
-            "launches": headline_launches["resample"],
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
         },
         {
             "name": "label_vote",
@@ -1066,10 +1317,6 @@ def main() -> int:
             "replaces": "torchio_tpu/ops/shear_resample.py:219",
             "also_replaces": [window],
             "path": "brats-label-bspline",
-            "launches": brats_launches["label_vote"],
-            "max_abs_err": timings["label_vote"][0],
-            "ms": timings["label_vote"][1],
-            "plain_ms": timings["label_vote"][2],
         },
         {
             "name": "bspline_prefilter",
@@ -1078,10 +1325,6 @@ def main() -> int:
             "replaces": "torchio_tpu/ops/bspline.py:81",
             "note": "XLA lax.scan prefilter in the JAX package; no Pallas counterpart",
             "path": "brats-label-bspline",
-            "launches": brats_launches["bspline_prefilter"],
-            "max_abs_err": timings["bspline_prefilter"][0],
-            "ms": timings["bspline_prefilter"][1],
-            "plain_ms": timings["bspline_prefilter"][2],
         },
         {
             "name": "bspline_resample",
@@ -1089,10 +1332,6 @@ def main() -> int:
             "source": "torchio_tpu_torch/csrc/bspline.cu",
             "replaces": window,
             "path": "brats-label-bspline",
-            "launches": brats_launches["bspline_resample"],
-            "max_abs_err": timings["bspline_resample"][0],
-            "ms": timings["bspline_resample"][1],
-            "plain_ms": timings["bspline_resample"][2],
         },
         {
             "name": "resample_coords",
@@ -1100,10 +1339,6 @@ def main() -> int:
             "source": "torchio_tpu_torch/csrc/resample.cu",
             "replaces": "torchio_tpu/ops/pallas_resample.py:117",
             "path": "kspace-motion-ghosting",
-            "launches": kspace_launches["resample_coords"],
-            "max_abs_err": dense["resample_coords"][0],
-            "ms": dense["resample_coords"][1],
-            "plain_ms": dense["resample_coords"][2],
         },
         {
             "name": "bspline_coords",
@@ -1113,12 +1348,23 @@ def main() -> int:
             "note": "dense-coordinate mode; the JAX package's dense bspline_resample"
             " (torchio_tpu/ops/bspline.py:215) is an XLA gather",
             "path": "dense-entry",
-            "launches": dense_launches["bspline_coords"],
-            "max_abs_err": dense["bspline_coords"][0],
-            "ms": dense["bspline_coords"][1],
-            "plain_ms": dense["bspline_coords"][2],
         },
     ]
+    for entry in kernels:
+        t = timings[entry["name"]]
+        bound_ms, bound_by = t["bound"]
+        entry.update(
+            launches=launches[entry["name"]],
+            max_abs_err=t["max_abs_err"],
+            ms=t["ms"],
+            plain_ms=t["plain_ms"],
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+            roofline=bound_ms / t["ms"],
+            library_ms=t.get("library_ms"),
+        )
+        if "pass_ms" in t:
+            entry["pass_ms"] = t["pass_ms"]
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(

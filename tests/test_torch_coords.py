@@ -28,6 +28,7 @@ import torch
 import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 
 import torchio_tpu.ops as jops
+import torchio_tpu_torch as tt
 import torchio_tpu_torch.ops as tops
 from test_torch_resample import _rot
 from torchio_tpu.ops.bspline import bspline_resample as jax_bspline_resample
@@ -45,6 +46,16 @@ SPLINE_ATOL = {2: 2e-5, 3: 2e-5, 4: 5e-5, 5: 5e-5, 6: 5e-5, 7: 5e-5}
 
 IN_SHAPE = (12, 14, 20)
 OUT_SHAPE = (13, 11, 22)  # unlike the input: up- and down-sampled axes
+
+
+@pytest.fixture(autouse=True)
+def host_data_on_cpu():
+    """These tests build grids and fields from host data and compare on
+    the CPU: ask the port to put host data there (its default is the
+    card)."""
+    previous = tt.set_default_device("cpu")
+    yield
+    tt.set_default_device(previous)
 
 
 def _volume(b=2, c=2, shape=IN_SHAPE, seed=0):

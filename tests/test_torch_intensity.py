@@ -25,6 +25,15 @@ from torchio_tpu.data.batch import SubjectsBatch as JaxBatch
 RTOL, ATOL = 1e-5, 1e-6
 
 
+@pytest.fixture(autouse=True)
+def host_data_on_cpu():
+    """These tests build images from numpy and compare on the CPU: ask the
+    port to put host data there (its default is the card)."""
+    previous = tt.set_default_device("cpu")
+    yield
+    tt.set_default_device(previous)
+
+
 def jax_device_normal(seed, shape, device, index):
     """The JAX package's draw ``index`` of ``seed``: index 0 is
     ``PRNGKey(seed)`` itself (BiasField); Noise image ``n`` splits the key

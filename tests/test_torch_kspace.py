@@ -35,6 +35,15 @@ KSPACE_ATOL = 1e-5
 SHAPE = (1, 12, 14, 20)
 
 
+@pytest.fixture(autouse=True)
+def host_data_on_cpu():
+    """These tests build images from numpy and compare on the CPU: ask the
+    port to put host data there (its default is the card)."""
+    previous = tt.set_default_device("cpu")
+    yield
+    tt.set_default_device(previous)
+
+
 def config5(pkg, p=0.5):
     """BASELINE.json config 5's artifact pair (benchmarks/patches_bench.py)."""
     return pkg.Compose(

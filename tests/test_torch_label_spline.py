@@ -49,6 +49,16 @@ rs = importlib.import_module("torchio_tpu_torch.ops.resample")
 TIE_BAND = 1e-4
 SLICE_ATOL = 1e-4
 
+
+@pytest.fixture(autouse=True)
+def host_data_on_cpu():
+    """These tests build images from numpy and compare on the CPU: ask the
+    port to put host data there (its default is the card)."""
+    previous = tt.set_default_device("cpu")
+    yield
+    tt.set_default_device(previous)
+
+
 pytestmark = pytest.mark.filterwarnings("ignore:The maximum displacement")
 
 

@@ -29,12 +29,23 @@ import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 import torchio_tpu as tj
 import torchio_tpu_torch as tt
 from test_torch_intensity import jax_device_normal, make_batches
+from torchio_tpu_torch.ops.resample import upsample_volume
 
 SLICE_ATOL = 1e-4
 SHAPE = (1, 24, 26, 28)
 #: K > 128: the JAX package takes its shear kernels (as the headline does
 #: at 256^3) instead of the windowed kernel, which small volumes qualify for
 SHEAR_SHAPE = (1, 20, 22, 136)
+
+
+@pytest.fixture(autouse=True)
+def host_data_on_cpu():
+    """These tests build images from numpy and compare on the CPU: ask the
+    port to put host data there (its default is the card)."""
+    previous = tt.set_default_device("cpu")
+    yield
+    tt.set_default_device(previous)
+
 
 pytestmark = pytest.mark.filterwarnings("ignore:The maximum displacement")
 
@@ -169,6 +180,61 @@ def test_entry_points_round_trip(kind):
         assert out["age"] == 40 and out["t1"].shape == arr.shape
     elif kind in ("subject", "image"):
         assert [h.name for h in out.history] == ["Affine"]
+
+
+HOST_ENTRIES = {
+    "image": lambda arr: tt.ScalarImage(arr).data,
+    "label": lambda arr: tt.LabelMap(arr.astype(np.int32)).data,
+    "subject": lambda arr: tt.Subject(t1=tt.ScalarImage(arr)).t1.data,
+    "ndarray": lambda arr: tt.Affine._wrap(arr)[0].tio_default_image.data,
+    "dict": lambda arr: tt.Affine._wrap({"t1": arr, "age": 40})[0].t1.data,
+    "list": lambda arr: tt.ScalarImage(arr.tolist()).data,
+    "build_coords": lambda arr: tt.ops.build_coords(arr.shape[1:], np.eye(4)),
+    "upsample_field": lambda arr: tt.ops.upsample_field(arr.reshape(4, 5, 2, 3), (8, 10, 4)),
+    "upsample_volume": lambda arr: upsample_volume(arr, (8, 10, 12)),
+}
+#: the shapes of the entries that do not return their input's shape
+HOST_SHAPES = {
+    "build_coords": (4, 5, 6, 3),
+    "upsample_field": (8, 10, 4, 3),
+    "upsample_volume": (1, 8, 10, 12),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(HOST_ENTRIES))
+def test_host_data_goes_to_the_default_device(kind):
+    """numpy and lists given to an image, a subject, a transform or an op
+    land on the default device ("meta" stands in for a card here: it is
+    neither the CPU nor the tensor's own device)."""
+    arr = np.random.default_rng(9).random((1, 4, 5, 6), np.float32)
+    previous = tt.set_default_device("meta")
+    try:
+        data = HOST_ENTRIES[kind](arr)
+        tensor_image = tt.ScalarImage(torch.as_tensor(arr))
+    finally:
+        tt.set_default_device(previous)
+    shape = HOST_SHAPES.get(kind, arr.shape)
+    assert data.device.type == "meta" and tuple(data.shape[-len(shape):]) == shape
+    # a tensor keeps the device its caller chose
+    assert tensor_image.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kind", ["image", "subject", "ndarray", "dict"])
+def test_host_data_needs_the_card_unless_the_cpu_is_asked_for(kind):
+    """By default host data goes to the card: without one it raises
+    PyTorch's error instead of running on the CPU."""
+    arr = np.zeros((1, 4, 5, 6), np.float32)
+    previous = tt.set_default_device("cuda")
+    try:
+        assert tt.default_device() == torch.device("cuda")
+        if torch.cuda.is_available():
+            assert HOST_ENTRIES[kind](arr).device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+                HOST_ENTRIES[kind](arr)
+    finally:
+        tt.set_default_device(previous)
+    assert tt.default_device() == torch.device("cpu")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -14,11 +14,16 @@ and the partial-volume "label" mode), and the MRI-artifact pair
 runs in hand-written CUDA kernels (``csrc/``); on a CPU batch in their
 plain PyTorch versions. The dense-coordinate entry (``ops.resample``,
 ``ops.build_coords``) serves Motion's rigid moves.
+
+Host data (numpy arrays) given to an image, a subject, or a transform's
+ndarray or dict entry lands on the card; :func:`set_default_device`
+(``"cpu"``) asks for the CPU instead.
 """
 
 __version__ = "0.1.0"
 
 from . import random  # noqa: A004  (named like the stdlib on purpose)
+from .config import default_device, set_default_device
 from .core.affine import AffineMatrix
 from .data import ImagesBatch, LabelMap, ScalarImage, Subject, SubjectsBatch
 from .random import seed
@@ -50,6 +55,8 @@ __all__ = [
     "Spatial",
     "Subject",
     "SubjectsBatch",
+    "default_device",
     "random",
     "seed",
+    "set_default_device",
 ]

@@ -2,23 +2,40 @@
 // direct B-spline transform (prefilter) and the (order+1)^3-tap
 // evaluation at per-element grid specs or at dense coordinates.
 //
-// tio_prefilter_axis: the prefilter along one axis of a float32 volume.
-//   It has no Pallas counterpart: the JAX package runs it in XLA
-//   (torchio_tpu/ops/bspline.py prefilter/_prefilter_axis, two lax.scan
-//   per pole and axis), before its windowed spline kernel.
-//   One thread per 1-D line: the gain lam, then for each pole the
-//   causal recursion from its mirror-boundary start (the truncated
-//   geometric sum when the horizon is shorter than the line, else the
-//   exact sum over the mirrored period) and the anticausal recursion
-//   from its closed-form start. The wrapper calls it once per axis; the
-//   first call reads the input and writes the coefficients, the others
-//   work in place.
-//   What bounds it: device-memory bytes. Each pole reads and writes the
-//   volume twice (the recursions are sequential along a line). Along i
-//   and j, neighbouring threads hold neighbouring k and their accesses
-//   coalesce; along k each thread walks its own contiguous line and the
-//   accesses of a warp land on 32 cache lines (L1 absorbs part of it).
-//   Staging k-lines through shared memory is later work.
+// tio_prefilter_axis: the prefilter along one axis of a float32 volume
+//   viewed as (outer, n, stride). It has no Pallas counterpart: the JAX
+//   package runs it in XLA (torchio_tpu/ops/bspline.py
+//   prefilter/_prefilter_axis, two lax.scan per pole and axis), before
+//   its windowed spline kernel. Each line gets the gain lam, then for
+//   each pole the causal recursion from its mirror-boundary start (the
+//   truncated geometric sum when the horizon is shorter than the line,
+//   else the exact sum over the mirrored period) and the anticausal
+//   recursion from its closed-form start. The wrapper calls it once per
+//   axis; the first call reads the input and writes the coefficients,
+//   the others work in place.
+//   What bounds it: device-memory bytes. The recursions are sequential
+//   along a line and walk it about six times (gain, start sum, two
+//   sweeps per pole), so the design keeps every walk out of device
+//   memory: a block stages whole lines in shared memory with cp.async
+//   (coalesced: consecutive threads on consecutive addresses), runs
+//   every walk there with one thread per line, and writes the lines back
+//   once, so each pass reads and writes the volume once. A (B, C, I, J,
+//   K) batch of C > 1 channels comes out channels-last, (B, I, J, K, C)
+//   in memory, the layout the spline kernels read: the i pass moves the
+//   channels innermost as it writes, the j and k passes work in place.
+//   - kLines (stride below 32: the k axis, stride 1 planar or C
+//     channels-last): a block takes whole rows of `stride` interleaved
+//     lines, one contiguous chunk of memory, each line stored at an odd
+//     pitch so that threads at the same index hit different banks.
+//   - kColumns (stride >= 32, the i and j axes): a block takes an n x W
+//     slab of consecutive positions across the lines, of every channel
+//     when the pass moves channels; row m of the slab is one contiguous
+//     run of the output, and thread t walks column t (bank t).
+//   - kGlobal: lines too long for shared memory (the plan in
+//     torchio_tpu_torch/ops/bspline_kernel.py prefilter_plan picks the
+//     path and the block's size by shape) walk device memory with one
+//     thread per line, as the first version of this kernel did.
+//   Every path runs each line's arithmetic in the same order.
 //
 // tio_bspline_resample: replaces the spline modes of
 //   torchio_tpu/ops/window_resample.py _kernel (cubic_resample_fused;
@@ -31,7 +48,9 @@
 //   (B or 1, Io, Jo, Ko, 3) coordinate tensor: the JAX package's
 //   bspline_resample on dense grids (an XLA gather there, no Pallas).
 //   The coordinate is read from memory; everything after it is shared.
-// Both: one thread per output voxel (b, io, jo, ko), ko fastest:
+// Both read channels-last (B, I, J, K, C) coefficients (the wrappers
+// copy other layouts), one thread per output voxel (b, io, jo, ko), ko
+// fastest:
 //     1. the sample point (sample_point.cuh: built from the grid spec,
 //        or read from the coordinate tensor);
 //     2. the fill mask from the raw coordinate: the product over axes of
@@ -41,21 +60,31 @@
 //        (dct1) symmetry, the order+1 tap indices reflected into the
 //        volume and their basis weights: closed forms for orders 2 and
 //        3, the Cox-de Boor recursion for orders 4-7;
-//     4. for each channel, sum over i and j taps of (wi wj) times the
-//        k-tap sum; the fill replaces the value wherever the mask is
-//        <= 0.5 (always applied: the mirror-folded spline would leak
-//        past the volume otherwise).
-//   What bounds it: at order 3, 64 taps per voxel and channel, read
-//   through L1/L2 (neighbouring threads share most taps), plus one
-//   4-byte write; the tap weights are computed once per voxel and
-//   reused over the channels. At orders 4-7 the recursion's arithmetic
-//   (2^order leaves per weight, inlined) adds to it.
+//     4. for each group of V channels (V = 4 when C is a multiple of 4,
+//        else 1), sum over i and j taps of (wi wj) times the k-tap sum,
+//        each tap one V-wide load; the fill replaces the value wherever
+//        the mask is <= 0.5 (always applied: the mirror-folded spline
+//        would leak past the volume otherwise). Each channel's sums run
+//        in the plain version's order, so the result is the same bits.
+//   What bounds it: not device bytes but the taps' loads: at order 3,
+//   64 taps per voxel and channel, read through L1/L2; a warp's taps of
+//   one (a, b, d) fall on the several rows its rotated voxels straddle,
+//   so each load costs several L1 wavefronts. Channels-last coefficients
+//   let one load (and one wavefront's row) serve four channels, which
+//   cuts the load instructions and wavefronts by four at C = 4. The tap
+//   weights are computed once per voxel and reused over the channels. A
+//   tiled version that staged each tile's coefficient box in shared
+//   memory lost to the planar direct kernel at the brats shape: its
+//   setup, box loads and barriers cost more than the wavefronts it saved
+//   (PERF.md, PR 4).
 //
 // Built with -fmad=false (see sample_point.cuh). A division by a
 // constant is a product with its float32 reciprocal, as in the plain
-// versions (torchio_tpu_torch/ops/bspline.py). Offsets are 64-bit.
-// Launches go on the caller's stream, allocate nothing, and return
-// cudaGetLastError().
+// versions (torchio_tpu_torch/ops/bspline.py). Launches go on the
+// caller's stream, allocate nothing, and return cudaGetLastError().
+
+#include <cuda_pipeline.h>
+
 
 #include "sample_point.cuh"
 
@@ -66,6 +95,8 @@ using tio::kThreads;
 using tio::Source;
 
 constexpr int kMaxPoles = 3;
+// dynamic shared memory a block may use on Hopper (227 KB)
+constexpr int kMaxSharedBytes = 232448;
 
 struct Poles {
   int count;
@@ -76,9 +107,50 @@ struct Poles {
   float anti[kMaxPoles];     // z / (z^2 - 1), the anticausal start's gain
 };
 
+// Every pole's recursions over one line x[0], x[step], ... x[(n-1) step]
+// that already holds the gained samples (a 32-bit step in shared memory,
+// a 64-bit one in device memory).
+template <typename Index>
+__device__ __forceinline__ void prefilter_line(float* x, int n, Index step,
+                                               const Poles& p) {
+  for (int q = 0; q < p.count; ++q) {
+    const float z = p.z[q];
+    float c0 = 0.0f, zm = 1.0f;
+    if (p.horizon[q] < n) {
+      for (int m = 0; m < p.horizon[q]; ++m) {
+        c0 = c0 + zm * x[m * step];
+        zm = zm * z;
+      }
+    } else {
+      for (int m = 0; m < n; ++m) {
+        c0 = c0 + zm * x[m * step];
+        zm = zm * z;
+      }
+      for (int m = n; m < 2 * n - 2; ++m) {
+        c0 = c0 + zm * x[(2 * n - 2 - m) * step];
+        zm = zm * z;
+      }
+      c0 = c0 * p.inv_denom[q];
+    }
+    float prev = c0;
+    x[0] = c0;
+    for (int i = 1; i < n; ++i) {
+      prev = x[i * step] + z * prev;
+      x[i * step] = prev;
+    }
+    float next = p.anti[q] * (z * x[(n - 2) * step] + prev);
+    x[(n - 1) * step] = next;
+    for (int i = n - 2; i >= 0; --i) {
+      next = z * (next - x[i * step]);
+      x[i * step] = next;
+    }
+  }
+}
+
+// kGlobal: one thread per line, in device memory.
 __global__ void __launch_bounds__(kThreads)
-    prefilter_axis_kernel(const float* src, float* dst, int64_t lines, int n,
-                          int64_t stride, Poles p) {
+    prefilter_global_kernel(const float* src, float* dst, int64_t lines, int n,
+                            int64_t stride, Poles p) {
   // src and dst are the same buffer on every pass but the first
   for (int64_t l = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; l < lines;
        l += (int64_t)gridDim.x * blockDim.x) {
@@ -90,39 +162,95 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
     for (int i = 0; i < n; ++i) x[i * stride] = in[i * stride] * p.lam;
-    for (int q = 0; q < p.count; ++q) {
-      const float z = p.z[q];
-      float c0 = 0.0f, zm = 1.0f;
-      if (p.horizon[q] < n) {
-        for (int m = 0; m < p.horizon[q]; ++m) {
-          c0 = c0 + zm * x[m * stride];
-          zm = zm * z;
-        }
-      } else {
-        for (int m = 0; m < n; ++m) {
-          c0 = c0 + zm * x[m * stride];
-          zm = zm * z;
-        }
-        for (int m = n; m < 2 * n - 2; ++m) {
-          c0 = c0 + zm * x[(2 * n - 2 - m) * stride];
-          zm = zm * z;
-        }
-        c0 = c0 * p.inv_denom[q];
-      }
-      float prev = c0;
-      x[0] = c0;
-      for (int i = 1; i < n; ++i) {
-        prev = x[i * stride] + z * prev;
-        x[i * stride] = prev;
-      }
-      float next = p.anti[q] * (z * x[(n - 2) * stride] + prev);
-      x[(n - 1) * stride] = next;
-      for (int i = n - 2; i >= 0; --i) {
-        next = z * (next - x[i * stride]);
-        x[i * stride] = next;
-      }
+    prefilter_line(x, n, stride, p);
+  }
+}
+
+__device__ __forceinline__ void copy4_async(float* shared, const float* global) {
+  __pipeline_memcpy_async(shared, global, sizeof(float));
+}
+
+// kLines: lines of a small stride s (1 for planar k lines; C for the k
+// lines of channels-last coefficients, C lines interleaved in each row).
+// The volume is viewed as (rows, n, s); block b takes rows [b R, b R + R),
+// one contiguous chunk of memory holding R s lines, R s = blockDim.x. Line
+// (r, l) is stored at line pitch `pitch` (odd), thread r s + l walks it.
+__global__ void prefilter_lines_kernel(const float* src, float* dst, int64_t rows,
+                                       int n, int s, int pitch, Poles p) {
+  extern __shared__ float sh[];
+  const int per_block = blockDim.x;
+  const int rows_per_block = per_block / s;
+  const int64_t first = (int64_t)blockIdx.x * rows_per_block;
+  const int count = (int)min((int64_t)rows_per_block, rows - first);
+  const int64_t row_floats = (int64_t)n * s;
+  const float* in = src + first * row_floats;
+  float* out = dst + first * row_floats;
+  // consecutive threads on consecutive addresses of the chunk: thread t
+  // keeps lane l = t % s and steps R samples down its lines
+  const int lane = threadIdx.x % s;
+  {
+    int row = 0, m = threadIdx.x / s;
+    while (m >= n) { m -= n; ++row; }
+    for (; row < count;) {
+      copy4_async(sh + (row * s + lane) * pitch + m, in + row * row_floats + m * s + lane);
+      m += rows_per_block;
+      while (m >= n) { m -= n; ++row; }
     }
   }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if ((int)threadIdx.x < count * s && n > 1) {
+    float* x = sh + threadIdx.x * pitch;
+    for (int i = 0; i < n; ++i) x[i] = x[i] * p.lam;
+    prefilter_line(x, n, 1, p);
+  }
+  __syncthreads();
+  {
+    int row = 0, m = threadIdx.x / s;
+    while (m >= n) { m -= n; ++row; }
+    for (; row < count;) {
+      out[row * row_floats + m * s + lane] = sh[(row * s + lane) * pitch + m];
+      m += rows_per_block;
+      while (m >= n) { m -= n; ++row; }
+    }
+  }
+}
+
+// kColumns: lines of stride > 1, read from a volume viewed as (outer, C,
+// n, stride) and written to one viewed as (outer, n, stride, C): C = 1
+// filters in place; C > 1 also moves the channels innermost (the i pass of
+// channels-last coefficients). Block b takes, in outer slice b / slabs,
+// the W consecutive positions [s0, s0 + W) of every row and every channel:
+// an (n, W C) slab, W C = blockDim.x, thread w C + c walking column w of
+// channel c. Each row of the slab is W runs of C channels, so the write
+// is one contiguous run.
+__global__ void prefilter_columns_kernel(const float* src, float* dst, int n,
+                                         int64_t stride, int channels, int64_t slabs,
+                                         Poles p) {
+  extern __shared__ float sh[];
+  const int width = blockDim.x;
+  const int t = threadIdx.x;
+  const int w = t / channels, c = t % channels;
+  const int64_t o = blockIdx.x / slabs;
+  const int64_t s0 = (blockIdx.x % slabs) * (width / channels);
+  const bool live = s0 + w < stride;
+  const int64_t in_base = ((o * channels + c) * n) * stride + s0 + w;
+  const int64_t out_base = (o * n * stride + s0) * channels + t;
+  const int64_t out_step = stride * channels;
+  if (live) {
+    for (int m = 0; m < n; ++m) copy4_async(sh + m * width + t, src + in_base + m * stride);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  // each thread reads back only what it loaded itself: no barrier needed
+  if (!live) return;
+  float* x = sh + t;
+  if (n > 1) {
+    for (int i = 0; i < n; ++i) x[i * width] = x[i * width] * p.lam;
+    prefilter_line(x, n, width, p);
+  }
+  for (int m = 0; m < n; ++m) dst[out_base + m * out_step] = x[m * width];
 }
 
 // Centered cardinal B-spline B_N by the Cox-de Boor recursion, the
@@ -205,13 +333,56 @@ __device__ __forceinline__ float inbounds(float c, int size) {
   return w0 + w1;
 }
 
-template <int kOrder, Source kSource>
+// V consecutive floats in one load (V = 4: a 16-byte-aligned float4).
+template <int V>
+__device__ __forceinline__ void load_vec(const float* ptr, float x[V]) {
+  if constexpr (V == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(ptr));
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    x[0] = __ldg(ptr);
+  }
+}
+
+// One i-plane of the tap sum: acc[u] += (wi wj[b]) times the k-tap sum
+// of row b, for V channels. tj and tk are offsets in floats within the
+// plane (tap index times the row's and the sample's floats).
+template <int T, int V>
+__device__ __forceinline__ void sum_plane(const float* plane, float wi, const int tj[T],
+                                          const float wj[T], const int tk[T],
+                                          const float wk[T], float acc[V]) {
+#pragma unroll
+  for (int b = 0; b < T; ++b) {
+    const float* row = plane + tj[b];
+    float x[V], kv[V];
+    load_vec<V>(row + tk[0], x);
+#pragma unroll
+    for (int u = 0; u < V; ++u) kv[u] = wk[0] * x[u];
+#pragma unroll
+    for (int d = 1; d < T; ++d) {
+      load_vec<V>(row + tk[d], x);
+#pragma unroll
+      for (int u = 0; u < V; ++u) kv[u] = kv[u] + wk[d] * x[u];
+    }
+    const float wij = wi * wj[b];
+#pragma unroll
+    for (int u = 0; u < V; ++u) acc[u] = acc[u] + wij * kv[u];
+  }
+}
+
+// coeffs: channels-last (B, I, J, K, C), J K C < 2^31; out: (B, C, Io,
+// Jo, Ko). Each tap is read for V channels at once.
+template <int kOrder, Source kSource, int V>
 __global__ void __launch_bounds__(kThreads)
     spline_kernel(const float* __restrict__ coeffs, tio::Points pts,
                   const float* __restrict__ fill, float* __restrict__ out, Grid s) {
   constexpr int T = kOrder + 1;
   const int64_t out_spatial = tio::out_spatial(s);
-  const int64_t in_spatial = tio::in_spatial(s);
+  const int row_floats = s.K * s.C;
+  const int64_t plane_floats = (int64_t)s.J * row_floats;
   const int64_t total = (int64_t)s.B * out_spatial;
   for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < total;
        v += (int64_t)gridDim.x * blockDim.x) {
@@ -222,62 +393,98 @@ __global__ void __launch_bounds__(kThreads)
     const bool use_fill = !(mask > 0.5f);
     int ti[T], tj[T], tk[T];
     float wi[T], wj[T], wk[T];
+    int64_t ti_off[T];
     if (!use_fill) {
       spline_taps<kOrder>(c[0], s.I, ti, wi);
       spline_taps<kOrder>(c[1], s.J, tj, wj);
       spline_taps<kOrder>(c[2], s.K, tk, wk);
+#pragma unroll
+      for (int d = 0; d < T; ++d) {
+        ti_off[d] = ti[d] * plane_floats;
+        tj[d] *= row_floats;
+        tk[d] *= s.C;
+      }
     }
     const int64_t out_base =
         (int64_t)p.b * s.C * out_spatial + (v - (int64_t)p.b * out_spatial);
-    for (int ch = 0; ch < s.C; ++ch) {
-      float acc;
+    const float* src = coeffs + (int64_t)p.b * s.I * plane_floats;
+    for (int c0 = 0; c0 < s.C; c0 += V) {
+      float acc[V];
       if (use_fill) {
-        acc = __ldg(fill + (int64_t)p.b * s.C + ch);
+#pragma unroll
+        for (int u = 0; u < V; ++u) acc[u] = __ldg(fill + (int64_t)p.b * s.C + c0 + u);
       } else {
-        const float* src = coeffs + ((int64_t)p.b * s.C + ch) * in_spatial;
-        acc = 0.0f;
 #pragma unroll
-        for (int a = 0; a < T; ++a) {
+        for (int u = 0; u < V; ++u) acc[u] = 0.0f;
+        if constexpr (kOrder <= 5) {
 #pragma unroll
-          for (int b = 0; b < T; ++b) {
-            const float* row = src + ((int64_t)ti[a] * s.J + tj[b]) * s.K;
-            float kv = wk[0] * __ldg(row + tk[0]);
-#pragma unroll
-            for (int d = 1; d < T; ++d) kv = kv + wk[d] * __ldg(row + tk[d]);
-            acc = acc + (wi[a] * wj[b]) * kv;
+          for (int a = 0; a < T; ++a) {
+            sum_plane<T, V>(src + c0 + ti_off[a], wi[a], tj, wj, tk, wk, acc);
+          }
+        } else {
+          // orders 6-7: one plane's code in a loop, which keeps the
+          // library's build short (these orders are on no timed path)
+#pragma unroll 1
+          for (int a = 0; a < T; ++a) {
+            sum_plane<T, V>(src + c0 + ti_off[a], wi[a], tj, wj, tk, wk, acc);
           }
         }
       }
-      out[out_base + (int64_t)ch * out_spatial] = acc;
+#pragma unroll
+      for (int u = 0; u < V; ++u) out[out_base + (int64_t)(c0 + u) * out_spatial] = acc[u];
     }
   }
 }
 
-template <Source kSource>
-void launch_spline(const float* coeffs, const tio::Points& pts, const float* fill,
-                   float* out, const Grid& s, int order, cudaStream_t st) {
+template <Source kSource, int V>
+void launch_spline_vec(const float* coeffs, const tio::Points& pts, const float* fill,
+                       float* out, const Grid& s, int order, cudaStream_t st) {
   const unsigned grid = tio::blocks_for((int64_t)s.B * tio::out_spatial(s));
   switch (order) {
-    case 2: spline_kernel<2, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
-    case 3: spline_kernel<3, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
-    case 4: spline_kernel<4, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
-    case 5: spline_kernel<5, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
-    case 6: spline_kernel<6, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
-    case 7: spline_kernel<7, kSource><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 2: spline_kernel<2, kSource, V><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 3: spline_kernel<3, kSource, V><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 4: spline_kernel<4, kSource, V><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 5: spline_kernel<5, kSource, V><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 6: spline_kernel<6, kSource, V><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
+    case 7: spline_kernel<7, kSource, V><<<grid, kThreads, 0, st>>>(coeffs, pts, fill, out, s); break;
   }
+}
+
+// vec: 4 when C is a multiple of 4 and coeffs is 16-byte aligned, else 1
+template <Source kSource>
+int launch_spline(const float* coeffs, const tio::Points& pts, const float* fill, float* out,
+                  const Grid& s, int order, int vec, cudaStream_t st) {
+  if (order < 2 || order > 7) return (int)cudaErrorInvalidValue;
+  if (vec == 4) {
+    if (s.C % 4 != 0 || reinterpret_cast<uintptr_t>(coeffs) % 16 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    launch_spline_vec<kSource, 4>(coeffs, pts, fill, out, s, order, st);
+  } else if (vec == 1) {
+    launch_spline_vec<kSource, 1>(coeffs, pts, fill, out, s, order, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One axis pass of the prefilter over a volume viewed as (outer, n,
-// stride): lines = outer * stride. The pole constants come from the
-// host (torchio_tpu_torch/ops/bspline.py pole_constants).
-extern "C" int tio_prefilter_axis(const float* src, float* dst, long long lines,
-                                  int n, long long stride, int count,
-                                  const float* z, const int* horizon,
-                                  const float* inv_denom, const float* anti,
-                                  float lam, void* stream) {
-  if (count < 0 || count > kMaxPoles) return (int)cudaErrorInvalidValue;
+// stride); with channels C > 1 (the kColumns path only) the input is read
+// as (outer, C, n, stride) and written as (outer, n, stride, C). kind,
+// per_block, pitch and shared_bytes come from the plan
+// (torchio_tpu_torch/ops/bspline_kernel.py prefilter_plan): 0 kGlobal, 1
+// kLines, 2 kColumns. The pole constants come from the host
+// (torchio_tpu_torch/ops/bspline.py pole_constants).
+extern "C" int tio_prefilter_axis(const float* src, float* dst, long long outer, int n,
+                                  long long stride, int channels, int kind, int per_block,
+                                  int pitch, int shared_bytes, int count, const float* z,
+                                  const int* horizon, const float* inv_denom,
+                                  const float* anti, float lam, void* stream) {
+  if (count < 0 || count > kMaxPoles || channels < 1) return (int)cudaErrorInvalidValue;
+  if (channels > 1 && (kind != 2 || src == dst)) return (int)cudaErrorInvalidValue;
+  const int64_t lines = (int64_t)outer * stride * channels;
   if (lines == 0) return 0;
   Poles p{};
   p.count = count;
@@ -288,43 +495,78 @@ extern "C" int tio_prefilter_axis(const float* src, float* dst, long long lines,
     p.inv_denom[q] = inv_denom[q];
     p.anti[q] = anti[q];
   }
-  prefilter_axis_kernel<<<tio::blocks_for(lines), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(src, dst, lines, n,
-                                                               stride, p);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == 0) {
+    prefilter_global_kernel<<<tio::blocks_for(lines), kThreads, 0, st>>>(src, dst, lines, n,
+                                                                         stride, p);
+    return (int)cudaGetLastError();
+  }
+  if (per_block < 1 || per_block > 1024 || shared_bytes < 0 ||
+      shared_bytes > kMaxSharedBytes) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kind == 1) {
+    // rows of `stride` interleaved lines, per_block / stride rows a block
+    if (stride < 1 || stride > per_block || per_block % stride != 0 ||
+        (int64_t)per_block * pitch * 4 > shared_bytes || pitch < n) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int rows_per_block = per_block / (int)stride;
+    const int64_t blocks = (outer + rows_per_block - 1) / rows_per_block;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+    const cudaError_t err = cudaFuncSetAttribute(
+        prefilter_lines_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return (int)err;
+    prefilter_lines_kernel<<<(unsigned)blocks, per_block, shared_bytes, st>>>(
+        src, dst, outer, n, (int)stride, pitch, p);
+    return (int)cudaGetLastError();
+  }
+  if (kind == 2) {
+    if (per_block % channels != 0 || (int64_t)per_block * n * 4 > shared_bytes) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int positions = per_block / channels;
+    const int64_t slabs = (stride + positions - 1) / positions;
+    const int64_t blocks = (int64_t)outer * slabs;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+    const cudaError_t err = cudaFuncSetAttribute(
+        prefilter_columns_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return (int)err;
+    prefilter_columns_kernel<<<(unsigned)blocks, per_block, shared_bytes, st>>>(
+        src, dst, n, stride, channels, slabs, p);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
+// coeffs: channels-last (B, I, J, K, C) float32; vec: see launch_spline.
 extern "C" int tio_bspline_resample(const float* coeffs, const float* maps,
                                     const float* fields, const float* fill,
                                     float* out, int B, int C, int I, int J, int K,
                                     int Io, int Jo, int Ko, int ni, int nj, int nk,
-                                    float ri, float rj, float rk, int order,
+                                    float ri, float rj, float rk, int order, int vec,
                                     void* stream) {
-  if (order < 2 || order > 7) return (int)cudaErrorInvalidValue;
   const Grid s{B, C, I, J, K, Io, Jo, Ko, ni, nj, nk, ri, rj, rk};
   if ((int64_t)B * Io * Jo * Ko == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const tio::Points pts{maps, fields, nullptr, 0};
   if (fields != nullptr) {
-    launch_spline<Source::kMapField>(coeffs, pts, fill, out, s, order, st);
-  } else {
-    launch_spline<Source::kMap>(coeffs, pts, fill, out, s, order, st);
+    return launch_spline<Source::kMapField>(coeffs, pts, fill, out, s, order, vec, st);
   }
-  return (int)cudaGetLastError();
+  return launch_spline<Source::kMap>(coeffs, pts, fill, out, s, order, vec, st);
 }
 
-// coords: (B or 1, Io, Jo, Ko, 3) float32; coord_batch_stride is
-// Io*Jo*Ko*3 for per-element grids and 0 for one shared grid.
+// coeffs as above; coords: (B or 1, Io, Jo, Ko, 3) float32;
+// coord_batch_stride is Io*Jo*Ko*3 for per-element grids and 0 for one
+// shared grid.
 extern "C" int tio_bspline_coords(const float* coeffs, const float* coords,
                                   const float* fill, float* out, int B, int C,
                                   int I, int J, int K, int Io, int Jo, int Ko,
-                                  long long coord_batch_stride, int order,
+                                  long long coord_batch_stride, int order, int vec,
                                   void* stream) {
-  if (order < 2 || order > 7) return (int)cudaErrorInvalidValue;
   const Grid s{B, C, I, J, K, Io, Jo, Ko, 0, 0, 0, 0.0f, 0.0f, 0.0f};
   if ((int64_t)B * Io * Jo * Ko == 0) return 0;
   const tio::Points pts{nullptr, nullptr, coords, (int64_t)coord_batch_stride};
-  launch_spline<Source::kDense>(coeffs, pts, fill, out, s, order,
-                                static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return launch_spline<Source::kDense>(coeffs, pts, fill, out, s, order, vec,
+                                       static_cast<cudaStream_t>(stream));
 }

@@ -18,8 +18,9 @@ from typing import Any
 
 import torch
 
+from ..config import as_tensor
 from ..core.affine import AffineMatrix
-from .image import Image, ScalarImage, as_tensor
+from .image import Image, ScalarImage
 from .subject import Subject
 
 #: Reserved param keys used for per-instance history bookkeeping.

@@ -1,8 +1,12 @@
 """In-memory image containers: (C, I, J, K) tensor + RAS+ affine.
 
 Counterpart of ``torchio_tpu/data/image.py``, without file I/O: an image
-is built from a numpy array or a torch tensor. The data is held as a
-torch tensor on whatever device it was given on; ``to(device)`` moves it.
+is built from a numpy array or a torch tensor. A tensor stays on the
+device it was given on; host data (numpy, lists) goes to the package's
+default device (:func:`..config.default_device`, ``cuda`` unless a
+caller asks for the CPU), as the JAX package puts host data on its
+default device at the batch boundary. ``to(device)`` moves the data;
+``numpy()`` copies it to the host.
 """
 
 from __future__ import annotations
@@ -13,14 +17,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..config import as_tensor
 from ..core.affine import AffineMatrix
-
-
-def as_tensor(x: Any) -> torch.Tensor:
-    """numpy array / tensor / nested list to a tensor (no copy where possible)."""
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(np.asarray(x))
 
 
 class Image:

@@ -47,6 +47,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config
+
 MODES = ("linear", "nearest")
 
 
@@ -76,8 +78,9 @@ def _lerp_axis(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
 
 def upsample_field(control_points, out_shape: tuple[int, int, int]) -> torch.Tensor:
     """Trilinearly upsample a coarse (n_i, n_j, n_k, 3) field to
-    ``(*out_shape, 3)``: lerp over i, then j, then k (align_corners)."""
-    out = torch.as_tensor(control_points).to(torch.float32)
+    ``(*out_shape, 3)``: lerp over i, then j, then k (align_corners). A
+    tensor stays on its device; host data goes to the default device."""
+    out = config.as_tensor(control_points).to(torch.float32)
     for dim, n_out in enumerate(out_shape):
         out = _lerp_axis(out, int(n_out), dim)
     return out
@@ -86,8 +89,9 @@ def upsample_field(control_points, out_shape: tuple[int, int, int]) -> torch.Ten
 def upsample_volume(x, out_shape: tuple[int, int, int]) -> torch.Tensor:
     """Trilinear align_corners=True upsampling over the LAST 3 axes
     (``F.interpolate(mode="trilinear", align_corners=True)`` for
-    (B, C, I, J, K) inputs, computed as three per-axis lerps)."""
-    out = torch.as_tensor(x).to(torch.float32)
+    (B, C, I, J, K) inputs, computed as three per-axis lerps). A tensor
+    stays on its device; host data goes to the default device."""
+    out = config.as_tensor(x).to(torch.float32)
     for rel, n_out in enumerate(out_shape):
         out = _lerp_axis(out, int(n_out), out.ndim - 3 + rel)
     return out
@@ -116,11 +120,14 @@ def build_coords(out_shape, matrix, device=None) -> torch.Tensor:
     """(Io, Jo, Ko, 3) float32 input-voxel coordinates of each output voxel.
 
     ``matrix`` is the 4x4 output-voxel -> input-voxel map (float64 host
-    math, rounded to float32); the grid is built on ``device`` from three
+    math, rounded to float32); the grid is built on ``device`` (by default
+    the package's default device, :func:`..config.default_device`) from three
     broadcast ramps, summed as ``((i*m0 + j*m1) + k*m2) + m3``, every
     product rounded (XLA:CPU contracts the JAX package's sums into fused
     multiply-adds, so about a fifth of its coordinates differ by one ulp).
     """
+    if device is None:
+        device = config.default_device()
     m = torch.as_tensor(np.asarray(matrix, np.float64)[:3].astype(np.float32), device=device)
     return torch.stack(coord_planes(m, tuple(int(s) for s in out_shape)), dim=-1)
 

@@ -7,7 +7,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..data.image import as_tensor
+from ..config import as_tensor
 
 __all__ = ["as_tensor", "broadcast_param", "restore_gated", "unique_labels"]
 
