@@ -14,7 +14,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    one ``nvcc`` per source, all at once;
 3. kernels against their plain PyTorch versions on the card:
    - resample: linear within 1e-5 max abs on inputs in [0, 1); nearest
-     equal away from .5 ties;
+     equal away from .5 ties; also on the row tiling's edges (rows of 1,
+     3, 5 and 1,100 voxels, io x b and j tiles past the 65,535 grid cap),
+     a field too fine to stage in shared memory, and a 1,291^3 volume
+     (8.6 GB: offsets past 2^31);
    - label vote: equal off near ties, on int32 labels (also above 2^24)
      and float32 labels;
    - prefilter: within 1e-5 of the plain coefficients' largest magnitude,
@@ -26,8 +29,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the prefilter kernel's channels-last ones, scale-downs by 2.6 and 4
      included;
    - dense-coordinate resample: equal, linear and nearest, shared and
-     per-element grids, every fill form, points outside the volume and
-     a size-1 axis;
+     per-element grids, every fill form, points outside the volume, a
+     size-1 axis, and the grid-spec resample's tiling edges and 1,291^3
+     volume;
    - dense-coordinate spline: within 1e-5 max abs for orders 2-7;
 4. small batches on the card against the CPU path: the headline (1e-4),
    the labelled BraTS-style pipeline (images 1e-4, labels equal off
@@ -362,9 +366,78 @@ def check_launches(kl, kernel, before, calls, per_call=1):
         fail(f"{calls} {kernel} calls but its launch count grew by {grown}")
 
 
+#: (input spatial shape, output spatial shapes) for the row-tiled
+#: resample kernels' edges: rows shorter than a thread's 4 voxels and not
+#: a multiple of them; rows wider than a block's 128-voxel tile; io x b
+#: past the 65,535 cap on grid z, with io past it and under it; j tiles
+#: past the cap on grid y
+EDGE_SHAPES = (
+    ((12, 14, 20), ((9, 10, 1), (9, 10, 3), (9, 10, 5))),
+    ((12, 14, 150), ((3, 4, 1100),)),
+    ((12, 14, 20), ((70000, 1, 2), (40000, 1, 2), (1, 600000, 1))),
+)
+#: one volume of 1,291^3 voxels: offsets past 2^31, the kernels' 64-bit path
+WIDE_SHAPE, WIDE_OUT = (1291, 1291, 1291), (8, 8, 8)
+#: a coarse field with more k points than the kernel stages in shared
+#: memory (512): upsampled whole a voxel
+FINE_FIELD = (3, 3, 600, 3)
+
+
+def edge_matrices(in_shape, out_shape, target=None):
+    """Two maps that stretch the output grid over the input's (rotated a
+    little about the output's center onto ``target``, by default the
+    input's center)."""
+    import numpy as np
+
+    c_out = np.asarray([(n - 1) / 2 for n in out_shape])
+    c_in = np.asarray([(n - 1) / 2 for n in in_shape] if target is None else target)
+    scale = np.diag([(i - 1) / max(o - 1, 1) for i, o in zip(in_shape, out_shape)])
+    matrices = []
+    for angles in ((0.15, -0.1, 0.12), (-0.08, 0.17, -0.05)):
+        m = rot(*angles, 1.0, (0.0, 0.0, 0.0), c_out)
+        m[:3, :3] = m[:3, :3] @ scale
+        m[:3, 3] = c_in - m[:3, :3] @ c_out
+        matrices.append(m)
+    return matrices
+
+
+def edge_grids(np, rs, dev, in_shape, out_shape, b, target=None, field_shape=(7, 7, 7, 3)):
+    """The (maps, fields) of :func:`edge_matrices`, with and without an
+    elastic field of ``field_shape``."""
+    field = np.random.default_rng(1).uniform(-3.0, 3.0, field_shape)
+    matrices = edge_matrices(in_shape, out_shape, target)[:b]
+    return [rs._marshal_maps(matrices, cps, dev) for cps in ([field] * b, [None] * b)]
+
+
+def wide_volume(torch, dev):
+    """A 1 x 1 x 1,291^3 float32 volume in [0, 1) (8.6 GB) and the point
+    near its far corner that the wide cases sample around."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    vol = torch.rand((1, 1, *WIDE_SHAPE), generator=gen, device=dev)
+    return vol, [n - 4.5 for n in WIDE_SHAPE]
+
+
+def resample_cases(torch, np, rs, dev, b, c):
+    """(case name, vol, [(maps, fields)], out_shape) for the grid-spec
+    kernel phase: the kernel shapes, the tiling's edges and a field too
+    fine to stage."""
+    rng = np.random.default_rng(0)
+    for in_shape, out_shapes in KERNEL_SHAPES:
+        vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
+        for out_shape in out_shapes:
+            yield "", vol, kernel_grids(np, rs, dev, in_shape), out_shape
+    for in_shape, out_shapes in EDGE_SHAPES:
+        vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
+        for out_shape in out_shapes:
+            yield "edge ", vol, edge_grids(np, rs, dev, in_shape, out_shape, b), out_shape
+    in_shape, out_shape = (12, 14, 20), (5, 6, 700)
+    vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
+    grids = edge_grids(np, rs, dev, in_shape, out_shape, b, field_shape=FINE_FIELD)
+    yield f"field {FINE_FIELD} ", vol, grids[:1], out_shape
+
+
 def phase_kernel(torch, np, rs, rk, kl):
     dev = torch.device(DEVICE)
-    rng = np.random.default_rng(0)
     b, c = 2, 2
     fills = {
         "zero": 0.0,
@@ -374,37 +447,51 @@ def phase_kernel(torch, np, rs, rk, kl):
     before = kl.LAUNCHES["resample"]
     worst = {"linear": 0.0, "nearest": 0}
     cases = 0
-    for in_shape, out_shapes in KERNEL_SHAPES:
-        vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
-        for out_shape in out_shapes:
-            for maps, fields in kernel_grids(np, rs, dev, in_shape):
-                ties = coord_tie_mask(torch, rs, maps, fields, out_shape)
-                for mode in ("linear", "nearest"):
-                    for fname, fill in fills.items():
-                        fill_bc, apply_fill = rs._fill_bc(fill, b, c, dev)
-                        args = (vol, maps, fields, fill_bc, out_shape, mode, apply_fill)
-                        got = rk.resample_cuda(*args)
-                        want = rs.resample_plain(*args)
-                        torch.cuda.synchronize()
-                        where = f"{mode} {in_shape}->{out_shape} fill {fname}"
-                        if got.shape != (b, c, *out_shape):
-                            fail(f"{where}: output shape {tuple(got.shape)}")
-                        if mode == "linear":
-                            err = float((got - want).abs().max())
-                            worst["linear"] = max(worst["linear"], err)
-                            if not err <= KERNEL_ATOL:
-                                fail(f"{where}: max abs {err}")
-                        else:
-                            diff = int(((got != want) & ties.expand_as(got)).sum())
-                            worst["nearest"] = max(worst["nearest"], diff)
-                            if diff:
-                                fail(f"{where}: {diff} voxels differ")
-                        cases += 1
+
+    def check(kind, vol, grids, out_shape, fills):
+        nonlocal cases
+        b, c = vol.shape[:2]
+        for maps, fields in grids:
+            ties = coord_tie_mask(torch, rs, maps, fields, out_shape)
+            for mode in ("linear", "nearest"):
+                for fname, fill in fills.items():
+                    fill_bc, apply_fill = rs._fill_bc(fill, b, c, dev)
+                    args = (vol, maps, fields, fill_bc, out_shape, mode, apply_fill)
+                    got = rk.resample_cuda(*args)
+                    want = rs.resample_plain(*args)
+                    torch.cuda.synchronize()
+                    where = (
+                        f"{kind}{mode} {tuple(vol.shape[2:])}->{out_shape}"
+                        f" {'elastic' if fields is not None else 'affine'} fill {fname}"
+                    )
+                    if got.shape != (b, c, *out_shape):
+                        fail(f"{where}: output shape {tuple(got.shape)}")
+                    if mode == "linear":
+                        err = float((got - want).abs().max())
+                        worst["linear"] = max(worst["linear"], err)
+                        if not err <= KERNEL_ATOL:
+                            fail(f"{where}: max abs {err}")
+                    else:
+                        diff = int(((got != want) & ties.expand_as(got)).sum())
+                        worst["nearest"] = max(worst["nearest"], diff)
+                        if diff:
+                            fail(f"{where}: {diff} voxels differ")
+                    cases += 1
+
+    for kind, vol, grids, out_shape in resample_cases(torch, np, rs, dev, b, c):
+        check(kind, vol, grids, out_shape, fills)
+    vol, corner = wide_volume(torch, dev)
+    wide_fills = {**fills, "(B,C)": torch.as_tensor([[0.75]], device=dev)}
+    check("wide ", vol, edge_grids(np, rs, dev, WIDE_OUT, WIDE_OUT, 1, corner), WIDE_OUT,
+          wide_fills)
+    del vol
+    torch.cuda.empty_cache()
     check_launches(kl, "resample", before, cases)
     print(
-        f"resample kernel vs plain: {cases} cases; linear max abs {worst['linear']:.3g}"
-        f" (limit {KERNEL_ATOL}); nearest voxels differing off ties"
-        f" {worst['nearest']}"
+        f"resample kernel vs plain: {cases} cases (rows of 1, 3, 5 and 1,100 voxels,"
+        f" io x b and j tiles past the grid cap, a {FINE_FIELD[:3]} field, a"
+        f" {'x'.join(map(str, WIDE_SHAPE))} volume); linear max abs {worst['linear']:.3g}"
+        f" (limit {KERNEL_ATOL}); nearest voxels differing off ties {worst['nearest']}"
     )
     return worst["linear"]
 
@@ -984,16 +1071,17 @@ def make_kspace_batch(tio, torch, b, shape, device, seed):
     return tio.SubjectsBatch.from_subjects(subjects)
 
 
-def dense_grids(torch, rs, dev, in_shape, out_shape, b):
+def dense_grids(torch, rs, dev, in_shape, out_shape, b, matrices=None):
     """Per-element (b, *out_shape, 3) coordinates: the kernel phases'
-    rotated, scaled and shifted maps (their borders leave the volume),
-    each coordinate jittered by up to one voxel."""
-    center = [(s - 1) / 2 for s in in_shape]
-    matrices = [
-        rot(0.15, -0.1, 0.12, 1.05, (1.5, -2.0, 0.7), center),
-        rot(-0.08, 0.17, -0.05, 0.93, (-3.0, 1.0, 2.5), center),
-    ][:b]
-    grids = torch.stack([rs.build_coords(out_shape, m, device=dev) for m in matrices])
+    rotated, scaled and shifted maps (their borders leave the volume), or
+    ``matrices``, each coordinate jittered by up to one voxel."""
+    if matrices is None:
+        center = [(s - 1) / 2 for s in in_shape]
+        matrices = [
+            rot(0.15, -0.1, 0.12, 1.05, (1.5, -2.0, 0.7), center),
+            rot(-0.08, 0.17, -0.05, 0.93, (-3.0, 1.0, 2.5), center),
+        ]
+    grids = torch.stack([rs.build_coords(out_shape, m, device=dev) for m in matrices[:b]])
     gen = torch.Generator(device=dev).manual_seed(7)
     return grids + (torch.rand(grids.shape, generator=gen, device=dev) * 2.0 - 1.0)
 
@@ -1001,7 +1089,8 @@ def dense_grids(torch, rs, dev, in_shape, out_shape, b):
 def phase_coords_kernel(torch, np, rs, rk, kl):
     """The dense-coordinate resample kernel against its plain version:
     linear and nearest, per-element and shared grids, every fill form,
-    out-of-bounds points, a size-1 axis; equal voxel for voxel."""
+    out-of-bounds points, a size-1 axis, the tiling's edges and a volume
+    past 2^31 voxels; equal voxel for voxel."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(5)
     b, c = 2, 2
@@ -1013,30 +1102,54 @@ def phase_coords_kernel(torch, np, rs, rk, kl):
     }
     before = kl.LAUNCHES["resample_coords"]
     cases = 0
+
+    def check(kind, vol, grids, fills):
+        nonlocal cases
+        b, c = vol.shape[:2]
+        out_shape = tuple(grids.shape[1:4])
+        pairs = (("per-element", grids), ("shared", grids[:1].contiguous()))
+        for grid_kind, coords in pairs[: 2 if b > 1 else 1]:
+            for mode in ("linear", "nearest"):
+                for fname, fill in fills.items():
+                    fill_bc, apply_fill = rs._fill_bc(fill, b, c, dev)
+                    args = (vol, coords, fill_bc, mode, apply_fill)
+                    got = rk.resample_coords_cuda(*args)
+                    want = rs.resample_coords_plain(*args)
+                    torch.cuda.synchronize()
+                    where = (
+                        f"dense {kind}{mode} {grid_kind} {tuple(vol.shape[2:])}->{out_shape}"
+                        f" fill {fname}"
+                    )
+                    if got.shape != (b, c, *out_shape):
+                        fail(f"{where}: output shape {tuple(got.shape)}")
+                    differ = int((got != want).sum())
+                    if differ:
+                        err = float((got - want).abs().max())
+                        fail(f"{where}: {differ} voxels differ, max abs {err}")
+                    cases += 1
+
     for in_shape, out_shapes in KERNEL_SHAPES:
         vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
         for out_shape in out_shapes:
-            grids = dense_grids(torch, rs, dev, in_shape, out_shape, b)
-            for kind, coords in (("per-element", grids), ("shared", grids[:1].contiguous())):
-                for mode in ("linear", "nearest"):
-                    for fname, fill in fills.items():
-                        fill_bc, apply_fill = rs._fill_bc(fill, b, c, dev)
-                        args = (vol, coords, fill_bc, mode, apply_fill)
-                        got = rk.resample_coords_cuda(*args)
-                        want = rs.resample_coords_plain(*args)
-                        torch.cuda.synchronize()
-                        where = f"dense {mode} {kind} {in_shape}->{out_shape} fill {fname}"
-                        if got.shape != (b, c, *out_shape):
-                            fail(f"{where}: output shape {tuple(got.shape)}")
-                        differ = int((got != want).sum())
-                        if differ:
-                            err = float((got - want).abs().max())
-                            fail(f"{where}: {differ} voxels differ, max abs {err}")
-                        cases += 1
+            check("", vol, dense_grids(torch, rs, dev, in_shape, out_shape, b), fills)
+    for in_shape, out_shapes in EDGE_SHAPES:
+        vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
+        for out_shape in out_shapes:
+            matrices = edge_matrices(in_shape, out_shape)
+            check("edge ", vol, dense_grids(torch, rs, dev, in_shape, out_shape, b, matrices),
+                  fills)
+    vol, corner = wide_volume(torch, dev)
+    wide_fills = {**fills, "(C,)": [0.5], "(B,C)": torch.as_tensor([[0.75]], device=dev)}
+    matrices = edge_matrices(WIDE_OUT, WIDE_OUT, corner)
+    check("wide ", vol, dense_grids(torch, rs, dev, WIDE_SHAPE, WIDE_OUT, 1, matrices),
+          wide_fills)
+    del vol
+    torch.cuda.empty_cache()
     check_launches(kl, "resample_coords", before, cases)
     print(
         f"dense resample kernel vs plain: {cases} cases (linear and nearest,"
-        f" per-element and shared grids, 4 fill forms); max abs 0"
+        f" per-element and shared grids, 4 fill forms, the tiling's edges, a"
+        f" {'x'.join(map(str, WIDE_SHAPE))} volume); max abs 0"
     )
 
 

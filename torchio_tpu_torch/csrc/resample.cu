@@ -18,115 +18,367 @@
 // weights on the MXU) because it has no fast gather. Hopper has one, so
 // the whole family is one gather kernel.
 //
-// One thread per output voxel (b, io, jo, ko), ko fastest:
-//   1. the sample point: from the grid spec (sample_point.cuh: affine map
-//      plus upsampled elastic field, in the JAX package's operation
+// What each output voxel (b, io, jo, ko) computes:
+//   1. the sample point: from the grid spec (the affine map summed
+//      ((i m0 + j m1) + k m2) + m3, plus the coarse elastic field upsampled
+//      by lerps over i, then j, then k: the JAX package's operation
 //      order), or read from the coordinate tensor (batch stride 0 for a
 //      grid shared by the batch);
 //   2. the 8 trilinear corner weights (zero for corners outside the
 //      volume), or the rounded corner in nearest mode (rintf: half to
 //      even, like jnp.round);
-//   3. the same weights for every channel; where the summed in-bounds
-//      weight is <= 0.5 the voxel takes fill[b, c] (also in nearest
-//      mode), unless apply_fill is 0 (a zero scalar fill keeps the
-//      boundary's partial sums).
-// The file is built with -fmad=false (see sample_point.cuh).
+//   3. per channel, acc = acc + v * w over the 8 corners in order, at
+//      clamped indices (a zero weight adds 0, as in the plain version);
+//      where the summed in-bounds weight is <= 0.5 the voxel takes
+//      fill[b, c] (also in nearest mode), unless apply_fill is 0 (a zero
+//      scalar fill keeps the boundary's partial sums).
+// The file is built with -fmad=false (see sample_point.cuh), so every
+// coordinate and sum rounds as in the plain version: the outputs are
+// bit-identical to it.
 //
-// What bounds it on an H100: device-memory bytes. Per output voxel and
-// channel it writes one float and reads the source neighbourhood once
-// from device memory; the other corner reads of neighbouring threads hit
-// L1/L2, since neighbouring output voxels sample neighbouring input
-// voxels under the near-identity maps of augmentation. The dense mode
-// also reads 12 bytes of coordinates per voxel (a warp reads 384
-// contiguous bytes), as much again as a one-channel output. No
-// tensor-core work applies. One thread per voxel with cached corner
-// reads is the simple, correct first form; tiling the source into shared
-// memory with TMA and vectorising along k are later work.
+// What bounded the first form of this kernel on an H100 (one thread per
+// output voxel, a 1-D grid-stride loop over the flat (B, Io, Jo, Ko)
+// index) was not device-memory bytes: at B=4 x 256^3, linear with an
+// elastic field, it moved 537 MB in 1.835 ms, 8.7 % of its bytes bound,
+// slower than the dense mode moving 1.34 GB. Per voxel it split the flat
+// index with four 64-bit divisions (software routines on the GPU),
+// recomputed the whole field upsample (24 field loads, 21 lerps) and the
+// 3x4 map, and branched on each corner: about 450 instructions a voxel.
 //
-// Offsets are 64-bit: B*C*I*J*K and B*Io*Jo*Ko*3 pass 2^31 at realistic
-// sizes. Launches go on the caller's stream, allocate nothing, and
-// return cudaGetLastError().
+// The design now (each step measured by probes/resample_layout.py; its
+// numbers are in PERF.md):
+//   - a block is kRows warps; a warp owns one output row (b, io, jo) and
+//     walks the row's k tiles of kTileK ko assigned to its block, kVec
+//     voxels a lane. A 3-D launch grid (k tiles, j tiles, io x b) gives
+//     each block its rows with 32-bit arithmetic; the axes past CUDA's
+//     65,535 cap on grid y and z fold into loops inside the block
+//     (ops/resample_kernel.py::resample_launch_plan, which also gives a
+//     block two k tiles of a row);
+//   - what a row shares is computed once a row: the map's i m0 + j m1,
+//     and the field's i- and j-lerps at each of the nk coarse k points
+//     (upsample_field's own intermediate), staged in shared memory, so a
+//     voxel keeps only its k-lerp;
+//   - offsets inside one (b, c) volume are 32-bit where I*J*K < 2^31 (a
+//     template parameter; 64-bit otherwise), each corner load one 32-bit
+//     offset scaled onto the (b, c) base;
+//   - a lane takes its voxels one at a time, so the kernel fits 64
+//     registers and 32 warps an SM: holding a lane's four voxels at once
+//     (with 16-byte stores and coordinate loads) needed 128-188 registers
+//     and lost, from 8 or 16 warps an SM. From grid specs a warp's lanes
+//     sit on consecutive ko (each corner load of the warp spans the
+//     fewest rows); on dense coordinates a lane's voxels are consecutive
+//     (its 48 bytes of coordinates one run).
+// What bounds it now is the latency of the corner gathers: each lane has
+// one voxel's 8 loads in flight, and 32 warps an SM hide their L1/L2
+// round trips only in part (0.77 ms against 0.16 ms of bytes at B=4 x
+// 256^3 from grid specs; the dense mode on the same points takes as
+// long, so the sample points no longer cost time of their own).
+//
+// Launches go on the caller's stream, allocate nothing, and return
+// cudaGetLastError().
 
 #include "sample_point.cuh"
 
 namespace {
 
 using tio::Grid;
-using tio::kThreads;
 using tio::Source;
 
-template <bool kNearest, Source kSource>
-__global__ void __launch_bounds__(kThreads)
-    resample_kernel(const float* __restrict__ vol, tio::Points pts,
-                    const float* __restrict__ fill, float* __restrict__ out,
-                    Grid s, int apply_fill) {
-  const int64_t out_spatial = tio::out_spatial(s);
-  const int64_t in_spatial = tio::in_spatial(s);
-  const int64_t total = (int64_t)s.B * out_spatial;
-  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < total;
-       v += (int64_t)gridDim.x * blockDim.x) {
-    const tio::Voxel p = tio::voxel_of(v, s);
-    const int b = p.b;
-    float c[3];
-    tio::point_of<kSource>(pts, s, p, c);
-    // size-1 axes: every coordinate maps to index 0 with full weight
-    if (s.I == 1) c[0] = 0.0f;
-    if (s.J == 1) c[1] = 0.0f;
-    if (s.K == 1) c[2] = 0.0f;
+// The launch shape; ops/resample_kernel.py mirrors these numbers.
+constexpr int kLanes = 32;             // a warp along one row's k
+constexpr int kRows = 8;               // warps (output rows) a block
+constexpr int kVec = 4;                // voxels a lane in a k tile
+constexpr int kTileK = kLanes * kVec;  // ko of a k tile
 
-    float wi[2], wj[2], wk[2];
-    const int i0 = tio::axis_weights(c[0], s.I, wi[0], wi[1]);
-    const int j0 = tio::axis_weights(c[1], s.J, wj[0], wj[1]);
-    const int k0 = tio::axis_weights(c[2], s.K, wk[0], wk[1]);
-    float w[8];
-    int64_t offset[8];
+// The ko of a lane's voxel v, for a layout L (see Layout).
+template <class L>
+__device__ __forceinline__ unsigned ko_of(unsigned k_first, unsigned lane, int v) {
+  return L::kConsecutive ? k_first + lane * kVec + v : k_first + lane + v * kLanes;
+}
+
+__device__ __forceinline__ int clamp_index(int i, int n) { return min(max(i, 0), n - 1); }
+
+// The pointer as computed, hidden from the optimiser: a corner load is
+// then its 32-bit offset scaled onto it (one IMAD.WIDE), where the
+// compiler otherwise folds the 64-bit (b, c) base into every load's
+// address (four instructions each).
+template <typename T>
+__device__ __forceinline__ T* opaque(T* p) {
+  asm("" : "+l"(p));
+  return p;
+}
+
+// The field's i-lerp and then j-lerp at the row (io, jo), at each of the
+// nk coarse k points: the (nk, 3) slice of upsample_field's intermediate
+// after its i and j passes, in sample_point's operation order. The warp's
+// lanes share the nk * 3 entries.
+__device__ __forceinline__ void stage_row_field(const float* __restrict__ fields,
+                                                const Grid& s, unsigned b, unsigned io,
+                                                unsigned jo, unsigned lane,
+                                                float* row_field) {
+  int i0, i1, j0, j1;
+  float fi, fj;
+  tio::coarse_axis((int)io, s.ni, s.ri, i0, i1, fi);
+  tio::coarse_axis((int)jo, s.nj, s.rj, j0, j1, fj);
+  const int64_t line = (int64_t)s.nk * 3, plane = (int64_t)s.nj * line;
+  const float* f = fields + (int64_t)b * s.ni * plane;
+  const float* f00 = f + i0 * plane + j0 * line;
+  const float* f10 = f + i1 * plane + j0 * line;
+  const float* f01 = f + i0 * plane + j1 * line;
+  const float* f11 = f + i1 * plane + j1 * line;
+  __syncwarp();  // the warp has read its last row's entries
+  for (int e = lane; e < s.nk * 3; e += kLanes) {
+    const float along_j0 = tio::lerp(__ldg(f00 + e), __ldg(f10 + e), fi);
+    const float along_j1 = tio::lerp(__ldg(f01 + e), __ldg(f11 + e), fi);
+    row_field[e] = tio::lerp(along_j0, along_j1, fj);
+  }
+  __syncwarp();
+}
+
+// The sample points of one output row (b, io, jo): what the row shares,
+// set up once (the map's i m0 + j m1 and, kStaged, the field's row lerps
+// staged in shared memory; or the row's coordinates), then one voxel's
+// point at a time. A field too fine to stage (kStaged false) is
+// upsampled whole a voxel.
+template <Source kSource, bool kStaged>
+struct Row {
+  const float* coords;     // dense: the row's (Ko, 3) coordinates
+  const float* row_field;  // kStaged: the row's (nk, 3) field lerps
+  float ij[3], m2[3], m3[3];
+  unsigned b, io, jo;
+
+  __device__ __forceinline__ Row(const tio::Points& pts, const Grid& s, unsigned b_,
+                                 unsigned io_, unsigned jo_, unsigned lane, float* staged)
+      : coords(nullptr), row_field(staged), b(b_), io(io_), jo(jo_) {
+    if constexpr (kSource == Source::kDense) {
+      coords = pts.coords + (int64_t)b * pts.batch_stride +
+               ((int64_t)io * s.Jo + jo) * s.Ko * 3;
+    } else {
+      const float* m = pts.maps + (int64_t)b * 12;
+      const float fio = (float)io, fjo = (float)jo;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        ij[a] = fio * __ldg(m + 4 * a) + fjo * __ldg(m + 4 * a + 1);
+        m2[a] = __ldg(m + 4 * a + 2);
+        m3[a] = __ldg(m + 4 * a + 3);
+      }
+      if constexpr (kStaged) stage_row_field(pts.fields, s, b, io, jo, lane, staged);
+    }
+  }
+
+  // The point c of voxel ko (below Ko for dense coordinates).
+  __device__ __forceinline__ void point(const tio::Points& pts, const Grid& s, unsigned ko,
+                                        float c[3]) const {
+    if constexpr (kSource == Source::kDense) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) c[a] = __ldg(coords + (size_t)ko * 3 + a);
+    } else {
+      const float fko = (float)ko;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) c[a] = (ij[a] + fko * m2[a]) + m3[a];
+      if constexpr (kSource == Source::kMapField && kStaged) {
+        int k0, k1;
+        float fk;
+        tio::coarse_axis((int)ko, s.nk, s.rk, k0, k1, fk);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          c[a] = c[a] + tio::lerp(row_field[k0 * 3 + a], row_field[k1 * 3 + a], fk);
+        }
+      } else if constexpr (kSource == Source::kMapField) {
+        const tio::Voxel p{(int)b, (int)io, (int)jo, (int)ko};
+        tio::sample_point<true>(pts.maps, pts.fields, s, p, c);
+      }
+    }
+  }
+};
+
+// One voxel's corners: weights, clamped offsets, and whether it takes
+// the fill.
+template <typename Index>
+struct Corners {
+  float w[8];     // trilinear weights, zero outside the volume
+  Index row[4];   // (i, j) row offsets of corner pairs di * 2 + dj
+  Index k[2];     // k of corners dk = 0, 1
+  Index nearest;  // the rounded corner, clamped into the volume
+  bool valid;     // the rounded corner lies inside the volume
+  bool fill;      // the voxel takes the fill (and loads nothing)
+};
+
+template <bool kNearest, typename Index>
+__device__ __forceinline__ void corners_of(float c[3], const Grid& s, int apply_fill,
+                                           Corners<Index>& q) {
+  // size-1 axes: every coordinate maps to index 0 with full weight
+  if (s.I == 1) c[0] = 0.0f;
+  if (s.J == 1) c[1] = 0.0f;
+  if (s.K == 1) c[2] = 0.0f;
+  float wi[2], wj[2], wk[2];
+  const int i0 = tio::axis_weights(c[0], s.I, wi[0], wi[1]);
+  const int j0 = tio::axis_weights(c[1], s.J, wj[0], wj[1]);
+  const int k0 = tio::axis_weights(c[2], s.K, wk[0], wk[1]);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) q.w[n] = wi[n >> 2] * wj[(n >> 1) & 1] * wk[n & 1];
+  q.fill = false;
+  if (apply_fill) {
     float inbounds = 0.0f;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int di = q >> 2, dj = (q >> 1) & 1, dk = q & 1;
-      w[q] = wi[di] * wj[dj] * wk[dk];
-      inbounds = inbounds + w[q];
-      offset[q] = ((int64_t)(i0 + di) * s.J + (j0 + dj)) * s.K + (k0 + dk);
-    }
-    int64_t nearest = -1;
-    if (kNearest) {
-      const int ri = (int)rintf(c[0]), rj = (int)rintf(c[1]), rk = (int)rintf(c[2]);
-      if (ri >= 0 && ri < s.I && rj >= 0 && rj < s.J && rk >= 0 && rk < s.K) {
-        nearest = ((int64_t)ri * s.J + rj) * s.K + rk;
-      }
-    }
-    const bool use_fill = apply_fill && !(inbounds > 0.5f);
-    const int64_t out_base = (int64_t)b * s.C * out_spatial + (v - (int64_t)b * out_spatial);
-    for (int ch = 0; ch < s.C; ++ch) {
-      const float* src = vol + ((int64_t)b * s.C + ch) * in_spatial;
-      float acc = 0.0f;
-      if (use_fill) {
-        acc = __ldg(fill + (int64_t)b * s.C + ch);
-      } else if (kNearest) {
-        acc = nearest >= 0 ? __ldg(src + nearest) : 0.0f;
-      } else {
+    for (int n = 0; n < 8; ++n) inbounds = inbounds + q.w[n];
+    q.fill = !(inbounds > 0.5f);
+  }
+  const Index jk = (Index)s.J * s.K;
+  const Index ii[2] = {clamp_index(i0, s.I), clamp_index(i0 + 1, s.I)};
+  const Index jj[2] = {clamp_index(j0, s.J), clamp_index(j0 + 1, s.J)};
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          if (w[q] != 0.0f) acc = acc + __ldg(src + offset[q]) * w[q];
-        }
-      }
-      out[out_base + (int64_t)ch * out_spatial] = acc;
+  for (int n = 0; n < 4; ++n) q.row[n] = ii[n >> 1] * jk + jj[n & 1] * (Index)s.K;
+  q.k[0] = clamp_index(k0, s.K);
+  q.k[1] = clamp_index(k0 + 1, s.K);
+  if (kNearest) {
+    const int ri = (int)rintf(c[0]), rj = (int)rintf(c[1]), rk = (int)rintf(c[2]);
+    q.valid = ri >= 0 && ri < s.I && rj >= 0 && rj < s.J && rk >= 0 && rk < s.K;
+    q.nearest = (Index)clamp_index(ri, s.I) * jk + (Index)clamp_index(rj, s.J) * s.K +
+                clamp_index(rk, s.K);
+  }
+}
+
+template <bool kNearest, typename Index>
+__device__ __forceinline__ float corner_sum(const float* __restrict__ src,
+                                            const Corners<Index>& q, float fill) {
+  if (q.fill) return fill;
+  if (kNearest) {
+    const float x = __ldg(src + q.nearest);
+    return q.valid ? x : 0.0f;
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) acc = acc + __ldg(src + (q.row[n >> 1] + q.k[n & 1])) * q.w[n];
+  return acc;
+}
+
+// A lane's kVec voxels of the k tile from k_first, one at a time: its
+// point, its corners, and per channel its sum and store.
+template <bool kNearest, Source kSource, bool kStaged, typename Index, class L>
+__device__ __forceinline__ void tile_voxels(const float* __restrict__ vol,
+                                            const tio::Points& pts,
+                                            const float* __restrict__ fill,
+                                            float* __restrict__ out, const Grid& s,
+                                            const Row<kSource, kStaged>& row,
+                                            unsigned k_first, unsigned lane, int apply_fill) {
+  const int64_t in_spatial = tio::in_spatial(s), out_spatial = tio::out_spatial(s);
+  const int64_t row_out = ((int64_t)row.io * s.Jo + row.jo) * s.Ko;
+#pragma unroll 1
+  for (int v = 0; v < kVec; ++v) {
+    const unsigned ko = ko_of<L>(k_first, lane, v);
+    if (ko >= (unsigned)s.Ko) break;  // the later voxels lie further on
+    float c[3];
+    row.point(pts, s, ko, c);
+    Corners<Index> q;
+    corners_of<kNearest>(c, s, apply_fill, q);
+    for (int ch = 0; ch < s.C; ++ch) {
+      const int64_t bc = (int64_t)row.b * s.C + ch;
+      const float* src = opaque(vol + bc * in_spatial);
+      opaque(out + bc * out_spatial + row_out)[ko] =
+          corner_sum<kNearest>(src, q, __ldg(fill + bc));
     }
   }
 }
 
-template <Source kSource>
-void launch(const float* vol, const tio::Points& pts, const float* fill, float* out,
-            const Grid& s, int nearest, int apply_fill, cudaStream_t stream) {
-  const unsigned grid = tio::blocks_for((int64_t)s.B * tio::out_spatial(s));
-  if (nearest) {
-    resample_kernel<true, kSource><<<grid, kThreads, 0, stream>>>(vol, pts, fill, out, s,
-                                                                  apply_fill);
-  } else {
-    resample_kernel<false, kSource><<<grid, kThreads, 0, stream>>>(vol, pts, fill, out, s,
-                                                                   apply_fill);
+// How a lane takes its kVec voxels of a k tile: one at a time
+// (tile_voxels), on kVec consecutive ko (kConsecutive) or one every
+// kLanes (a warp's lanes on consecutive ko); kMinBlocks blocks an SM for
+// __launch_bounds__ (at 4, 64 registers a thread). The kernel calls
+// L::tile, so a layout may bring another way to take them
+// (probes/resample_layout.cu does).
+template <bool kConsecutive_, int kMinBlocks_>
+struct Layout {
+  static constexpr bool kConsecutive = kConsecutive_;
+  static constexpr int kMinBlocks = kMinBlocks_;
+
+  template <bool kNearest, Source kSource, bool kStaged, typename Index>
+  __device__ __forceinline__ static void tile(const float* __restrict__ vol,
+                                              const tio::Points& pts,
+                                              const float* __restrict__ fill,
+                                              float* __restrict__ out, const Grid& s,
+                                              const Row<kSource, kStaged>& row,
+                                              unsigned k_first, unsigned lane,
+                                              int apply_fill) {
+    tile_voxels<kNearest, kSource, kStaged, Index, Layout>(vol, pts, fill, out, s, row,
+                                                           k_first, lane, apply_fill);
+  }
+};
+
+// The row loops of the launch plan: block z serves io = z % z_rows
+// (stepping by z_rows) of b = z / z_rows (stepping by gridDim.z /
+// z_rows); block y the j tiles y, y + gridDim.y, ...; each of its warps
+// one row of the tile; block x the k tiles x, x + gridDim.x, ... of that
+// row.
+template <bool kNearest, Source kSource, bool kStaged, typename Index, class L>
+__global__ void __launch_bounds__(kLanes * kRows, L::kMinBlocks)
+    resample_kernel(const float* __restrict__ vol, tio::Points pts,
+                    const float* __restrict__ fill, float* __restrict__ out, Grid s,
+                    unsigned z_rows, int apply_fill) {
+  extern __shared__ float row_fields[];  // kRows x (nk, 3) when staged
+  const unsigned lane = threadIdx.x;
+  float* staged = row_fields + threadIdx.y * s.nk * 3;
+  const unsigned b_step = gridDim.z / z_rows;
+  const unsigned j_tiles = ((unsigned)s.Jo + kRows - 1) / kRows;
+  const unsigned k_tiles = ((unsigned)s.Ko + kTileK - 1) / kTileK;
+  for (unsigned b = blockIdx.z / z_rows; b < (unsigned)s.B; b += b_step) {
+    for (unsigned io = blockIdx.z % z_rows; io < (unsigned)s.Io; io += z_rows) {
+      for (unsigned jt = blockIdx.y; jt < j_tiles; jt += gridDim.y) {
+        const unsigned jo = jt * kRows + threadIdx.y;
+        if (jo >= (unsigned)s.Jo) continue;  // the whole warp
+        const Row<kSource, kStaged> row(pts, s, b, io, jo, lane, staged);
+        for (unsigned kt = blockIdx.x; kt < k_tiles; kt += gridDim.x) {
+          L::template tile<kNearest, kSource, kStaged, Index>(vol, pts, fill, out, s, row,
+                                                              kt * kTileK, lane, apply_fill);
+        }
+      }
+    }
   }
 }
+
+// The launch plan of ops/resample_kernel.py::resample_launch_plan.
+struct Launch {
+  unsigned gx, gy, gz, z_rows;
+  int wide;        // 64-bit offsets inside a (b, c) volume
+  int field_smem;  // bytes of staged row fields, 0 for none
+};
+
+template <bool kNearest, Source kSource, typename Index, class L>
+void launch_as(const float* vol, const tio::Points& pts, const float* fill, float* out,
+               const Grid& s, const Launch& l, int apply_fill, cudaStream_t stream) {
+  const dim3 grid(l.gx, l.gy, l.gz), block(kLanes, kRows);
+  if constexpr (kSource == Source::kMapField) {
+    if (l.field_smem > 0) {
+      resample_kernel<kNearest, kSource, true, Index, L>
+          <<<grid, block, (size_t)l.field_smem, stream>>>(vol, pts, fill, out, s, l.z_rows,
+                                                          apply_fill);
+      return;
+    }
+  }
+  resample_kernel<kNearest, kSource, false, Index, L>
+      <<<grid, block, 0, stream>>>(vol, pts, fill, out, s, l.z_rows, apply_fill);
+}
+
+template <Source kSource, class L>
+void launch(const float* vol, const tio::Points& pts, const float* fill, float* out,
+            const Grid& s, const Launch& l, int nearest, int apply_fill,
+            cudaStream_t stream) {
+  if (nearest) {
+    if (l.wide) {
+      launch_as<true, kSource, int64_t, L>(vol, pts, fill, out, s, l, apply_fill, stream);
+    } else {
+      launch_as<true, kSource, int, L>(vol, pts, fill, out, s, l, apply_fill, stream);
+    }
+  } else if (l.wide) {
+    launch_as<false, kSource, int64_t, L>(vol, pts, fill, out, s, l, apply_fill, stream);
+  } else {
+    launch_as<false, kSource, int, L>(vol, pts, fill, out, s, l, apply_fill, stream);
+  }
+}
+
+// The layout of each mode (see Layout).
+using GridLayout = Layout<false, 4>;
+using DenseLayout = Layout<true, 4>;
 
 }  // namespace
 
@@ -134,16 +386,19 @@ extern "C" int tio_resample(const float* vol, const float* maps,
                             const float* fields, const float* fill, float* out,
                             int B, int C, int I, int J, int K, int Io, int Jo,
                             int Ko, int ni, int nj, int nk, float ri, float rj,
-                            float rk, int nearest, int apply_fill,
+                            float rk, int nearest, int apply_fill, int gx, int gy,
+                            int gz, int z_rows, int wide, int field_smem,
                             void* stream) {
   const Grid s{B, C, I, J, K, Io, Jo, Ko, ni, nj, nk, ri, rj, rk};
   if ((int64_t)B * Io * Jo * Ko == 0) return 0;
+  const Launch l{(unsigned)gx, (unsigned)gy, (unsigned)gz, (unsigned)z_rows, wide,
+                 field_smem};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const tio::Points pts{maps, fields, nullptr, 0};
   if (fields != nullptr) {
-    launch<Source::kMapField>(vol, pts, fill, out, s, nearest, apply_fill, st);
+    launch<Source::kMapField, GridLayout>(vol, pts, fill, out, s, l, nearest, apply_fill, st);
   } else {
-    launch<Source::kMap>(vol, pts, fill, out, s, nearest, apply_fill, st);
+    launch<Source::kMap, GridLayout>(vol, pts, fill, out, s, l, nearest, apply_fill, st);
   }
   return (int)cudaGetLastError();
 }
@@ -154,11 +409,13 @@ extern "C" int tio_resample_coords(const float* vol, const float* coords,
                                    const float* fill, float* out, int B, int C,
                                    int I, int J, int K, int Io, int Jo, int Ko,
                                    long long coord_batch_stride, int nearest,
-                                   int apply_fill, void* stream) {
+                                   int apply_fill, int gx, int gy, int gz,
+                                   int z_rows, int wide, void* stream) {
   const Grid s{B, C, I, J, K, Io, Jo, Ko, 0, 0, 0, 0.0f, 0.0f, 0.0f};
   if ((int64_t)B * Io * Jo * Ko == 0) return 0;
+  const Launch l{(unsigned)gx, (unsigned)gy, (unsigned)gz, (unsigned)z_rows, wide, 0};
   const tio::Points pts{nullptr, nullptr, coords, (int64_t)coord_batch_stride};
-  launch<Source::kDense>(vol, pts, fill, out, s, nearest, apply_fill,
-                         static_cast<cudaStream_t>(stream));
+  launch<Source::kDense, DenseLayout>(vol, pts, fill, out, s, l, nearest, apply_fill,
+                                      static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

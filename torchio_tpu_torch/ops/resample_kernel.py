@@ -12,12 +12,16 @@
   version is :func:`..resample.resample_label_plain`.
 
 The source files' heads say what each kernel computes and what bounds
-it. :mod:`.kernel_lib` builds and loads the libraries and counts the
-launches (``LAUNCHES["resample"]``, ``LAUNCHES["resample_coords"]``,
-``LAUNCHES["label_vote"]``).
+it. :func:`resample_launch_plan` lays out the launch of both
+``resample.cu`` kernels. :mod:`.kernel_lib` builds and loads the
+libraries and counts the launches (``LAUNCHES["resample"]``,
+``LAUNCHES["resample_coords"]``, ``LAUNCHES["label_vote"]``).
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -29,8 +33,8 @@ from .resample import _pad_value
 RESAMPLE = KernelLibrary(
     "resample.cu",
     {
-        "tio_resample": [P] * 5 + [I32] * 11 + [F32] * 3 + [I32, I32, P],
-        "tio_resample_coords": [P] * 4 + [I32] * 8 + [I64, I32, I32, P],
+        "tio_resample": [P] * 5 + [I32] * 11 + [F32] * 3 + [I32] * 8 + [P],
+        "tio_resample_coords": [P] * 4 + [I32] * 8 + [I64] + [I32] * 7 + [P],
     },
     kernels=("resample", "resample_coords"),
 )
@@ -39,6 +43,56 @@ LABEL = KernelLibrary(
     {"tio_resample_label": [P] * 4 + [I32] * 10 + [F32] * 3 + [I32, I32, F32, P]},
     kernels=("label_vote",),
 )
+
+
+#: ``csrc/resample.cu``'s block: ROWS warps, each on one output row
+#: (b, io, jo), walking the row's k tiles of TILE_K = LANES * VEC voxels
+#: that its block serves
+LANES, ROWS, VEC = 32, 8, 4
+TILE_K = LANES * VEC
+#: k tiles of a row a block serves: the row's map and field lerps are set
+#: up once for them
+ROW_TILES = 2
+#: CUDA's cap on gridDim.y and gridDim.z (gridDim.x's, 2^31 - 1, is never
+#: reached: Ko < 2^31 gives at most 2^23 blocks of ROW_TILES k tiles)
+GRID_YZ_MAX = 65535
+#: the most shared memory a block stages row fields in without opting in
+FIELD_SMEM_MAX = 48 * 1024
+
+
+class ResamplePlan(NamedTuple):
+    """The launch of a ``resample.cu`` kernel: ``grid`` is (k tiles, j
+    tiles, io x b), each folded into a loop in the block: block z serves
+    io = z % z_rows (stepping by z_rows) of b = z // z_rows (stepping by
+    grid z // z_rows), block y the j tiles y, y + grid y, ..., block x the
+    k tiles x, x + grid x, ...; ``wide`` asks for 64-bit offsets inside
+    one (b, c) volume; ``field_smem`` is the shared memory, in bytes, of
+    the field's row lerps (0: no field, or one too fine to stage,
+    upsampled a voxel)."""
+
+    grid: tuple[int, int, int]
+    z_rows: int
+    wide: bool
+    field_smem: int
+
+
+def resample_launch_plan(
+    b: int, io: int, jo: int, ko: int, in_shape=(1, 1, 1), coarse_k: int = 0
+) -> ResamplePlan:
+    """The launch plan of a (b, Io, Jo, Ko) output (every extent positive)
+    from an input of spatial ``in_shape``, with a coarse field of
+    ``coarse_k`` points along k (0 for none)."""
+    z_rows = min(io, GRID_YZ_MAX)
+    grid = (
+        -(-ko // (TILE_K * ROW_TILES)),
+        min(-(-jo // ROWS), GRID_YZ_MAX),
+        z_rows * min(b, GRID_YZ_MAX // z_rows),
+    )
+    field_smem = ROWS * coarse_k * 3 * 4
+    return ResamplePlan(
+        grid, z_rows, math.prod(in_shape) >= 2**31,
+        field_smem if field_smem <= FIELD_SMEM_MAX else 0,
+    )
 
 
 def _check_grid(vol, maps, fields, out_shape) -> tuple:
@@ -101,12 +155,13 @@ def resample_cuda(
     if out.numel() == 0:
         return out
     g = grid_args(vol, out_shape, coarse)
+    plan = resample_launch_plan(b, *out_shape, vol.shape[2:], coarse[2])
     with torch.cuda.device(vol.device):
         RESAMPLE.launch(
             "resample", "tio_resample",
             vol.data_ptr(), maps.data_ptr(), _ptr(fields), fill.data_ptr(), out.data_ptr(),
             g[0], c, *g[1:], int(mode == "nearest"), int(apply_fill),
-            stream(vol.device),
+            *plan.grid, plan.z_rows, int(plan.wide), plan.field_smem, stream(vol.device),
         )
     return out
 
@@ -149,12 +204,14 @@ def resample_coords_cuda(
     out = torch.empty((b, c, *out_shape), dtype=torch.float32, device=vol.device)
     if out.numel() == 0:
         return out
+    plan = resample_launch_plan(b, *out_shape, (si, sj, sk))
     with torch.cuda.device(vol.device):
         RESAMPLE.launch(
             "resample_coords", "tio_resample_coords",
             vol.data_ptr(), coords.data_ptr(), fill.data_ptr(), out.data_ptr(),
             b, c, si, sj, sk, *out_shape, stride,
-            int(mode == "nearest"), int(apply_fill), stream(vol.device),
+            int(mode == "nearest"), int(apply_fill), *plan.grid, plan.z_rows,
+            int(plan.wide), stream(vol.device),
         )
     return out
 
