@@ -18,8 +18,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      3, 5 and 1,100 voxels, io x b and j tiles past the 65,535 grid cap),
      a field too fine to stage in shared memory, and a 1,291^3 volume
      (8.6 GB: offsets past 2^31);
-   - label vote: equal off near ties, on int32 labels (also above 2^24)
-     and float32 labels;
+   - label vote: equal off near ties, on int32 labels (also above 2^24),
+     float32 labels, labels in large blocks and drawn per voxel, and
+     tie-heavy half-voxel shifts; also on the row tiling's edges, a field
+     too fine to stage, and a 1,291^3 int32 volume (offsets past 2^31);
    - prefilter: within 1e-5 of the plain coefficients' largest magnitude,
      orders 2-7, on lines that do not fill the last block, lines of 2,100
      samples on each axis (shared memory) and of 7,300 (device memory),
@@ -497,53 +499,123 @@ def phase_kernel(torch, np, rs, rk, kl):
 
 
 def label_volumes(torch, np, rng, b, in_shape, dev):
-    """int32 block labels {0, 1, 2, 4}, int32 labels above 2^24 (2^24 +
-    {1, 2, 3, 4}: neighbours a float32 round trip would merge) and float
-    labels."""
-    coarse = rng.integers(0, 4, (b, 1, *[-(-s // 3) for s in in_shape]))
-    blocks = coarse.repeat(3, 2).repeat(3, 3).repeat(3, 4)
-    blocks = blocks[:, :, : in_shape[0], : in_shape[1], : in_shape[2]].astype(np.int32)
-    blocks[blocks == 3] = 4
-    ints = torch.as_tensor(blocks, device=dev)
+    """int32 labels {0, 1, 2, 4} in blocks of 3 voxels, the same above 2^24
+    (2^24 + {1, 2, 3, 5}: neighbours a float32 round trip would merge)
+    and as float labels; in blocks of 8 voxels (most voxels' 8 corners
+    carry one label); and drawn per voxel (the vote decides nearly every
+    voxel, ties included)."""
+
+    def blocks(size):
+        coarse = rng.integers(0, 4, (b, 1, *[-(-s // size) for s in in_shape]))
+        out = coarse.repeat(size, 2).repeat(size, 3).repeat(size, 4)
+        out = out[:, :, : in_shape[0], : in_shape[1], : in_shape[2]].astype(np.int32)
+        out[out == 3] = 4
+        return torch.as_tensor(out, device=dev)
+
+    ints = blocks(3)
     return {
         "int32": ints,
         "int32>2^24": ints + (2**24 + 1),
         "float32": ints.to(torch.float32) * 0.5,
+        "uniform": blocks(8),
+        "noisy": blocks(1),
     }
+
+
+def tie_grids(np, rs, dev):
+    """Maps that shift the input by half a voxel on each axis, and by a
+    quarter on one: equal corner weights, so per-voxel labels tie often
+    and exactly (the smallest label must win)."""
+    shifts = ((0.5, 0.5, 0.5), (0.5, 0.25, 0.5))
+    matrices = []
+    for shift in shifts:
+        m = np.eye(4)
+        m[:3, 3] = shift
+        matrices.append(m)
+    return [rs._marshal_maps(matrices, [None, None], dev)]
+
+
+def label_cases(torch, np, rs, dev):
+    """(case name, {kind: labels}, [(maps, fields)], out_shape) for the
+    label phase: the kernel shapes (also with tie-heavy maps), the row
+    tiling's edges as the resample phase has them, and a field too fine
+    to stage."""
+    rng = np.random.default_rng(2)
+    for in_shape, out_shapes in KERNEL_SHAPES:
+        volumes = label_volumes(torch, np, rng, 2, in_shape, dev)
+        for out_shape in out_shapes:
+            yield "", volumes, kernel_grids(np, rs, dev, in_shape), out_shape
+        yield "ties ", volumes, tie_grids(np, rs, dev), in_shape
+    for in_shape, out_shapes in EDGE_SHAPES:
+        volumes = label_volumes(torch, np, rng, 2, in_shape, dev)
+        for out_shape in out_shapes:
+            yield "edge ", volumes, edge_grids(np, rs, dev, in_shape, out_shape, 2), out_shape
+    in_shape, out_shape = (12, 14, 20), (5, 6, 700)
+    grids = edge_grids(np, rs, dev, in_shape, out_shape, 2, field_shape=FINE_FIELD)
+    volumes = label_volumes(torch, np, rng, 2, in_shape, dev)
+    yield f"field {FINE_FIELD} ", volumes, grids[:1], out_shape
+
+
+def wide_labels(torch, dev):
+    """A 1 x 1 x 1,291^3 int32 label volume drawn per voxel from {0, ...,
+    4} (8.6 GB) and the point near its far corner that the case samples
+    around."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    labels = torch.randint(0, 5, (1, 1, *WIDE_SHAPE), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return labels, [n - 4.5 for n in WIDE_SHAPE]
 
 
 def phase_label_kernel(torch, np, rs, rk, kl):
     dev = torch.device(DEVICE)
-    rng = np.random.default_rng(2)
     before = kl.LAUNCHES["label_vote"]
-    cases = differ = ties_total = voxels = 0
-    for in_shape, out_shapes in KERNEL_SHAPES:
-        for kind, labels in label_volumes(torch, np, rng, 2, in_shape, dev).items():
-            for out_shape in out_shapes:
-                for maps, fields in kernel_grids(np, rs, dev, in_shape):
-                    ties = vote_ties(torch, rs, labels, maps, fields, out_shape)
-                    for pad in (0.0, 7.0):
-                        got = rk.resample_label_cuda(labels, maps, fields, out_shape, pad)
-                        want = rs.resample_label_plain(labels, maps, fields, out_shape, pad)
-                        torch.cuda.synchronize()
-                        where = f"label {kind} {in_shape}->{out_shape} pad {pad}"
-                        if got.shape != want.shape or got.dtype != labels.dtype:
-                            fail(f"{where}: output {tuple(got.shape)} {got.dtype}")
-                        diff = got != want
-                        differ += int(diff.sum())
-                        off = int((diff & ~ties).sum())
-                        if off:
-                            fail(f"{where}: {off} voxels differ off near ties")
-                        ties_total += int(ties.sum())
-                        voxels += got.numel()
-                        cases += 1
+    cases = voxels = 0
+    differ = {"kernel shapes": 0, "the rest": 0}
+    ties_total = 0
+
+    def check(kind, name, labels, grids, out_shape):
+        nonlocal cases, voxels, ties_total
+        for maps, fields in grids:
+            ties = vote_ties(torch, rs, labels, maps, fields, out_shape)
+            for pad in (0.0, 7.0):
+                got = rk.resample_label_cuda(labels, maps, fields, out_shape, pad)
+                want = rs.resample_label_plain(labels, maps, fields, out_shape, pad)
+                torch.cuda.synchronize()
+                where = (
+                    f"label {kind}{name} {tuple(labels.shape[2:])}->{out_shape}"
+                    f" {'elastic' if fields is not None else 'affine'} pad {pad}"
+                )
+                if got.shape != want.shape or got.dtype != labels.dtype:
+                    fail(f"{where}: output {tuple(got.shape)} {got.dtype}")
+                diff = got != want
+                old = kind == "" and name in ("int32", "int32>2^24", "float32")
+                differ["kernel shapes" if old else "the rest"] += int(diff.sum())
+                off = int((diff & ~ties).sum())
+                if off:
+                    fail(f"{where}: {off} voxels differ off near ties")
+                ties_total += int(ties.sum())
+                voxels += got.numel()
+                cases += 1
+
+    for kind, volumes, grids, out_shape in label_cases(torch, np, rs, dev):
+        for name, labels in volumes.items():
+            check(kind, name, labels, grids, out_shape)
+    labels, corner = wide_labels(torch, dev)
+    check("wide ", "int32", labels, edge_grids(np, rs, dev, WIDE_OUT, WIDE_OUT, 1, corner),
+          WIDE_OUT)
+    del labels
+    torch.cuda.empty_cache()
     check_launches(kl, "label_vote", before, cases)
+    total = sum(differ.values())
     print(
-        f"label vote kernel vs plain: {cases} cases (int32, int32 above 2^24,"
-        f" float32); {differ} of {voxels} voxels differ, all at near ties"
-        f" ({ties_total} near-tie voxels)"
+        f"label vote kernel vs plain: {cases} cases (int32, int32 above 2^24, float32,"
+        f" blocks of 8, labels drawn per voxel, tie-heavy half-voxel shifts; rows of 1, 3,"
+        f" 5 and 1,100 voxels, io x b and j tiles past the grid cap, a {FINE_FIELD[:3]}"
+        f" field, a {'x'.join(map(str, WIDE_SHAPE))} volume); {total} of {voxels} voxels"
+        f" differ, all at near ties ({differ['kernel shapes']} in the kernel shapes' int32,"
+        f" int32 above 2^24 and float32 cases; {ties_total} near-tie voxels)"
     )
-    return differ
+    return total
 
 
 #: prefilter volumes: non-aligned (lines that do not fill the last

@@ -113,13 +113,30 @@ def build():
     lib.probe_resample_rows.argtypes = HEAD + [I32] * 7 + [P]
     for fn in (lib.probe_resample_flat, lib.probe_resample_rows):
         fn.restype = I32
-    kernel = None
+    for line in ptxas_report(log):
+        print(f"  ptxas {line}")
+    return lib
+
+
+def ptxas_report(log: str) -> list[str]:
+    """Each kernel's registers, stack and spills from ``nvcc -Xptxas -v``,
+    under its demangled name where ``c++filt`` is at hand."""
+    lines, kernel = [], None
     for line in log.splitlines():
         if "Compiling entry" in line:
-            kernel = line.split("resample_kernel")[-1].split("EvPKf")[0]
-        elif "registers" in line and kernel is not None:
-            print(f"  ptxas {kernel}: {line.split('info    :')[-1].strip()}")
-    return lib
+            kernel = line.split("'")[1] if "'" in line else line
+        elif ("registers" in line or "spill" in line) and kernel is not None:
+            lines.append((kernel, line.split("info    :")[-1].strip()))
+    names = [k for k, _ in lines]
+    try:
+        demangled = subprocess.run(
+            ["c++filt"], input="\n".join(names), capture_output=True, text=True, check=True,
+        ).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        demangled = names
+    if len(demangled) == len(names):
+        names = demangled
+    return [f"{name}: {info}" for name, (_, info) in zip(names, lines)]
 
 
 def resample(lib, kind, vol, fill, apply_fill, maps=None, fields=None, coords=None):

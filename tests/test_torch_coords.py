@@ -27,6 +27,7 @@ import torch
 
 import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 
+import torchio_tpu.config as jax_config
 import torchio_tpu.ops as jops
 import torchio_tpu_torch as tt
 import torchio_tpu_torch.ops as tops
@@ -39,6 +40,17 @@ from torchio_tpu_torch.transforms.spatial.spatial import _dispatch_resample
 
 # the ops package exports the function ``resample`` under its module's name
 rs = importlib.import_module("torchio_tpu_torch.ops.resample")
+
+
+@pytest.fixture(autouse=True)
+def exact_jax_gather(monkeypatch):
+    """Pin the JAX reference to its exact float32 corner gather: its
+    opt-in float16 gather (left on for the rest of a process by importing
+    ``bench.py``, as ``tests/test_parallel.py`` does) rounds the corner
+    values by up to 2^-11."""
+    monkeypatch.setenv("TORCHIO_TPU_GATHER16", "0")
+    monkeypatch.setattr(jax_config, "use_gather16", None)
+
 
 GATHER_ATOL = 1e-5
 PALLAS_ATOL = 1e-4

@@ -26,10 +26,22 @@ import torch
 
 import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 
+import torchio_tpu.config as jax_config
 import torchio_tpu as tj
 import torchio_tpu_torch as tt
 from test_torch_intensity import make_batches
 from torchio_tpu_torch.transforms.transform import get_transform_class
+
+
+@pytest.fixture(autouse=True)
+def exact_jax_gather(monkeypatch):
+    """Pin the JAX reference to its exact float32 corner gather: its
+    opt-in float16 gather (left on for the rest of a process by importing
+    ``bench.py``, as ``tests/test_parallel.py`` does) rounds the corner
+    values by up to 2^-11."""
+    monkeypatch.setenv("TORCHIO_TPU_GATHER16", "0")
+    monkeypatch.setattr(jax_config, "use_gather16", None)
+
 
 KSPACE_ATOL = 1e-5
 SHAPE = (1, 12, 14, 20)

@@ -31,6 +31,7 @@ import torch
 
 import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 
+import torchio_tpu.config as jax_config
 import torchio_tpu as tj
 import torchio_tpu_torch as tt
 from test_torch_intensity import block_labels, jax_device_normal, make_batches
@@ -45,6 +46,17 @@ from torchio_tpu_torch.transforms.spatial.spatial import _build_grid
 
 # the ops package exports the function ``resample`` under its module's name
 rs = importlib.import_module("torchio_tpu_torch.ops.resample")
+
+
+@pytest.fixture(autouse=True)
+def exact_jax_gather(monkeypatch):
+    """Pin the JAX reference to its exact float32 corner gather: its
+    opt-in float16 gather (left on for the rest of a process by importing
+    ``bench.py``, as ``tests/test_parallel.py`` does) rounds the corner
+    values by up to 2^-11."""
+    monkeypatch.setenv("TORCHIO_TPU_GATHER16", "0")
+    monkeypatch.setattr(jax_config, "use_gather16", None)
+
 
 TIE_BAND = 1e-4
 SLICE_ATOL = 1e-4

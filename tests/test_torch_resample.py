@@ -24,12 +24,24 @@ import torch
 
 import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 
+import torchio_tpu.config as jax_config
 from torchio_tpu.ops.resample import _resample_element_fused
 from torchio_tpu.ops.shear_resample import shear_eligible, shear_resample_fused
 from torchio_tpu.ops.window_resample import window_eligible, window_resample_fused
 
 # the ops package exports the function ``resample`` under its module's name
 rs = importlib.import_module("torchio_tpu_torch.ops.resample")
+
+
+@pytest.fixture(autouse=True)
+def exact_jax_gather(monkeypatch):
+    """Pin the JAX reference to its exact float32 corner gather: its
+    opt-in float16 gather (left on for the rest of a process by importing
+    ``bench.py``, as ``tests/test_parallel.py`` does) rounds the corner
+    values by up to 2^-11."""
+    monkeypatch.setenv("TORCHIO_TPU_GATHER16", "0")
+    monkeypatch.setattr(jax_config, "use_gather16", None)
+
 
 GATHER_ATOL = 1e-5
 KERNEL_ATOL = 2e-5
@@ -178,7 +190,6 @@ KERNEL_CASES = [(n, k) for n, c in CASES.items() for k in c["kernels"]]
 @pytest.mark.parametrize("name,kernel", KERNEL_CASES)
 def test_plain_matches_jax_pallas_interpret(name, kernel, monkeypatch):
     monkeypatch.setenv("TORCHIO_TPU_WINDOW_INTERPRET", "1")
-    monkeypatch.setenv("TORCHIO_TPU_GATHER16", "0")
     case = CASES[name]
     data, ms, cps, out, mode = (case[k] for k in ("data", "ms", "cps", "out", "mode"))
     fill = np.asarray(case["fill"], np.float32)

@@ -1,5 +1,7 @@
-"""Host-side plan and row arithmetic of the trilinear resample kernels
-(``csrc/resample.cu``, ``ops/resample_kernel.py``).
+"""Host-side plan and row arithmetic of the row-tiled kernels: the
+trilinear resample and the label vote (``csrc/resample.cu``,
+``csrc/label_resample.cu``, both on ``csrc/row_tiles.cuh``;
+``ops/resample_kernel.py``).
 
 The CUDA kernels run only on the card; what the host tells them, and
 the order in which they do their arithmetic, is plain and is held here:
@@ -15,7 +17,12 @@ the order in which they do their arithmetic, is plain and is held here:
   the k-lerp a voxel, equal bit for bit to the plain version's
   ``coord_planes`` and ``upsample_field`` (so the kernel's coordinates,
   built with ``-fmad=false``, are the plain version's), and to the JAX
-  package's ``upsample_field`` within its own test's tolerance.
+  package's ``upsample_field`` within its own test's tolerance;
+- the label kernel's launch: the same plan with a warp's lanes on
+  consecutive ko serves every voxel once (brats' Ko = 155 rows in five
+  warp turns), its row-form point is the plain version's bit for bit,
+  and the plain vote it is held to on the card equals the JAX package's
+  "corners" vote on the row tiling's edges, off near ties.
 """
 
 from __future__ import annotations
@@ -31,6 +38,10 @@ from hypothesis import strategies as st
 
 import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 
+import torchio_tpu.config as jax_config
+from test_torch_label_spline import (
+    _assert_labels_match, _jax_vote, _label_case, _port_labels,
+)
 from torchio_tpu.ops.resample import upsample_field as jax_upsample_field
 from torchio_tpu_torch.ops import resample_kernel as rk
 from torchio_tpu_torch.ops.kernel_lib import field_ratio
@@ -39,6 +50,16 @@ from torchio_tpu_torch.ops.kernel_lib import field_ratio
 rs = importlib.import_module("torchio_tpu_torch.ops.resample")
 
 #: CUDA's launch limits: gridDim.x, gridDim.y, gridDim.z
+@pytest.fixture(autouse=True)
+def exact_jax_gather(monkeypatch):
+    """Pin the JAX reference to its exact float32 corner gather: its
+    opt-in float16 gather (left on for the rest of a process by importing
+    ``bench.py``, as ``tests/test_parallel.py`` does) rounds the corner
+    values by up to 2^-11."""
+    monkeypatch.setenv("TORCHIO_TPU_GATHER16", "0")
+    monkeypatch.setattr(jax_config, "use_gather16", None)
+
+
 GRID_LIMITS = (2**31 - 1, 65535, 65535)
 BIG = 2**31 - 1
 #: the JAX package's own tolerance for upsample_field
@@ -81,10 +102,14 @@ def assert_progressions_cover(starts, step: int, n: int) -> None:
 
 def tile_offsets(layout: str) -> np.ndarray:
     """The ko offsets inside a k tile of (lane, voxel v), as ``ko_of``
-    computes them: 4 consecutive ko a lane, or a warp-width apart."""
+    computes them: 4 consecutive ko a lane, or a warp-width apart. A
+    lane's voxels lie further on along v, so its loop's break at Ko skips
+    only voxels past the row."""
     lane = np.arange(rk.LANES)[:, None]
     v = np.arange(rk.VEC)[None, :]
-    return (lane * rk.VEC + v) if layout == "consecutive" else (lane + v * rk.LANES)
+    offsets = (lane * rk.VEC + v) if layout == "consecutive" else (lane + v * rk.LANES)
+    assert (np.diff(offsets, axis=1) > 0).all()
+    return offsets
 
 
 def assert_plan_covers(plan, b: int, io: int, jo: int, ko: int) -> None:
@@ -110,9 +135,12 @@ def assert_plan_covers(plan, b: int, io: int, jo: int, ko: int) -> None:
         np.testing.assert_array_equal(offsets, np.arange(rk.TILE_K))
 
 
-def emulate_plan(plan, b: int, io: int, jo: int, ko: int) -> np.ndarray:
+def emulate_plan(
+    plan, b: int, io: int, jo: int, ko: int, layout: str = "consecutive"
+) -> np.ndarray:
     """The number of times each (b, io, jo, ko) voxel is served, running
-    the kernel's block loops with numpy (small shapes)."""
+    the kernel's block loops with numpy (small shapes), a tile's lanes in
+    ``layout``."""
     gx, gy, gz = plan.grid
     b_step = gz // plan.z_rows
     j_tiles = -(-jo // rk.ROWS)
@@ -127,7 +155,7 @@ def emulate_plan(plan, b: int, io: int, jo: int, ko: int) -> np.ndarray:
         y_rows.append(rows[rows < jo])
     for x in range(gx):
         tiles = np.arange(x, -(-ko // rk.TILE_K), gx)
-        cols = (tiles[:, None] * rk.TILE_K + tile_offsets("consecutive").ravel()).ravel()
+        cols = (tiles[:, None] * rk.TILE_K + tile_offsets(layout).ravel()).ravel()
         x_cols.append(cols[cols < ko])
     pairs = np.bincount(np.concatenate(z_pairs), minlength=b * io)
     rows = np.bincount(np.concatenate(y_rows), minlength=jo)
@@ -303,3 +331,94 @@ def test_row_form_map_is_the_plain_map(out_shape):
     map34[:, 3] = torch.as_tensor(rng.uniform(-20, 20, 3).astype(np.float32))
     for got, want in zip(row_form_map(map34, out_shape), rs.coord_planes(map34, out_shape)):
         assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------
+# the label kernel: the same plan and row form, warp-strided lanes
+# --------------------------------------------------------------------
+
+#: brats' control grid: the elastic field the label kernel stages
+BRATS_COARSE = (7, 7, 7)
+
+
+def label_plan(b: int, out_shape, in_shape):
+    """The plan ``resample_label_cuda`` launches a (B, 1, *in_shape) label
+    batch with, under brats' control grid."""
+    return rk.resample_launch_plan(b, *out_shape, in_shape, BRATS_COARSE[2])
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (4, 240, 240, 155),  # brats: a row is one block's two k tiles
+        (2, 9, 10, 1),  # rows of 1, 3 and 5 voxels
+        (2, 9, 10, 3),
+        (2, 9, 10, 5),
+        (2, 3, 4, 1100),  # rows of five blocks
+        (2, 70000, 1, 2),  # io past grid z's cap
+        (2, 40000, 1, 2),  # io x b past it
+        (1, 1, 600000, 1),  # j tiles past grid y's cap
+    ],
+)
+def test_label_plan_serves_every_voxel_once(shape):
+    plan = label_plan(shape[0], shape[1:], shape[1:])
+    assert within_limits(plan)
+    assert plan.field_smem == rk.ROWS * 7 * 3 * 4 and not plan.wide
+    counts = emulate_plan(plan, *shape, layout="strided")
+    assert counts.shape == shape and (counts == 1).all()
+
+
+@pytest.mark.parametrize("layout,turns", [("strided", 5), ("consecutive", 8)])
+def test_label_rows_of_155_take_five_warp_turns(layout, turns):
+    """A warp's turns on a Ko = 155 row (a turn: one voxel of each lane
+    whose voxel lies on the row): with the lanes on consecutive ko, four
+    full turns and one of 27 lanes; with a lane's 4 consecutive ko, the
+    second k tile's 7 lanes take four more."""
+    ko = 155
+    live = 0
+    for tile in range(-(-ko // rk.TILE_K)):
+        cols = tile * rk.TILE_K + tile_offsets(layout)  # (lane, v)
+        live += int((cols < ko).any(axis=0).sum())
+    assert live == turns
+
+
+@pytest.mark.parametrize(
+    "coarse,out_shape",
+    [
+        (BRATS_COARSE, (6, 5, 155)),  # brats' control grid, Ko = 155
+        (BRATS_COARSE, (3, 2, 1)),  # rows of one voxel
+        ((4, 9, 6), (13, 20, 29)),
+    ],
+)
+def test_label_row_point_is_the_plain_point(coarse, out_shape):
+    """The label kernel's point (the row's map and staged field lerps, a
+    voxel's k terms) is the plain vote's point bit for bit."""
+    rng = np.random.default_rng(out_shape[2])
+    map34 = torch.as_tensor(rng.uniform(-1.5, 1.5, (3, 4)).astype(np.float32))
+    cp = rng.uniform(-7.5, 7.5, (*coarse, 3)).astype(np.float32)
+    field = row_form_field(torch.as_tensor(cp), out_shape)
+    maps = map34[None].contiguous()
+    fields = torch.as_tensor(cp)[None].contiguous()
+    want = rs._element_coords(maps, fields, 0, out_shape)
+    for a, (plane, plain) in enumerate(zip(row_form_map(map34, out_shape), want)):
+        assert torch.equal(plane + field[..., a], plain)
+
+
+#: the vote on the row tiling's edges: rows of 155 voxels (brats' Ko),
+#: of 1, 3 and 5; int32 and float labels; labels drawn per voxel (ties)
+VOTE_CASES = {
+    "int32-rows-of-155": _label_case((2, 1, 12, 14, 31), out=(9, 10, 155)),
+    "float-rows-of-155": _label_case((2, 1, 12, 14, 31), out=(9, 10, 155), dtype=np.float32),
+    "int32-rows-of-1": _label_case((2, 1, 12, 14, 20), out=(9, 10, 1), seed=1),
+    "float-rows-of-3": _label_case((2, 1, 12, 14, 20), out=(9, 10, 3), seed=2,
+                                   dtype=np.float32),
+    "int32-rows-of-5": _label_case((2, 1, 12, 14, 20), out=(9, 10, 5), seed=3),
+    "per-voxel-labels": _label_case((2, 1, 12, 14, 31), out=(9, 10, 155), labels=5, seed=4,
+                                    elastic=(True, True)),
+}
+
+
+@pytest.mark.parametrize("name", list(VOTE_CASES))
+def test_plain_vote_matches_jax_on_row_edges(name):
+    case = VOTE_CASES[name]
+    _assert_labels_match(case, _port_labels(case), _jax_vote(case))

@@ -27,6 +27,7 @@ import torch
 import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 
 import torchio_tpu as tj
+import torchio_tpu.config as jax_config
 import torchio_tpu_torch as tt
 from test_torch_intensity import jax_device_normal, make_batches
 from torchio_tpu_torch.ops.resample import upsample_volume
@@ -45,6 +46,26 @@ def host_data_on_cpu():
     previous = tt.set_default_device("cpu")
     yield
     tt.set_default_device(previous)
+
+
+@pytest.fixture
+def gather16_leak(request, monkeypatch):
+    """What an earlier test of the same process may leave behind:
+    importing ``bench.py`` (``tests/test_parallel.py`` runs it) sets
+    ``TORCHIO_TPU_GATHER16=1`` for the rest of the process. A test asks for
+    that leak with an indirect parameter; by default nothing is set."""
+    leak = getattr(request, "param", None)
+    if leak is not None:
+        monkeypatch.setenv("TORCHIO_TPU_GATHER16", leak)
+        monkeypatch.setattr(jax_config, "use_gather16", True)
+
+
+@pytest.fixture(autouse=True)
+def exact_jax_gather(gather16_leak, monkeypatch):
+    """Pin the JAX reference to its exact float32 corner gather: its
+    opt-in float16 gather rounds the corner values by up to 2^-11."""
+    monkeypatch.setenv("TORCHIO_TPU_GATHER16", "0")
+    monkeypatch.setattr(jax_config, "use_gather16", None)
 
 
 pytestmark = pytest.mark.filterwarnings("ignore:The maximum displacement")
@@ -90,26 +111,82 @@ def test_headline_matches_jax(fuse, jax_path, jax_normals, monkeypatch):
         import torchio_tpu.ops.shear_resample as sr
 
         monkeypatch.setenv("TORCHIO_TPU_WINDOW_INTERPRET", "1")
-        monkeypatch.setenv("TORCHIO_TPU_GATHER16", "0")
         real = sr.shear_resample_fused
         monkeypatch.setattr(
             sr, "shear_resample_fused",
             lambda *a, **k: shear_calls.append(1) or real(*a, **k),
         )
     shape = SHEAR_SHAPE if jax_path == "interpret" else SHAPE
+    assert_headline_matches_jax(fuse, shape)
+    assert shear_calls == ([1] if jax_path == "interpret" else [])
+
+
+def assert_headline_matches_jax(fuse, shape):
+    """The headline from one seed in both packages: equal histories, and
+    outputs within SLICE_ATOL."""
     jax_batch, port_batch = make_batches(b=2, shape=shape, seed=1)
     outs = []
     for pkg, batch in ((tj, jax_batch), (tt, port_batch)):
         pkg.seed(2024)
         outs.append(headline(pkg, fuse=fuse)(batch))
     jax_out, port_out = outs
-    assert shear_calls == ([1] if jax_path == "interpret" else [])
     assert_same_history(jax_out, port_out)
     got = port_out.t1.data.numpy()
     assert got.shape == (2, *shape) and np.isfinite(got).all()
     np.testing.assert_allclose(
         got, np.asarray(jax_out.t1.data), rtol=0, atol=SLICE_ATOL
     )
+
+
+@pytest.mark.parametrize("gather16_leak", ["1"], indirect=True)
+def test_jax_reference_ignores_a_leaked_gather16(gather16_leak, jax_normals):
+    """A float16 gather switched on earlier in the process (as importing
+    ``bench.py`` does) does not reach the reference the port is held to."""
+    assert not jax_config.gather16()
+    assert_headline_matches_jax(True, SHAPE)
+
+
+class StagelessNoise(tt.Noise):
+    """Fusable, but declines to build a stage (as a transform may once it
+    has looked at the batch)."""
+
+    def fused_stage(self, batch):
+        return None
+
+
+@pytest.mark.parametrize(
+    "p,per_instance", [(1.0, True), (0.5, False), (0.5, True)],
+    ids=["always", "coin", "per-instance"],
+)
+def test_fusable_transform_without_a_stage_runs_unfused(p, per_instance):
+    """A fusable transform whose ``fused_stage`` returns None runs eagerly
+    on the coin the fused Compose drew: output, the RNG stream after the
+    call and the history equal the unfused Compose's."""
+    _, batch = make_batches(b=2, shape=SHAPE, seed=3)
+    results = []
+    for fuse in (False, True):
+        compose = tt.Compose(
+            [
+                tt.BiasField(std=0.5),
+                StagelessNoise(std=0.1, p=p, per_instance=per_instance),
+                tt.Noise(std=0.2),
+            ],
+            fuse=fuse,
+        )
+        for seed in range(4):  # both sides of the coin
+            tt.seed(seed)
+            out = compose(batch)
+            results.append(
+                (fuse, seed, out.t1.data, float(tt.random.random()),
+                 [(h.name, h.params) for h in out.applied_transforms])
+            )
+    unfused, fused = results[:4], results[4:]
+    for (_, _, want, want_next, want_h), (_, _, got, got_next, got_h) in zip(unfused, fused):
+        assert torch.equal(got, want)
+        assert got_next == want_next
+        assert got_h == want_h
+    coin = p < 1 and not per_instance
+    assert {len(h) for *_, h in fused} == ({2, 3} if coin else {3})
 
 
 def test_fused_and_unfused_port_agree():

@@ -47,17 +47,11 @@
 //
 // The design now (each step measured by probes/resample_layout.py; its
 // numbers are in PERF.md):
-//   - a block is kRows warps; a warp owns one output row (b, io, jo) and
-//     walks the row's k tiles of kTileK ko assigned to its block, kVec
-//     voxels a lane. A 3-D launch grid (k tiles, j tiles, io x b) gives
-//     each block its rows with 32-bit arithmetic; the axes past CUDA's
-//     65,535 cap on grid y and z fold into loops inside the block
-//     (ops/resample_kernel.py::resample_launch_plan, which also gives a
-//     block two k tiles of a row);
-//   - what a row shares is computed once a row: the map's i m0 + j m1,
-//     and the field's i- and j-lerps at each of the nk coarse k points
-//     (upsample_field's own intermediate), staged in shared memory, so a
-//     voxel keeps only its k-lerp;
+//   - row tiles (row_tiles.cuh, shared with label_resample.cu): a warp
+//     owns one output row, from a 3-D launch grid with 32-bit arithmetic,
+//     and what the row shares (the map's i m0 + j m1, the field's row
+//     lerps in shared memory) is computed once a row, so a voxel keeps
+//     only its k-lerp;
 //   - offsets inside one (b, c) volume are 32-bit where I*J*K < 2^31 (a
 //     template parameter; 64-bit otherwise), each corner load one 32-bit
 //     offset scaled onto the (b, c) base;
@@ -77,120 +71,19 @@
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
 
-#include "sample_point.cuh"
+#include "row_tiles.cuh"
 
 namespace {
 
+using tio::clamp_index;
 using tio::Grid;
+using tio::kLanes;
+using tio::kVec;
+using tio::ko_of;
+using tio::Launch;
+using tio::opaque;
+using tio::Row;
 using tio::Source;
-
-// The launch shape; ops/resample_kernel.py mirrors these numbers.
-constexpr int kLanes = 32;             // a warp along one row's k
-constexpr int kRows = 8;               // warps (output rows) a block
-constexpr int kVec = 4;                // voxels a lane in a k tile
-constexpr int kTileK = kLanes * kVec;  // ko of a k tile
-
-// The ko of a lane's voxel v, for a layout L (see Layout).
-template <class L>
-__device__ __forceinline__ unsigned ko_of(unsigned k_first, unsigned lane, int v) {
-  return L::kConsecutive ? k_first + lane * kVec + v : k_first + lane + v * kLanes;
-}
-
-__device__ __forceinline__ int clamp_index(int i, int n) { return min(max(i, 0), n - 1); }
-
-// The pointer as computed, hidden from the optimiser: a corner load is
-// then its 32-bit offset scaled onto it (one IMAD.WIDE), where the
-// compiler otherwise folds the 64-bit (b, c) base into every load's
-// address (four instructions each).
-template <typename T>
-__device__ __forceinline__ T* opaque(T* p) {
-  asm("" : "+l"(p));
-  return p;
-}
-
-// The field's i-lerp and then j-lerp at the row (io, jo), at each of the
-// nk coarse k points: the (nk, 3) slice of upsample_field's intermediate
-// after its i and j passes, in sample_point's operation order. The warp's
-// lanes share the nk * 3 entries.
-__device__ __forceinline__ void stage_row_field(const float* __restrict__ fields,
-                                                const Grid& s, unsigned b, unsigned io,
-                                                unsigned jo, unsigned lane,
-                                                float* row_field) {
-  int i0, i1, j0, j1;
-  float fi, fj;
-  tio::coarse_axis((int)io, s.ni, s.ri, i0, i1, fi);
-  tio::coarse_axis((int)jo, s.nj, s.rj, j0, j1, fj);
-  const int64_t line = (int64_t)s.nk * 3, plane = (int64_t)s.nj * line;
-  const float* f = fields + (int64_t)b * s.ni * plane;
-  const float* f00 = f + i0 * plane + j0 * line;
-  const float* f10 = f + i1 * plane + j0 * line;
-  const float* f01 = f + i0 * plane + j1 * line;
-  const float* f11 = f + i1 * plane + j1 * line;
-  __syncwarp();  // the warp has read its last row's entries
-  for (int e = lane; e < s.nk * 3; e += kLanes) {
-    const float along_j0 = tio::lerp(__ldg(f00 + e), __ldg(f10 + e), fi);
-    const float along_j1 = tio::lerp(__ldg(f01 + e), __ldg(f11 + e), fi);
-    row_field[e] = tio::lerp(along_j0, along_j1, fj);
-  }
-  __syncwarp();
-}
-
-// The sample points of one output row (b, io, jo): what the row shares,
-// set up once (the map's i m0 + j m1 and, kStaged, the field's row lerps
-// staged in shared memory; or the row's coordinates), then one voxel's
-// point at a time. A field too fine to stage (kStaged false) is
-// upsampled whole a voxel.
-template <Source kSource, bool kStaged>
-struct Row {
-  const float* coords;     // dense: the row's (Ko, 3) coordinates
-  const float* row_field;  // kStaged: the row's (nk, 3) field lerps
-  float ij[3], m2[3], m3[3];
-  unsigned b, io, jo;
-
-  __device__ __forceinline__ Row(const tio::Points& pts, const Grid& s, unsigned b_,
-                                 unsigned io_, unsigned jo_, unsigned lane, float* staged)
-      : coords(nullptr), row_field(staged), b(b_), io(io_), jo(jo_) {
-    if constexpr (kSource == Source::kDense) {
-      coords = pts.coords + (int64_t)b * pts.batch_stride +
-               ((int64_t)io * s.Jo + jo) * s.Ko * 3;
-    } else {
-      const float* m = pts.maps + (int64_t)b * 12;
-      const float fio = (float)io, fjo = (float)jo;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        ij[a] = fio * __ldg(m + 4 * a) + fjo * __ldg(m + 4 * a + 1);
-        m2[a] = __ldg(m + 4 * a + 2);
-        m3[a] = __ldg(m + 4 * a + 3);
-      }
-      if constexpr (kStaged) stage_row_field(pts.fields, s, b, io, jo, lane, staged);
-    }
-  }
-
-  // The point c of voxel ko (below Ko for dense coordinates).
-  __device__ __forceinline__ void point(const tio::Points& pts, const Grid& s, unsigned ko,
-                                        float c[3]) const {
-    if constexpr (kSource == Source::kDense) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) c[a] = __ldg(coords + (size_t)ko * 3 + a);
-    } else {
-      const float fko = (float)ko;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) c[a] = (ij[a] + fko * m2[a]) + m3[a];
-      if constexpr (kSource == Source::kMapField && kStaged) {
-        int k0, k1;
-        float fk;
-        tio::coarse_axis((int)ko, s.nk, s.rk, k0, k1, fk);
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          c[a] = c[a] + tio::lerp(row_field[k0 * 3 + a], row_field[k1 * 3 + a], fk);
-        }
-      } else if constexpr (kSource == Source::kMapField) {
-        const tio::Voxel p{(int)b, (int)io, (int)jo, (int)ko};
-        tio::sample_point<true>(pts.maps, pts.fields, s, p, c);
-      }
-    }
-  }
-};
 
 // One voxel's corners: weights, clamped offsets, and whether it takes
 // the fill.
@@ -305,58 +198,35 @@ struct Layout {
   }
 };
 
-// The row loops of the launch plan: block z serves io = z % z_rows
-// (stepping by z_rows) of b = z / z_rows (stepping by gridDim.z /
-// z_rows); block y the j tiles y, y + gridDim.y, ...; each of its warps
-// one row of the tile; block x the k tiles x, x + gridDim.x, ... of that
-// row.
-template <bool kNearest, Source kSource, bool kStaged, typename Index, class L>
-__global__ void __launch_bounds__(kLanes * kRows, L::kMinBlocks)
-    resample_kernel(const float* __restrict__ vol, tio::Points pts,
-                    const float* __restrict__ fill, float* __restrict__ out, Grid s,
-                    unsigned z_rows, int apply_fill) {
-  extern __shared__ float row_fields[];  // kRows x (nk, 3) when staged
-  const unsigned lane = threadIdx.x;
-  float* staged = row_fields + threadIdx.y * s.nk * 3;
-  const unsigned b_step = gridDim.z / z_rows;
-  const unsigned j_tiles = ((unsigned)s.Jo + kRows - 1) / kRows;
-  const unsigned k_tiles = ((unsigned)s.Ko + kTileK - 1) / kTileK;
-  for (unsigned b = blockIdx.z / z_rows; b < (unsigned)s.B; b += b_step) {
-    for (unsigned io = blockIdx.z % z_rows; io < (unsigned)s.Io; io += z_rows) {
-      for (unsigned jt = blockIdx.y; jt < j_tiles; jt += gridDim.y) {
-        const unsigned jo = jt * kRows + threadIdx.y;
-        if (jo >= (unsigned)s.Jo) continue;  // the whole warp
-        const Row<kSource, kStaged> row(pts, s, b, io, jo, lane, staged);
-        for (unsigned kt = blockIdx.x; kt < k_tiles; kt += gridDim.x) {
-          L::template tile<kNearest, kSource, kStaged, Index>(vol, pts, fill, out, s, row,
-                                                              kt * kTileK, lane, apply_fill);
-        }
-      }
-    }
-  }
-}
+// The resample as row_tiles.cuh's Body: a lane's voxels of a k tile are
+// the layout L's tile.
+struct ResampleArgs {
+  const float* __restrict__ vol;
+  const float* __restrict__ fill;
+  float* __restrict__ out;
+  int apply_fill;
+};
 
-// The launch plan of ops/resample_kernel.py::resample_launch_plan.
-struct Launch {
-  unsigned gx, gy, gz, z_rows;
-  int wide;        // 64-bit offsets inside a (b, c) volume
-  int field_smem;  // bytes of staged row fields, 0 for none
+template <bool kNearest, typename Index, class L>
+struct Resample {
+  using Args = ResampleArgs;
+  static constexpr int kMinBlocks = L::kMinBlocks;
+
+  template <Source kSource, bool kStaged>
+  __device__ __forceinline__ static void tile(const Args& a, const tio::Points& pts,
+                                              const Grid& s,
+                                              const Row<kSource, kStaged>& row,
+                                              unsigned k_first, unsigned lane) {
+    L::template tile<kNearest, kSource, kStaged, Index>(a.vol, pts, a.fill, a.out, s, row,
+                                                        k_first, lane, a.apply_fill);
+  }
 };
 
 template <bool kNearest, Source kSource, typename Index, class L>
 void launch_as(const float* vol, const tio::Points& pts, const float* fill, float* out,
                const Grid& s, const Launch& l, int apply_fill, cudaStream_t stream) {
-  const dim3 grid(l.gx, l.gy, l.gz), block(kLanes, kRows);
-  if constexpr (kSource == Source::kMapField) {
-    if (l.field_smem > 0) {
-      resample_kernel<kNearest, kSource, true, Index, L>
-          <<<grid, block, (size_t)l.field_smem, stream>>>(vol, pts, fill, out, s, l.z_rows,
-                                                          apply_fill);
-      return;
-    }
-  }
-  resample_kernel<kNearest, kSource, false, Index, L>
-      <<<grid, block, 0, stream>>>(vol, pts, fill, out, s, l.z_rows, apply_fill);
+  tio::launch_rows<Resample<kNearest, Index, L>, kSource>({vol, fill, out, apply_fill}, pts,
+                                                          s, l, stream);
 }
 
 template <Source kSource, class L>

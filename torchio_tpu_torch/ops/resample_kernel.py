@@ -12,9 +12,9 @@
   version is :func:`..resample.resample_label_plain`.
 
 The source files' heads say what each kernel computes and what bounds
-it. :func:`resample_launch_plan` lays out the launch of both
-``resample.cu`` kernels. :mod:`.kernel_lib` builds and loads the
-libraries and counts the launches (``LAUNCHES["resample"]``,
+it. :func:`resample_launch_plan` lays out the launch of all three: they
+share ``csrc/row_tiles.cuh``'s row tiles. :mod:`.kernel_lib` builds and
+loads the libraries and counts the launches (``LAUNCHES["resample"]``,
 ``LAUNCHES["resample_coords"]``, ``LAUNCHES["label_vote"]``).
 """
 
@@ -40,12 +40,12 @@ RESAMPLE = KernelLibrary(
 )
 LABEL = KernelLibrary(
     "label_resample.cu",
-    {"tio_resample_label": [P] * 4 + [I32] * 10 + [F32] * 3 + [I32, I32, F32, P]},
+    {"tio_resample_label": [P] * 4 + [I32] * 10 + [F32] * 4 + [I32] * 8 + [P]},
     kernels=("label_vote",),
 )
 
 
-#: ``csrc/resample.cu``'s block: ROWS warps, each on one output row
+#: ``csrc/row_tiles.cuh``'s block: ROWS warps, each on one output row
 #: (b, io, jo), walking the row's k tiles of TILE_K = LANES * VEC voxels
 #: that its block serves
 LANES, ROWS, VEC = 32, 8, 4
@@ -61,7 +61,8 @@ FIELD_SMEM_MAX = 48 * 1024
 
 
 class ResamplePlan(NamedTuple):
-    """The launch of a ``resample.cu`` kernel: ``grid`` is (k tiles, j
+    """The launch of a row-tiled kernel (``csrc/row_tiles.cuh``: the
+    resample, dense and label kernels): ``grid`` is (k tiles, j
     tiles, io x b), each folded into a loop in the block: block z serves
     io = z % z_rows (stepping by z_rows) of b = z // z_rows (stepping by
     grid z // z_rows), block y the j tiles y, y + grid y, ..., block x the
@@ -236,12 +237,13 @@ def resample_label_cuda(
     if out.numel() == 0:
         return out
     pad_int = _pad_value(pad_label, torch.int32)
+    plan = resample_launch_plan(vol.shape[0], *out_shape, vol.shape[2:], coarse[2])
     with torch.cuda.device(vol.device):
         LABEL.launch(
             "label_vote", "tio_resample_label",
             vol.data_ptr(), maps.data_ptr(), _ptr(fields), out.data_ptr(),
-            *grid_args(vol, out_shape, coarse),
-            int(vol.dtype == torch.float32), pad_int, float(pad_label),
-            stream(vol.device),
+            *grid_args(vol, out_shape, coarse), float(pad_label),
+            int(vol.dtype == torch.float32), pad_int,
+            *plan.grid, plan.z_rows, int(plan.wide), plan.field_smem, stream(vol.device),
         )
     return out

@@ -11,7 +11,7 @@ import copy as _copy
 from collections.abc import Mapping, Sequence
 from typing import Any
 
-from .transform import Transform
+from .transform import Transform, record_history
 
 
 class Compose(Transform):
@@ -56,15 +56,22 @@ class Compose(Transform):
 
         pending: list = []
         for t in self.transforms:
+            coin_drawn = False
             if t.fusable(batch):
                 # Transform.forward's RNG order: coin, then make_params
                 # (inside fused_stage)
-                if gate_coin(t, batch):
-                    pending.append((t, t.fused_stage(batch)))
-                continue
+                if not gate_coin(t, batch):
+                    continue
+                stage = t.fused_stage(batch)
+                if stage is not None:
+                    pending.append((t, stage))
+                    continue
+                # no stage after all: fused_stage draws nothing before it
+                # decides, so t runs eagerly on the coin already drawn
+                coin_drawn = True
             batch = run_fused(batch, pending)
             pending = []
-            batch = _run_child(t, batch)
+            batch = _apply_drawn(t, batch) if coin_drawn else _run_child(t, batch)
         return run_fused(batch, pending)
 
     def __iter__(self):
@@ -72,6 +79,15 @@ class Compose(Transform):
 
     def __len__(self) -> int:
         return len(self.transforms)
+
+
+def _apply_drawn(transform: Transform, batch):
+    """``Transform.forward`` after its p-gate coin: draw the parameters,
+    apply them and record the history."""
+    params = transform.make_params(batch)
+    batch = transform.apply_transform(batch, params)
+    record_history(batch, transform, params)
+    return batch
 
 
 def _run_child(transform: Transform, batch):
