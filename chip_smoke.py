@@ -35,11 +35,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      size-1 axis, and the grid-spec resample's tiling edges and 1,291^3
      volume;
    - dense-coordinate spline: within 1e-5 max abs for orders 2-7;
-4. small batches on the card against the CPU path: the headline (1e-4),
-   the labelled BraTS-style pipeline (images 1e-4, labels equal off
-   near ties) and the k-space pair (1e-4, labels untouched); a subject
-   and an array built from numpy go through the headline on the card
-   (host data lands there by default) and launch the resample kernel;
+   - threefry (jax.random's draws): the kernel's 32-bit words equal to
+     the plain version's on draws that do not fill the last block, a
+     4 x 256^3 draw, keys from split, and a draw past 2^32 words (the
+     counter's high word); its normals within 1e-6 (log1pf rounds
+     differently on the card), with the share of exact matches;
+4. small batches on the card against the CPU path, the card drawing its
+   noise and bias fields with the threefry kernel and the CPU with the
+   plain version: the headline (1e-4), the labelled BraTS-style pipeline
+   (images 1e-4, labels equal off near ties), the k-space pair (1e-4,
+   labels untouched), config 1 and config 2 (1e-4); a subject and an
+   array built from numpy go through the headline on the card (host
+   data lands there by default) and launch the resample kernel;
 5. headline: ``Compose([Spatial, BiasField, Noise], fuse=True)`` on
    B=4 x 1 x 256^3 float32 through ``Compose.__call__``, 2 warm-up and 5
    timed calls, with the launch counts read around the run;
@@ -52,23 +59,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    on B=4 subjects of a 256^3 float32 ``t1`` and an int32 ``seg``, the
    same way; the dense resample kernel must launch in exactly the calls
    whose history keeps Motion;
-8. each kernel against its plain version at its path's shape, timed
+8. config1-flip-noise-rescale: BASELINE.json config 1,
+   ``Compose([Flip(axes=(0,), flip_probability=0.5), Noise(std=0.1),
+   RescaleIntensity(0, 1)], fuse=True)`` on B=4 x 1 x 181x217x181
+   float32, the same way; the output must lie in [0, 1];
+9. config2-blur-bias-gamma: BASELINE.json config 2, ``Compose([Blur(
+   std=(0.5, 1.5)), BiasField(std=0.5), Gamma(log_gamma=(-0.3, 0.3))])``
+   (unfused) on B=4 x 1 x 256^3 float32, the same way; every path's
+   Noise and BiasField must launch the threefry kernel in every call;
+10. each kernel against its plain version at its path's shape, timed
    kernel, plain, kernel, plain with CUDA events (the dense resample
    also against ``F.grid_sample``, its one-call library equivalent at a
    zero fill: kernel, library, kernel, library); the prefilter's three
    axis passes also timed one by one; the dense entry points
    ``ops.resample`` (B=4 x 256^3, per-element Motion grids) and
    ``ops.bspline.bspline_resample`` (cubic, B=1 of it) are called as a
-   user calls them, with the launch counts zeroed around the calls.
+   user calls them, with the launch counts zeroed around the calls; the
+   threefry kernel at the headline's noise (B=4 x 1 x 256^3 normals),
+   beside ``torch.randn`` of the same shape (Philox, another function:
+   printed for scale, not as the library equivalent).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches on its path, its error against the plain version, its time, the
 plain version's and the library call's (or null), and its bound: the
 larger of the bytes it must move (each input read once, each output
 written once) over 3.35 TB/s and the float32 operations it does over 67
-TFLOP/s (an H100 SXM's peaks), with ``roofline`` = bound / time. The
-last line is ``{"ok": true, "device": {...}}``. ``--profile PATH`` also
-writes a ``torch.profiler`` table of two calls of each pipeline to PATH.
+TFLOP/s (an H100 SXM's peaks; the threefry kernel's integer operations
+count at the float32 rate, the only CUDA-core rate the data sheet
+gives), with ``roofline`` = bound / time. The last line is ``{"ok":
+true, "device": {...}}``. ``--profile PATH`` also writes a
+``torch.profiler`` table of two calls of each pipeline to PATH, and
+prints each pipeline's device time a call.
 """
 
 from __future__ import annotations
@@ -87,6 +108,9 @@ from pathlib import Path
 
 B, C, S = 4, 1, 256
 BRATS_B, BRATS_C, BRATS_SHAPE = 4, 4, (240, 240, 155)
+#: config 1's volume: benchmarks/suite.py's synthetic stand-in for Colin27
+#: (1 mm MNI space)
+CONFIG1_SHAPE = (181, 217, 181)
 DEVICE = "cuda"
 WARMUP, TIMED = 2, 5
 KERNEL_ATOL = 1e-5
@@ -96,8 +120,19 @@ TIE_BAND = 1e-4
 ORDERS = range(2, 8)
 KERNELS = (
     "resample", "label_vote", "bspline_prefilter", "bspline_resample",
-    "resample_coords", "bspline_coords",
+    "resample_coords", "bspline_coords", "threefry_normal",
 )
+#: threefry's normals: the kernel against the plain version (the bits
+#: are held equal)
+NORMAL_ATOL = 1e-6
+#: operations a threefry normal takes: 2 counter adds, 20 rounds of add,
+#: rotate and xor, 5 key injections of 2 adds, the final xor (73 integer
+#: operations); the mantissa's shift and or; the uniform's subtract,
+#: multiply, add and max; erf_inv's square, log1p, compare, two
+#: subtracts, sqrt, 9 coefficient selects, 8 Horner steps of 2, the
+#: |x| == 1 test and select, the product with x; the product with
+#: sqrt(2) (log1p and sqrt counted as one operation each)
+THREEFRY_OPS = 73 + 2 + 4 + (1 + 1 + 1 + 2 + 1 + 1 + 9 + 16 + 2 + 1 + 1) + 1
 #: an H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s and
 #: float32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -738,34 +773,21 @@ def phase_spline_kernel(torch, np, rs, bs, bk, kl):
     return worst
 
 
-def cpu_normals(tio_random):
-    """Device normals drawn on the CPU and moved, so the card and CPU
-    paths add the same noise."""
-    default = tio_random.device_normal
-
-    def cpu_normal(seed, shape, device, index):
-        return default(seed, shape, "cpu", index).to(device)
-
-    return default, cpu_normal
-
-
-def run_on_both(tio, tio_random, make, pipeline, seed):
+def run_on_both(tio, make, pipeline, seed):
+    """``pipeline`` from one seed on the CPU and on the card: each draws
+    its own noise and bias fields (the plain threefry version on the CPU,
+    the kernel on the card)."""
     import torch
 
     # the first multithreaded torch.exp of a process has returned results
     # off by up to 2e-4 on PyTorch's CPU build (2.13.0+cpu); warm the
     # CPU thread pool before the CPU path is the reference
     torch.exp(torch.zeros(1 << 20))
-    default, cpu_normal = cpu_normals(tio_random)
-    tio_random.device_normal = cpu_normal
-    try:
-        outs = []
-        for device in ("cpu", DEVICE):
-            batch = make().to(device)
-            tio.seed(seed)
-            outs.append(pipeline(tio)(batch))
-    finally:
-        tio_random.device_normal = default
+    outs = []
+    for device in ("cpu", DEVICE):
+        batch = make().to(device)
+        tio.seed(seed)
+        outs.append(pipeline(tio)(batch))
     cpu, gpu = outs
     if [h.params for h in cpu.applied_transforms] != [
         h.params for h in gpu.applied_transforms
@@ -774,11 +796,10 @@ def run_on_both(tio, tio_random, make, pipeline, seed):
     return cpu, gpu
 
 
-def phase_small_slice(torch, tio, tio_random):
+def phase_small_slice(torch, tio):
     """The headline on a small batch: card against the CPU path."""
     cpu, gpu = run_on_both(
-        tio, tio_random, lambda: make_batch(tio, torch, 2, (40, 44, 48), "cpu", 3),
-        headline, 11,
+        tio, lambda: make_batch(tio, torch, 2, (40, 44, 48), "cpu", 3), headline, 11,
     )
     err = float((gpu.t1.data.cpu() - cpu.t1.data).abs().max())
     print(f"small slice (2 x 40x44x48) cuda vs cpu: max abs {err:.3g} (limit {SLICE_ATOL})")
@@ -802,12 +823,11 @@ def slice_grids(np, rs, params, affine, shape, device):
     return rs._marshal_maps([g[0] for g in grids], [g[1] for g in grids], device)
 
 
-def phase_small_labelled(torch, np, tio, tio_random, rs):
+def phase_small_labelled(torch, np, tio, rs):
     """brats-label-bspline on a small batch: card against the CPU path."""
     shape = (40, 44, 48)
     cpu, gpu = run_on_both(
-        tio, tio_random,
-        lambda: make_brats_batch(tio, torch, 2, shape, "cpu", 5),
+        tio, lambda: make_brats_batch(tio, torch, 2, shape, "cpu", 5),
         brats_pipeline, 13,
     )
     err = float((gpu.mri.data.cpu() - cpu.mri.data).abs().max())
@@ -884,18 +904,24 @@ def drive(torch, kl, pipeline, batch, kernels):
 
 
 def profile_calls(torch, pipeline, batch, path, title):
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         for _ in range(2):
             pipeline(batch)
         torch.cuda.synchronize()
-    table = p.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    events = p.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=40)
+    # the table's "Self CUDA time total": the device events' own time
+    device_us = sum(
+        e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA
+    )
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     with path.open("a") as f:
         f.write(f"== {title}: two calls ==\n{table}\n")
-    print(f"profile ({title}): {path}")
+    print(f"profile ({title}): device time {device_us / 2e3:.3f} ms a call; table in {path}")
 
 
 def phase_slice(torch, tio, kl, profile: str | None):
@@ -903,7 +929,13 @@ def phase_slice(torch, tio, kl, profile: str | None):
     batch = make_batch(tio, torch, B, (S, S, S), dev, 0)
     pipeline = headline(tio)
     tio.seed(0)
-    out, times, per_call, totals, peak, _ = drive(torch, kl, pipeline, batch, ("resample",))
+    out, times, per_call, totals, peak, _ = drive(
+        torch, kl, pipeline, batch, ("resample", "threefry_normal")
+    )
+    # BiasField draws one coarse field per element, Noise one volume
+    draws = [c["threefry_normal"] for c in per_call]
+    if any(d != B + 1 for d in draws):
+        fail(f"headline threefry launches per call {draws}, expected {B + 1}")
     data = out.t1.data
     if tuple(data.shape) != (B, C, S, S, S) or data.device.type != DEVICE:
         fail(f"slice output {tuple(data.shape)} on {data.device}")
@@ -918,7 +950,8 @@ def phase_slice(torch, tio, kl, profile: str | None):
         f"headline slice: {vps:.2f} volumes/s over {TIMED} timed calls of B={B} x {S}^3"
         f" (median call {statistics.median(timed) * 1e3:.1f} ms, calls"
         f" {[round(t * 1e3, 1) for t in times]} ms, warm-up first);"
-        f" resample launches per call {[c['resample'] for c in per_call]};"
+        f" resample launches per call {[c['resample'] for c in per_call]}; threefry"
+        f" launches per call {draws} (BiasField {B}, Noise 1);"
         f" peak allocated {peak / 2**30:.2f} GiB"
     )
     if profile:
@@ -931,7 +964,7 @@ def phase_brats(torch, tio, kl, profile: str | None):
     batch = make_brats_batch(tio, torch, BRATS_B, BRATS_SHAPE, dev, 0)
     pipeline = brats_pipeline(tio)
     tio.seed(0)
-    new = ("label_vote", "bspline_prefilter", "bspline_resample")
+    new = ("label_vote", "bspline_prefilter", "bspline_resample", "threefry_normal")
     out, times, per_call, totals, peak, _ = drive(torch, kl, pipeline, batch, new)
     mri, seg = out.mri.data, out.seg.data
     if tuple(mri.shape) != (BRATS_B, BRATS_C, *BRATS_SHAPE) or mri.device.type != DEVICE:
@@ -1260,13 +1293,12 @@ def phase_coords_spline_kernel(torch, np, rs, bs, bk, kl):
     return worst
 
 
-def phase_small_kspace(torch, tio, tio_random, kl):
+def phase_small_kspace(torch, tio, kl):
     """kspace-motion-ghosting on a small batch: card against the CPU path."""
     shape = (40, 44, 48)
     before = kl.LAUNCHES["resample_coords"]
     cpu, gpu = run_on_both(
-        tio, tio_random, lambda: make_kspace_batch(tio, torch, B, shape, "cpu", 7),
-        kspace_pipeline, 10,
+        tio, lambda: make_kspace_batch(tio, torch, B, shape, "cpu", 7), kspace_pipeline, 10,
     )
     launched = kl.LAUNCHES["resample_coords"] - before
     names = [h.name for h in gpu.applied_transforms]
@@ -1428,6 +1460,224 @@ def phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl):
     return results, launches
 
 
+def config1_pipeline(tio):
+    """BASELINE.json config 1 (benchmarks/suite.py:96-111)."""
+    return tio.Compose(
+        [
+            tio.Flip(axes=(0,), flip_probability=0.5),
+            tio.Noise(std=0.1),
+            tio.RescaleIntensity(out_min=0.0, out_max=1.0),
+        ],
+        fuse=True,
+    )
+
+
+def config2_pipeline(tio):
+    """BASELINE.json config 2 (benchmarks/suite.py:145-166), unfused."""
+    return tio.Compose(
+        [
+            tio.Blur(std=(0.5, 1.5)),
+            tio.BiasField(std=0.5),
+            tio.Gamma(log_gamma=(-0.3, 0.3)),
+        ]
+    )
+
+
+#: (name, shape) of the threefry kernel's checks: draws shorter than a
+#: block, not a multiple of its 256 threads, past one grid-stride turn,
+#: and the headline's noise
+THREEFRY_SHAPES = (
+    ("one", (1,)),
+    ("255", (255,)),
+    ("257", (257,)),
+    ("odd", (3, 5, 7, 11)),
+    ("strided", (1_000_003,)),
+    ("headline", (B, C, S, S, S)),
+)
+#: a draw past 2^32 words (17 GB of each type): the 64-bit instantiation
+#: and the counter's high word; its head, the words around 2^31 and 2^32,
+#: and its tail are held against the plain version
+THREEFRY_WIDE = 2**32 + 2**20
+
+
+def threefry_keys(tr):
+    """Keys as the port derives them: PRNGKey of a seed, keys from split,
+    and words with the top bit set."""
+    return {
+        "PRNGKey(42)": tr.prng_key(42),
+        "split(PRNGKey(7), 3)[1]": tr.split(tr.prng_key(7), 3)[1],
+        "Noise image 0, k2": tr.draw_key(2**31 - 2, 2),
+        "(0xFFFFFFFF, 0x80000001)": (0xFFFFFFFF, 0x80000001),
+    }
+
+
+def phase_threefry_kernel(torch, tr, tk, kl):
+    """The threefry kernel against its plain version: words equal, normals
+    within NORMAL_ATOL."""
+    dev = torch.device(DEVICE)
+    before = {k: kl.LAUNCHES[k] for k in ("threefry_bits", "threefry_normal")}
+    worst, exact, total, cases = 0.0, 0, 0, 0
+    for key_name, key in threefry_keys(tr).items():
+        for name, shape in THREEFRY_SHAPES:
+            if name == "headline" and key_name != "PRNGKey(42)":
+                continue
+            n = math.prod(shape)
+            words = tr.bits_plain(key, 0, n, dev)
+            got = tk.threefry_bits_cuda(key, shape, dev).view(torch.int32).reshape(-1)
+            want = tr.as_uint32(words).view(torch.int32)
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            if tuple(tk.threefry_bits_cuda(key, shape, dev).shape) != shape or differ:
+                fail(f"threefry bits {key_name} {shape}: {differ} words differ")
+            normal = tk.threefry_normal_cuda(key, shape, dev).reshape(-1)
+            plain = tr.normal_of_bits(words)
+            torch.cuda.synchronize()
+            diff = (normal - plain).abs()
+            err = float(diff.max())
+            worst = max(worst, err)
+            exact += int((diff == 0).sum())
+            total += n
+            if not err <= NORMAL_ATOL:
+                fail(f"threefry normals {key_name} {shape}: max abs {err}")
+            cases += 1
+            del words, got, want, normal, plain, diff
+    torch.cuda.empty_cache()
+    grown = {k: kl.LAUNCHES[k] - before[k] for k in before}
+    if grown != {"threefry_bits": 2 * cases, "threefry_normal": cases}:
+        fail(f"{cases} threefry cases, launches {grown}")
+    # past 2^32 words: the 64-bit path carries the counter's high word
+    key = tr.prng_key(42)
+    spans = ((0, 2**20), (2**31 - 2**19, 2**20), (2**32 - 2**19, 2**20),
+             (THREEFRY_WIDE - 2**19, 2**19))
+    wide_err = 0.0
+    for kind in ("bits", "normal"):
+        if kind == "bits":
+            out = tk.threefry_bits_cuda(key, (THREEFRY_WIDE,), dev).view(torch.int32)
+        else:
+            out = tk.threefry_normal_cuda(key, (THREEFRY_WIDE,), dev)
+        for start, count in spans:
+            words = tr.bits_plain(key, start, count, dev)
+            piece = out[start : start + count]
+            if kind == "bits":
+                if not torch.equal(piece, tr.as_uint32(words).view(torch.int32)):
+                    fail(f"threefry bits past 2^31: words [{start}, {start + count}) differ")
+            else:
+                err = float((piece - tr.normal_of_bits(words)).abs().max())
+                wide_err = max(wide_err, err)
+                if not err <= NORMAL_ATOL:
+                    fail(f"threefry normals past 2^31: [{start}, +{count}) max abs {err}")
+        del out
+        torch.cuda.empty_cache()
+    print(
+        f"threefry kernel vs plain: {cases} draws (shapes"
+        f" {', '.join(name for name, _ in THREEFRY_SHAPES)}; {len(threefry_keys(tr))} keys),"
+        f" words equal; normals max abs {worst:.3g} (limit {NORMAL_ATOL}),"
+        f" {exact / total:.4%} equal; a draw of {THREEFRY_WIDE:,} words and normals (past 2^32):"
+        f" words equal, normals max abs {wide_err:.3g}; launches {grown}"
+    )
+    return max(worst, wide_err)
+
+
+def phase_threefry_timing(torch, tr, tk):
+    """The threefry kernel at the headline's noise (B x C x S^3 normals):
+    kernel against plain, then kernel against torch.randn (Philox: another
+    function, printed for scale only)."""
+    dev = torch.device(DEVICE)
+    key = tr.draw_key(2024, 1)
+    shape = (B, C, S, S, S)
+    n = math.prod(shape)
+    got = tk.threefry_normal_cuda(key, shape, dev)
+    want = tr.normal_of_bits(tr.bits_plain(key, 0, n, dev)).reshape(shape)
+    diff = (got - want).abs()
+    err, share = float(diff.max()), float((diff == 0).float().mean())
+    del got, want, diff
+    if not err <= NORMAL_ATOL:
+        fail(f"threefry normals at the headline's shape: max abs {err}")
+    order, ms, plain_ms = time_pair(
+        torch, lambda: tk.threefry_normal_cuda(key, shape, dev),
+        lambda: tr.normal_of_bits(tr.bits_plain(key, 0, n, dev)),
+    )
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn_order, _, randn_ms = time_pair(
+        torch, lambda: tk.threefry_normal_cuda(key, shape, dev),
+        lambda: torch.randn(shape, generator=gen, device=dev), plain_reps=20,
+    )
+    # reads nothing, writes 4 bytes an element
+    work = bound(4 * n, n * THREEFRY_OPS)
+    print(
+        f"threefry normals B={B} x {S}^3: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (k, p, k,"
+        f" p: {', '.join(f'{t:.3f}' for t in order)}); max abs {err:.3g}, {share:.4%} equal;"
+        f" torch.randn (Philox, not the same function) {randn_ms:.3f} ms (k, r, k, r:"
+        f" {', '.join(f'{t:.3f}' for t in randn_order)}); bound {work[0]:.3f} ms ({work[1]},"
+        f" {THREEFRY_OPS} operations an element)"
+    )
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": work,
+        "randn_ms": randn_ms,
+    }
+
+
+def phase_small_config(torch, tio, number):
+    """Config 1 or 2 on a small batch: card against the CPU path."""
+    pipeline = config1_pipeline if number == 1 else config2_pipeline
+    cpu, gpu = run_on_both(
+        tio, lambda: make_batch(tio, torch, 2, (40, 44, 48), "cpu", 20 + number),
+        pipeline, 30 + number,
+    )
+    err = float((gpu.t1.data.cpu() - cpu.t1.data).abs().max())
+    names = [h.name for h in gpu.applied_transforms]
+    print(
+        f"small config {number} (2 x 40x44x48, history {names}) cuda vs cpu: max abs"
+        f" {err:.3g} (limit {SLICE_ATOL})"
+    )
+    if not err <= SLICE_ATOL:
+        fail(f"small config {number} differs from the CPU path by {err}")
+
+
+def phase_config(torch, tio, kl, number, profile: str | None):
+    """config1-flip-noise-rescale (B=4 x 1 x 181x217x181, fused) or
+    config2-blur-bias-gamma (B=4 x 1 x 256^3, unfused)."""
+    dev = torch.device(DEVICE)
+    if number == 1:
+        name, shape, pipeline = "config1-flip-noise-rescale", CONFIG1_SHAPE, config1_pipeline(tio)
+        want_names = [["Flip", "Noise", "Normalize"], ["Noise", "Normalize"]]
+    else:
+        name, shape, pipeline = "config2-blur-bias-gamma", (S, S, S), config2_pipeline(tio)
+        want_names = [["Blur", "BiasField", "Gamma"]]
+    batch = make_batch(tio, torch, B, shape, dev, number)
+    tio.seed(0)
+    out, times, per_call, totals, peak, histories = drive(
+        torch, kl, pipeline, batch, ("threefry_normal",)
+    )
+    data = out.t1.data
+    if tuple(data.shape) != (B, C, *shape) or data.device.type != DEVICE:
+        fail(f"{name} output {tuple(data.shape)} on {data.device}")
+    if not bool(torch.isfinite(data).all()):
+        fail(f"{name} output has non-finite values")
+    if any(h not in want_names for h in histories):
+        fail(f"{name} histories {histories}")
+    if number == 1:
+        low, high = float(data.min()), float(data.max())
+        if low < 0.0 or high > 1.0:
+            fail(f"{name} output spans [{low}, {high}], not [0, 1]")
+        in_range = out.applied_transforms[-1].params["in_ranges"]["t1"]
+        extra = f"; output in [{low:.3g}, {high:.3g}], the input range {in_range}"
+    else:
+        extra = ""
+    timed = times[WARMUP:]
+    vps = B * TIMED / sum(timed)
+    print(
+        f"{name}: {vps:.2f} volumes/s over {TIMED} timed calls of B={B} x"
+        f" {'x'.join(map(str, shape))} (median call {statistics.median(timed) * 1e3:.1f} ms,"
+        f" calls {[round(t * 1e3, 1) for t in times]} ms, warm-up first); threefry launches"
+        f" per call {[c['threefry_normal'] for c in per_call]}; histories"
+        f" {[len(h) for h in histories]} transforms; peak allocated {peak / 2**30:.2f} GiB{extra}"
+    )
+    if profile:
+        profile_calls(torch, pipeline, batch, profile, name)
+    return totals
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -1444,11 +1694,12 @@ def main() -> int:
 
     import torchio_tpu_torch as tio
     from torchio_tpu_torch import config
-    from torchio_tpu_torch import random as tio_random
+    from torchio_tpu_torch import random as tr
     from torchio_tpu_torch.ops import bspline as bs
     from torchio_tpu_torch.ops import bspline_kernel as bk
     from torchio_tpu_torch.ops import kernel_lib as kl
     from torchio_tpu_torch.ops import resample_kernel as rk
+    from torchio_tpu_torch.ops import threefry_kernel as tk
 
     # the ops package exports the function ``resample`` under its module's name
     rs = importlib.import_module("torchio_tpu_torch.ops.resample")
@@ -1465,18 +1716,24 @@ def main() -> int:
     phase_spline_kernel(torch, np, rs, bs, bk, kl)
     phase_coords_kernel(torch, np, rs, rk, kl)
     phase_coords_spline_kernel(torch, np, rs, bs, bk, kl)
-    phase_small_slice(torch, tio, tio_random)
-    phase_small_labelled(torch, np, tio, tio_random, rs)
-    phase_small_kspace(torch, tio, tio_random, kl)
+    phase_threefry_kernel(torch, tr, tk, kl)
+    phase_small_slice(torch, tio)
+    phase_small_labelled(torch, np, tio, rs)
+    phase_small_kspace(torch, tio, kl)
+    phase_small_config(torch, tio, 1)
+    phase_small_config(torch, tio, 2)
     phase_host_subject(torch, np, tio, kl)
     headline_launches = phase_slice(torch, tio, kl, args.profile)
     brats_launches, brats_batch = phase_brats(torch, tio, kl, args.profile)
     kspace_launches = phase_kspace(torch, tio, kl, args.profile)
+    config1_launches = phase_config(torch, tio, kl, 1, args.profile)
+    config2_launches = phase_config(torch, tio, kl, 2, args.profile)
     timings = {"resample": phase_kernel_timing(torch, np, tio, rs, rk)}
     timings.update(phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch))
     del brats_batch
     dense, dense_launches = phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl)
     timings.update(dense)
+    timings["threefry_normal"] = phase_threefry_timing(torch, tr, tk)
     window = "torchio_tpu/ops/window_resample.py:335"
     launches = {
         "resample": headline_launches["resample"],
@@ -1485,6 +1742,13 @@ def main() -> int:
         "bspline_resample": brats_launches["bspline_resample"],
         "resample_coords": kspace_launches["resample_coords"],
         "bspline_coords": dense_launches["bspline_coords"],
+        "threefry_normal": headline_launches["threefry_normal"],
+    }
+    threefry_paths = {
+        "headline": headline_launches["threefry_normal"],
+        "brats-label-bspline": brats_launches["threefry_normal"],
+        "config1-flip-noise-rescale": config1_launches["threefry_normal"],
+        "config2-blur-bias-gamma": config2_launches["threefry_normal"],
     }
     kernels = [
         {
@@ -1533,6 +1797,23 @@ def main() -> int:
             "note": "dense-coordinate mode; the JAX package's dense bspline_resample"
             " (torchio_tpu/ops/bspline.py:215) is an XLA gather",
             "path": "dense-entry",
+        },
+        {
+            "name": "threefry_normal",
+            "route": "cuda",
+            "source": "torchio_tpu_torch/csrc/threefry.cu",
+            "replaces": "torchio_tpu/transforms/fuse.py:197",
+            "also_replaces": [
+                "torchio_tpu/transforms/fuse.py:195",
+                "torchio_tpu/transforms/intensity/noise.py:121",
+                "torchio_tpu/transforms/intensity/bias_field.py:42",
+                "torchio_tpu/transforms/intensity/bias_field.py:65",
+            ],
+            "note": "jax.random.normal (threefry2x32, Giles' erf_inv) is XLA in the JAX"
+            " package, no Pallas kernel; launches on the headline, per path:"
+            f" {threefry_paths}; torch.randn (Philox, not the same function)"
+            f" {timings['threefry_normal']['randn_ms']:.3f} ms",
+            "path": "headline",
         },
     ]
     for entry in kernels:

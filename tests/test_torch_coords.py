@@ -277,7 +277,7 @@ def test_dense_kernel_wrappers_reject_cpu_tensors():
 
 
 def test_ops_exports_follow_the_jax_package():
-    assert set(tops.__all__) == set(jops.__all__) - {"gaussian_blur", "gaussian_blur_per_element"}
+    assert set(tops.__all__) == set(jops.__all__)
     upsampled = tops.upsample_field(np.ones((4, 4, 4, 3), np.float32), (7, 5, 9))
     np.testing.assert_array_equal(
         upsampled.numpy(), np.asarray(jops.upsample_field(jnp.ones((4, 4, 4, 3)), (7, 5, 9)))

@@ -1,11 +1,10 @@
 """Port parity: BiasField and Noise against the JAX package.
 
-Both packages draw the same parameters from the same ``seed``. The device
-normals differ by design (``torch.Generator`` against ``jax.random``), so
-the port's one device draw, ``torchio_tpu_torch.random.device_normal``,
-is replaced by :func:`jax_device_normal`, which derives the JAX package's
-keys from the same arguments. Outputs then agree within rtol 1e-5,
-atol 1e-6 (exp and the lerps round differently in XLA and torch).
+Both packages draw the same parameters from the same ``seed``, and the
+same device normals: the port's ``torchio_tpu_torch.random.device_normal``
+derives the JAX package's threefry keys (``tests/test_torch_random.py``).
+Outputs agree within rtol 1e-5, atol 1e-6 (exp, the lerps and erf_inv's
+log1p round differently in XLA and torch).
 """
 
 from __future__ import annotations
@@ -32,25 +31,6 @@ def host_data_on_cpu():
     previous = tt.set_default_device("cpu")
     yield
     tt.set_default_device(previous)
-
-
-def jax_device_normal(seed, shape, device, index):
-    """The JAX package's draw ``index`` of ``seed``: index 0 is
-    ``PRNGKey(seed)`` itself (BiasField); Noise image ``n`` splits the key
-    ``n + 1`` times and takes ``k1`` (index ``2n + 1``) or ``k2``
-    (index ``2n + 2``)."""
-    key = jax.random.PRNGKey(seed)
-    if index > 0:
-        for _ in range((index - 1) // 2 + 1):
-            key, k1, k2 = jax.random.split(key, 3)
-        key = k1 if index % 2 == 1 else k2
-    normal = np.array(jax.random.normal(key, tuple(shape), jnp.float32))
-    return torch.as_tensor(normal, device=device)
-
-
-@pytest.fixture
-def jax_normals(monkeypatch):
-    monkeypatch.setattr(tt.random, "device_normal", jax_device_normal)
 
 
 def block_labels(rng, spatial, block=4):
@@ -127,7 +107,7 @@ TRANSFORMS = {
 
 @pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
 @pytest.mark.parametrize("name", list(TRANSFORMS))
-def test_matches_jax(name, fuse, jax_normals):
+def test_matches_jax(name, fuse):
     jax_batch, port_batch = make_batches(b=4 if "gated" in name else 2)
     jax_out, port_out = run_both(TRANSFORMS[name], jax_batch, port_batch, fuse=fuse)
     if "gated" in name:
@@ -136,7 +116,7 @@ def test_matches_jax(name, fuse, jax_normals):
     assert_same(jax_out, port_out)
 
 
-def test_noise_draws_follow_image_order(jax_normals):
+def test_noise_draws_follow_image_order():
     """Two images: the second takes the key after the first's split."""
     jax_batch, port_batch = make_batches(names=("t1", "t2"))
     jax_out, port_out = run_both(

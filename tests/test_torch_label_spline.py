@@ -34,7 +34,7 @@ import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 import torchio_tpu.config as jax_config
 import torchio_tpu as tj
 import torchio_tpu_torch as tt
-from test_torch_intensity import block_labels, jax_device_normal, make_batches
+from test_torch_intensity import block_labels, make_batches
 from test_torch_resample import _rot
 from torchio_tpu.ops.resample import _resample_element_label
 from torchio_tpu.ops.shear_resample import shear_eligible, shear_resample_label_fused
@@ -293,8 +293,7 @@ def _label_ties_from_history(port_out, seg_in, name="seg"):
 @pytest.mark.parametrize(
     "interpolation", ["bspline", 2, 3, "fourth", 5, "sixth", 7],
 )
-def test_labelled_slice_matches_jax(interpolation, monkeypatch):
-    monkeypatch.setattr(tt.random, "device_normal", jax_device_normal)
+def test_labelled_slice_matches_jax(interpolation):
     jax_batch, port_batch = make_batches(b=2, shape=SHAPE, seed=1, names=("mri",),
                                          labels=("seg",))
     seg_in = port_batch.seg.data.numpy()
@@ -357,8 +356,7 @@ def test_multichannel_label_map_matches_jax():
 
 
 @pytest.mark.parametrize("make", ["affine", "elastic"])
-def test_wrappers_take_label_and_spline_modes(make, monkeypatch):
-    monkeypatch.setattr(tt.random, "device_normal", jax_device_normal)
+def test_wrappers_take_label_and_spline_modes(make):
     jax_batch, port_batch = make_batches(b=2, shape=(1, *SHAPE[1:]), seed=3,
                                          names=("t1",), labels=("seg",))
     outs = []

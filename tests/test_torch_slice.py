@@ -5,10 +5,10 @@ BiasField(std=0.5), Noise(std=0.1)], fuse=...)`` runs in both packages
 from the same ``seed`` on the same numpy volumes, at a small size:
 
 - the recorded history params are EQUAL, key for key;
-- the outputs agree within atol 1e-4, with the port's device normals
-  replaced by the JAX package's (``jax_device_normal``); once with the
-  JAX package on its XLA gather, once with its Pallas shear kernels in
-  interpret mode;
+- the outputs agree within atol 1e-4, each package with its own device
+  normals (the port derives the JAX package's threefry keys); once with
+  the JAX package on its XLA gather, once with its Pallas shear kernels
+  in interpret mode;
 - the JAX package's recorded params replay through the port's
   ``apply_transform`` to the same result;
 - elements gated out by per-instance ``p`` stay bit-exact.
@@ -29,7 +29,7 @@ import cpu_warmup  # noqa: F401  (warms PyTorch's CPU thread pool at import)
 import torchio_tpu as tj
 import torchio_tpu.config as jax_config
 import torchio_tpu_torch as tt
-from test_torch_intensity import jax_device_normal, make_batches
+from test_torch_intensity import make_batches
 from torchio_tpu_torch.ops.resample import upsample_volume
 
 SLICE_ATOL = 1e-4
@@ -71,11 +71,6 @@ def exact_jax_gather(gather16_leak, monkeypatch):
 pytestmark = pytest.mark.filterwarnings("ignore:The maximum displacement")
 
 
-@pytest.fixture
-def jax_normals(monkeypatch):
-    monkeypatch.setattr(tt.random, "device_normal", jax_device_normal)
-
-
 def headline(pkg, fuse=True, p=1.0):
     return pkg.Compose(
         [
@@ -105,7 +100,7 @@ def assert_same_history(jax_out, port_out):
     [(True, "gather"), (False, "gather"), (True, "interpret")],
     ids=["fused-gather", "unfused-gather", "fused-interpret"],
 )
-def test_headline_matches_jax(fuse, jax_path, jax_normals, monkeypatch):
+def test_headline_matches_jax(fuse, jax_path, monkeypatch):
     shear_calls = []
     if jax_path == "interpret":
         import torchio_tpu.ops.shear_resample as sr
@@ -139,7 +134,7 @@ def assert_headline_matches_jax(fuse, shape):
 
 
 @pytest.mark.parametrize("gather16_leak", ["1"], indirect=True)
-def test_jax_reference_ignores_a_leaked_gather16(gather16_leak, jax_normals):
+def test_jax_reference_ignores_a_leaked_gather16(gather16_leak):
     """A float16 gather switched on earlier in the process (as importing
     ``bench.py`` does) does not reach the reference the port is held to."""
     assert not jax_config.gather16()
@@ -201,7 +196,7 @@ def test_fused_and_unfused_port_agree():
     assert torch.equal(outs[0].t1.data, outs[1].t1.data)
 
 
-def test_jax_params_replay_through_the_port(jax_normals):
+def test_jax_params_replay_through_the_port():
     """Plain JSON params recorded by the JAX package drive the port's
     ``apply_transform`` to the same result."""
     jax_batch, port_batch = make_batches(b=2, shape=SHAPE, seed=5)

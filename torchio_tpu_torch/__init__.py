@@ -9,11 +9,14 @@ packages draw identical parameters from the same :func:`seed`.
 It covers the headline augmentation pipeline,
 ``Compose([Spatial(...), BiasField(...), Noise(...)], fuse=True)``, with
 every interpolation of ``Spatial`` (nearest, linear, B-spline orders 2-7
-and the partial-volume "label" mode), and the MRI-artifact pair
-``Compose([Motion(...), Ghosting(...)])``. On a CUDA batch the resampling
-runs in hand-written CUDA kernels (``csrc/``); on a CPU batch in their
-plain PyTorch versions. The dense-coordinate entry (``ops.resample``,
-``ops.build_coords``) serves Motion's rigid moves.
+and the partial-volume "label" mode); the MRI-artifact pair
+``Compose([Motion(...), Ghosting(...)])``; and Flip,
+Normalize/RescaleIntensity, Blur and Gamma. On a CUDA batch the
+resampling and the random fields run in hand-written CUDA kernels
+(``csrc/``); on a CPU batch in their plain PyTorch versions. The random
+fields are ``jax.random``'s own threefry draws, so one seed gives the
+JAX package's noise and bias fields. The dense-coordinate entry
+(``ops.resample``, ``ops.build_coords``) serves Motion's rigid moves.
 
 Host data (numpy arrays) given to an image, a subject, or a transform's
 ndarray or dict entry lands on the card; :func:`set_default_device`
@@ -30,12 +33,17 @@ from .random import seed
 from .transforms import (
     Affine,
     BiasField,
+    Blur,
     Choice,
     Compose,
     ElasticDeformation,
+    Flip,
+    Gamma,
     Ghosting,
     Motion,
     Noise,
+    Normalize,
+    RescaleIntensity,
     Spatial,
 )
 
@@ -43,14 +51,19 @@ __all__ = [
     "Affine",
     "AffineMatrix",
     "BiasField",
+    "Blur",
     "Choice",
     "Compose",
     "ElasticDeformation",
+    "Flip",
+    "Gamma",
     "Ghosting",
     "ImagesBatch",
     "LabelMap",
     "Motion",
     "Noise",
+    "Normalize",
+    "RescaleIntensity",
     "ScalarImage",
     "Spatial",
     "Subject",

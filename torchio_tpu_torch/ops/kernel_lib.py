@@ -44,6 +44,7 @@ FLAGS = (
 LIBRARIES: list["KernelLibrary"] = []
 
 P, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+U32 = ctypes.c_uint32
 
 
 def reset_launches() -> None:
@@ -137,7 +138,7 @@ class KernelLibrary:
 def build_all() -> list[KernelLibrary]:
     """Compile every library not built yet, all ``nvcc`` processes at
     once, then load them all. Returns the libraries."""
-    from . import bspline_kernel, resample_kernel  # noqa: F401  (they register)
+    from . import bspline_kernel, resample_kernel, threefry_kernel  # noqa: F401  (they register)
 
     pending = []
     for library in LIBRARIES:

@@ -18,8 +18,9 @@ class Compose(Transform):
     """Apply transforms sequentially (one deep copy up front).
 
     With ``fuse=True``, consecutive elementwise transforms (anything
-    providing :meth:`Transform.fused_stage`: Noise and BiasField in this
-    package) run as one chain through :func:`.fuse.run_fused`; results
+    providing :meth:`Transform.fused_stage`: Flip, Noise, BiasField,
+    Normalize, Gamma and the per-instance Blur in this package) run as
+    one chain through :func:`.fuse.run_fused`; results
     and recorded history are identical to unfused execution (same host
     RNG stream). Transforms with host geometry (Spatial) break the run.
     """

@@ -1,7 +1,8 @@
 """Fused elementwise transform chains.
 
 Counterpart of ``torchio_tpu/transforms/fuse.py`` for the families this
-package has: Noise and BiasField. ``Compose(..., fuse=True)`` collects
+package has: Flip, Noise, BiasField, Normalize/RescaleIntensity, Gamma
+and the per-instance Blur. ``Compose(..., fuse=True)`` collects
 consecutive elementwise transforms into one chain. In the JAX package
 the chain is one jit-compiled program; here it runs eagerly, stage by
 stage, and keeps the contract that matters to users:
@@ -9,10 +10,13 @@ stage, and keeps the contract that matters to users:
 - eligibility is decided WITHOUT consuming RNG (the caller draws the
   p-gate coin between the check and the build, exactly like
   ``Transform.forward``);
-- the build calls ``make_params`` verbatim, so the host RNG stream and
-  the recorded history are identical to unfused execution;
+- the build calls ``make_params`` (or draws in its order), so the host
+  RNG stream and the recorded history are identical to unfused
+  execution;
 - every apply mirrors the unfused arithmetic op for op (gated-out
-  elements bit-exact).
+  elements bit-exact); statistics computed on the device come back as
+  the apply's aux output, and the stage's ``finish`` puts them into the
+  history as :class:`DeferredParam` entries.
 """
 
 from __future__ import annotations
@@ -22,8 +26,11 @@ from typing import Any, Callable
 
 import torch
 
+import numpy as np
+import torch
+
 from .. import random as tio_random
-from .transform import Transform, record_history
+from .transform import DeferredParam, Transform, record_history
 
 
 @dataclass
@@ -32,12 +39,14 @@ class FusedStage:
 
     #: names of the images the stage reads and writes
     names: tuple[str, ...]
-    #: ``(datas, args) -> datas`` on the batch's tensors
+    #: ``(datas, args) -> (datas, aux)`` on the batch's tensors
     apply: Callable
-    #: the stage's tensor arguments
+    #: the stage's arguments
     args: Any
-    #: history params (JSON values)
+    #: history params (JSON values; aux-backed entries filled by finish)
     params: dict
+    #: optional ``(aux, params) -> None`` run after the chain
+    finish: Callable | None = None
 
 
 def run_fused(batch, stages: list[tuple[Transform, FusedStage]]):
@@ -46,11 +55,15 @@ def run_fused(batch, stages: list[tuple[Transform, FusedStage]]):
         return batch
     names = sorted({n for _, s in stages for n in s.names})
     datas = {n: batch.images[n].data for n in names}
+    auxes = []
     for _, stage in stages:
-        datas = stage.apply(datas, stage.args)
+        datas, aux = stage.apply(datas, stage.args)
+        auxes.append(aux)
     for n in names:
         batch.images[n].data = datas[n]
-    for transform, stage in stages:
+    for (transform, stage), aux in zip(stages, auxes):
+        if stage.finish is not None:
+            stage.finish(aux, stage.params)
         record_history(batch, transform, stage.params)
     return batch
 
@@ -92,7 +105,7 @@ def noise_apply(names: tuple[str, ...], rician: bool, gated: bool):
                 mask = keep.reshape((-1,) + (1,) * (data.ndim - 1))
                 res = torch.where(mask > 0.5, res, data.to(res.dtype))
             out[nm] = res
-        return out
+        return out, None
 
     return apply
 
@@ -108,7 +121,7 @@ def bias_apply(
 
     def apply(datas, args):
         if all_identity:
-            return datas
+            return datas, None
         out = dict(datas)
         stds, seeds, keep = args
         for nm in names:
@@ -121,6 +134,101 @@ def bias_apply(
             else:
                 res = bias_shared(data, stds, seeds, scale, False)
             out[nm] = res
-        return out
+        return out, None
 
     return apply
+
+
+def flip_static_apply(names: tuple[str, ...], dims: tuple[int, ...]):
+    def apply(datas, args):
+        if not dims:
+            return datas, None
+        return {**datas, **{nm: torch.flip(datas[nm], dims) for nm in names}}, None
+
+    return apply
+
+
+def flip_per_element_apply(names: tuple[str, ...]):
+    from .spatial.flip import flip_per_element
+
+    def apply(datas, flags):
+        return {**datas, **{nm: flip_per_element(datas[nm], flags) for nm in names}}, None
+
+    return apply
+
+
+def gamma_apply(names: tuple[str, ...]):
+    from .intensity.gamma import gamma_pow
+
+    def apply(datas, log_gamma):
+        return {**datas, **{nm: gamma_pow(datas[nm], log_gamma) for nm in names}}, None
+
+    return apply
+
+
+def blur_apply(names: tuple[str, ...], truncate: float):
+    """Per-element blur; ``args[name]`` is (B, 3) voxel sigmas, the static
+    radii and the rows that blur (the others stay bit-exact)."""
+    from ..ops.gaussian import blur_per_element
+    from ._utils import restore_gated
+
+    def apply(datas, args):
+        out = dict(datas)
+        for nm in names:
+            sig_vox, radii, row_keep = args[nm]
+            if not row_keep.any():
+                continue
+            data = out[nm]
+            sig = torch.as_tensor(sig_vox.astype(np.float32), device=data.device)
+            res = blur_per_element(data, sig, radii, truncate).to(data.dtype)
+            out[nm] = restore_gated(res, data, row_keep)
+        return out, None
+
+    return apply
+
+
+def normalize_apply(names: tuple[str, ...], percentiles: tuple[float, float] | None):
+    """Rescale with the explicit input range of ``params`` (percentiles
+    None) or with the percentiles of each image's first element, computed
+    here on the device and returned as aux (deferred pairs)."""
+    from .intensity.normalize import range_pair, rescale
+
+    def apply(datas, params):
+        out = dict(datas)
+        aux = {}
+        for nm in names:
+            data = out[nm]
+            if percentiles is None:
+                bounds = (params["in_min"], params["in_max"])
+            else:
+                flat = data[0].to(torch.float32).reshape(-1)
+                bounds = DeferredParam(range_pair(flat, *percentiles), finalize_range_warn(nm))
+                aux[nm] = bounds
+            res = rescale(data, bounds, params["out_min"], params["out_max"], nm)
+            if res is not None:
+                out[nm] = res
+        return out, aux
+
+    return apply
+
+
+def finalize_range_warn(name: str):
+    """Host finalizer of a deferred (low, high) pair: warns on a zero
+    range."""
+    import warnings
+
+    def finalize(host: np.ndarray) -> tuple[float, float]:
+        low, high = float(host[0]), float(host[1])
+        if high - low == 0:
+            warnings.warn(
+                f'Cannot rescale "{name}": input range is zero.',
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        return (low, high)
+
+    return finalize
+
+
+def install_range_params(aux: dict, params: dict) -> None:
+    params["in_ranges"] = dict(aux)

@@ -7,8 +7,9 @@ element when batched, so the exact field regenerates.
 
 Fields are drawn on the batch's device through
 :func:`torchio_tpu_torch.random.device_normal` (draw index 0 of the
-recorded seed). The upsample, ``exp`` and multiply are plain torch ops,
-as the JAX package leaves them to XLA.
+recorded seed: ``PRNGKey(seed)``, the JAX package's own field). The
+upsample, ``exp`` and multiply are plain torch ops, as the JAX package
+leaves them to XLA.
 """
 
 from __future__ import annotations

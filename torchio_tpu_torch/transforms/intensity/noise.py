@@ -6,9 +6,10 @@ magnitude noise, gated-out rows restored bit-exactly (the Rician map is
 not the identity at zero noise).
 
 The noise field is drawn on the batch's device through
-:func:`torchio_tpu_torch.random.device_normal` from the recorded seed;
+:func:`torchio_tpu_torch.random.device_normal` from the recorded seed:
 image ``n`` of the batch takes draw ``2 n + 1`` (and ``2 n + 2`` for the
-second Rician field), in the order the JAX package splits its key.
+second Rician field), the keys the JAX package splits for it, so the
+field is the JAX package's own (the threefry kernel on a card).
 """
 
 from __future__ import annotations
