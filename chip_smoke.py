@@ -39,7 +39,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the plain version's on draws that do not fill the last block, a
      4 x 256^3 draw, keys from split, and a draw past 2^32 words (the
      counter's high word); its normals within 1e-6 (log1pf rounds
-     differently on the card), with the share of exact matches;
+     differently on the card), with the share of exact matches; its
+     segmented draws (one launch for a list of draws: one segment,
+     BiasField's 4 fields of 216 and of 576 normals times scales with 0
+     and a negative one, segments of 1, 3 and 5 at unaligned offsets,
+     cap + 1 segments in two launches, a Rician pair at 4 x 256^3) with
+     words equal to the plain version's and normals equal to the kernel's
+     separate draws times their scales;
 4. small batches on the card against the CPU path, the card drawing its
    noise and bias fields with the threefry kernel and the CPU with the
    plain version: the headline (1e-4), the labelled BraTS-style pipeline
@@ -65,8 +71,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    float32, the same way; the output must lie in [0, 1];
 9. config2-blur-bias-gamma: BASELINE.json config 2, ``Compose([Blur(
    std=(0.5, 1.5)), BiasField(std=0.5), Gamma(log_gamma=(-0.3, 0.3))])``
-   (unfused) on B=4 x 1 x 256^3 float32, the same way; every path's
-   Noise and BiasField must launch the threefry kernel in every call;
+   (unfused) on B=4 x 1 x 256^3 float32, the same way; every path must
+   launch the threefry kernel THREEFRY_LAUNCHES times a call (BiasField's
+   per-element fields in one launch, Noise's draw in one);
 10. each kernel against its plain version at its path's shape, timed
    kernel, plain, kernel, plain with CUDA events (the dense resample
    also against ``F.grid_sample``, its one-call library equivalent at a
@@ -77,7 +84,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    user calls them, with the launch counts zeroed around the calls; the
    threefry kernel at the headline's noise (B=4 x 1 x 256^3 normals),
    beside ``torch.randn`` of the same shape (Philox, another function:
-   printed for scale, not as the library equivalent).
+   printed for scale, not as the library equivalent), with its main
+   loop's SASS instructions an element (``cuobjdump -sass``) and the
+   issue limit they set at the maximum SM clock (a model).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches on its path, its error against the plain version, its time, the
@@ -125,6 +134,15 @@ KERNELS = (
 #: threefry's normals: the kernel against the plain version (the bits
 #: are held equal)
 NORMAL_ATOL = 1e-6
+#: threefry launches a call of each path: BiasField draws all of a
+#: batch's per-element fields in one launch (a shared field too), Noise
+#: one (a Rician pair too)
+THREEFRY_LAUNCHES = {
+    "headline": 2,
+    "brats-label-bspline": 2,
+    "config1-flip-noise-rescale": 1,
+    "config2-blur-bias-gamma": 1,
+}
 #: operations a threefry normal takes: 2 counter adds, 20 rounds of add,
 #: rotate and xor, 5 key injections of 2 adds, the final xor (73 integer
 #: operations); the mantissa's shift and or; the uniform's subtract,
@@ -137,6 +155,20 @@ THREEFRY_OPS = 73 + 2 + 4 + (1 + 1 + 1 + 2 + 1 + 1 + 9 + 16 + 2 + 1 + 1) + 1
 #: float32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+#: an H100's issue width: SMs, warp schedulers an SM (one warp
+#: instruction a clock each), lanes a warp, and lanes of a scheduler's
+#: integer ALU pipe
+SMS, SCHEDULERS, LANES, ALU_LANES = 132, 4, 32, 16
+#: SASS opcodes (without modifiers) the integer ALU pipe issues, and those
+#: the FMA pipe issues (IMAD included)
+SASS_ALU = (
+    "IADD3", "LOP3", "SHF", "ISETP", "FSETP", "FSEL", "SEL", "FMNMX", "IMNMX", "LEA", "PRMT",
+    "IABS", "FLO", "POPC", "BMSK", "SGXT", "LOP", "MOV", "P2R", "R2P", "PLOP3", "VIADD",
+)
+SASS_FMA = ("IMAD", "FADD", "FMUL", "FFMA", "FCHK", "I2F", "F2I", "IMUL")
+#: threefry::segments_kernel<true, unsigned int>: the normals kernel of
+#: csrc/threefry.cu below 2^31 elements
+THREEFRY_SASS_KERNEL = "_ZN8threefry15segments_kernelILb1EjEEvPvNS_5TableE"
 
 
 def fail(message: str) -> None:
@@ -224,6 +256,111 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_F32_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` output: {mangled function: [(address, opcode,
+    operands, predicated)]}."""
+    import re
+
+    functions, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = functions.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if m and current is not None:
+            current.append((int(m.group(1), 16), m.group(3), m.group(4).strip(),
+                            bool(m.group(2))))
+    return functions
+
+
+def loop_profile(code) -> dict:
+    """A kernel's main loop (the largest region a backward branch closes)
+    per element it stores (a 128-bit store is four): its instructions in
+    all, and on the hot path, by pipe (``alu``, ``fma``, ``mufu``,
+    ``other``) and by opcode. The hot path leaves out the code a forward
+    branch skips where it stores nothing (a rare case), and the arm of an
+    if/else that holds a MUFU or a CALL (erf_inv's tail, sqrt's slow path),
+    where the other arm does not."""
+    import collections
+    import re
+
+    def target(op, args):
+        m = re.match(r"(0x[0-9a-f]+)", args)
+        return int(m.group(1), 16) if op.startswith("BRA") and m else None
+
+    first, last = 0, 0
+    for addr, op, args, _ in code:
+        t = target(op, args)
+        if t is not None and t < addr and addr - t > last - first:
+            first, last = t, addr
+    loop = [ins for ins in code if first <= ins[0] <= last]
+    at = {ins[0]: i for i, ins in enumerate(loop)}
+
+    def span(lo, hi):
+        return [ins[1] for ins in loop if lo <= ins[0] < hi]
+
+    def rare(ops):
+        return any(op.startswith(("MUFU", "CALL")) for op in ops)
+
+    cold = set()
+    for addr, op, args, predicated in loop:
+        t = target(op, args)
+        if t is None or t <= addr or not predicated or t - 16 not in at:
+            continue
+        _, before_op, before_args, before_pred = loop[at[t - 16]]
+        join = target(before_op, before_args)
+        if join is not None and join > t and not before_pred:
+            then_arm, else_arm = span(addr + 16, t), span(t, join)
+            if rare(then_arm) and not rare(else_arm):
+                cold.add((addr + 16, t))
+            elif rare(else_arm) and not rare(then_arm):
+                cold.add((t, join))
+        elif not any(o.startswith("STG") for o in span(addr + 16, t)):
+            cold.add((addr + 16, t))
+    hot = [ins for ins in loop if not any(lo <= ins[0] < hi for lo, hi in cold)]
+    elements = sum(4 if ".128" in op else 2 if ".64" in op else 1
+                   for _, op, _, _ in loop if op.startswith("STG"))
+    if not elements:
+        fail("no store in the kernel's main loop")
+
+    def pipe(op):
+        if op in SASS_ALU:
+            return "alu"
+        if op in SASS_FMA:
+            return "fma"
+        return "mufu" if op == "MUFU" else "other"
+
+    def per_element(counter):
+        return {k: v / elements for k, v in counter.most_common()}
+
+    ops = [ins[1].split(".")[0] for ins in hot]
+    return {
+        "per_element": len(loop) / elements,
+        "hot_per_element": len(hot) / elements,
+        "pipes": per_element(collections.Counter(map(pipe, ops))),
+        "ops": per_element(collections.Counter(ops)),
+    }
+
+
+def sass_of(config, library: Path) -> dict:
+    """{mangled function: its SASS} of a built library."""
+    cuobjdump = Path(config.nvcc()).with_name("cuobjdump")
+    return sass_functions(subprocess.run(
+        [str(cuobjdump), "-sass", str(library)], capture_output=True, text=True, check=True
+    ).stdout)
+
+
+def issue_limits(profile: dict, n: int, clock_mhz: float) -> tuple[float, float]:
+    """(issue limit, ALU pipe limit) in ms of ``n`` elements at
+    ``profile``'s hot-path instructions an element: every instruction at
+    one a scheduler a clock, and the ALU's over its 16 lanes."""
+    hz = clock_mhz * 1e6
+    issue = profile["hot_per_element"] * n / (SMS * SCHEDULERS * LANES * hz) * 1e3
+    alu = profile["pipes"].get("alu", 0.0) * n / (SMS * SCHEDULERS * ALU_LANES * hz) * 1e3
+    return issue, alu
 
 
 def nbytes(*tensors) -> int:
@@ -932,10 +1069,11 @@ def phase_slice(torch, tio, kl, profile: str | None):
     out, times, per_call, totals, peak, _ = drive(
         torch, kl, pipeline, batch, ("resample", "threefry_normal")
     )
-    # BiasField draws one coarse field per element, Noise one volume
+    # BiasField draws its B coarse fields in one launch, Noise one volume
     draws = [c["threefry_normal"] for c in per_call]
-    if any(d != B + 1 for d in draws):
-        fail(f"headline threefry launches per call {draws}, expected {B + 1}")
+    if any(d != THREEFRY_LAUNCHES["headline"] for d in draws):
+        fail(f"headline threefry launches per call {draws}, expected"
+             f" {THREEFRY_LAUNCHES['headline']}")
     data = out.t1.data
     if tuple(data.shape) != (B, C, S, S, S) or data.device.type != DEVICE:
         fail(f"slice output {tuple(data.shape)} on {data.device}")
@@ -951,7 +1089,7 @@ def phase_slice(torch, tio, kl, profile: str | None):
         f" (median call {statistics.median(timed) * 1e3:.1f} ms, calls"
         f" {[round(t * 1e3, 1) for t in times]} ms, warm-up first);"
         f" resample launches per call {[c['resample'] for c in per_call]}; threefry"
-        f" launches per call {draws} (BiasField {B}, Noise 1);"
+        f" launches per call {draws} (BiasField 1 for its {B} fields, Noise 1);"
         f" peak allocated {peak / 2**30:.2f} GiB"
     )
     if profile:
@@ -966,6 +1104,10 @@ def phase_brats(torch, tio, kl, profile: str | None):
     tio.seed(0)
     new = ("label_vote", "bspline_prefilter", "bspline_resample", "threefry_normal")
     out, times, per_call, totals, peak, _ = drive(torch, kl, pipeline, batch, new)
+    draws = [c["threefry_normal"] for c in per_call]
+    if any(d != THREEFRY_LAUNCHES["brats-label-bspline"] for d in draws):
+        fail(f"brats threefry launches per call {draws}, expected"
+             f" {THREEFRY_LAUNCHES['brats-label-bspline']}")
     mri, seg = out.mri.data, out.seg.data
     if tuple(mri.shape) != (BRATS_B, BRATS_C, *BRATS_SHAPE) or mri.device.type != DEVICE:
         fail(f"brats mri output {tuple(mri.shape)} on {mri.device}")
@@ -1575,10 +1717,78 @@ def phase_threefry_kernel(torch, tr, tk, kl):
         f" {exact / total:.4%} equal; a draw of {THREEFRY_WIDE:,} words and normals (past 2^32):"
         f" words equal, normals max abs {wide_err:.3g}; launches {grown}"
     )
-    return max(worst, wide_err)
+    return max(worst, wide_err, phase_threefry_segments(torch, tr, tk, kl))
 
 
-def phase_threefry_timing(torch, tr, tk):
+def threefry_segment_cases(tr, tk):
+    """(name, keys, counts, scales) of the segmented kernel's checks."""
+    keys = threefry_keys(tr)
+    fields = [tr.draw_key(seed, 0) for seed in (3, 99, 2**31 - 2, 12345)]
+    stds = [0.5, 0.0, -1.25, 0.3]
+    many = tr.split(tr.prng_key(7), tk.MAX_SEGMENTS + 1)
+    n = B * C * S**3
+    return (
+        ("one segment", [keys["PRNGKey(42)"]], [1_000_003], None),
+        (f"BiasField {B} x 216", fields, [216] * B, stds),
+        (f"BiasField {B} x 576", fields, [576] * B, stds),
+        ("1, 3, 5 (unaligned)", list(keys.values())[:3], [1, 3, 5], [2.0, -1.0, 0.0]),
+        (
+            f"cap + 1 = {tk.MAX_SEGMENTS + 1}", many,
+            [(i * 37) % 101 + 1 for i in range(len(many))],
+            [float(i - 24) / 8 for i in range(len(many))],
+        ),
+        (f"Rician pair {B} x {C} x {S}^3", [tr.draw_key(77, 1), tr.draw_key(77, 2)], [n, n], None),
+    )
+
+
+def phase_threefry_segments(torch, tr, tk, kl):
+    """The segmented kernel against separate draws: its words equal to the
+    plain version's; its normals equal to the kernel's separate draws times
+    their scales (a torch multiply), and within NORMAL_ATOL of the plain
+    version; one launch a MAX_SEGMENTS segments."""
+    dev = torch.device(DEVICE)
+    worst, lines = 0.0, []
+    for name, keys, counts, scales in threefry_segment_cases(tr, tk):
+        before = {k: kl.LAUNCHES[k] for k in ("threefry_bits", "threefry_normal")}
+        words = tk.threefry_segments_cuda(keys, counts, None, dev, normal=False)
+        got = tk.threefry_segments_cuda(keys, counts, scales, dev)
+        grown = {k: kl.LAUNCHES[k] - before[k] for k in before}
+        expect = -(-len(keys) // tk.MAX_SEGMENTS)
+        if grown != {"threefry_bits": expect, "threefry_normal": expect}:
+            fail(f"threefry segments {name}: launches {grown}, expected {expect} of each")
+        offset, err, separate_equal = 0, 0.0, True
+        for i, (key, count) in enumerate(zip(keys, counts)):
+            piece = slice(offset, offset + count)
+            plain_words = tr.bits_plain(key, 0, count, dev)
+            if not torch.equal(words[piece], tr.as_uint32(plain_words).view(torch.int32)):
+                fail(f"threefry segments {name}: segment {i}'s words differ")
+            separate = tk.threefry_normal_cuda(key, (count,), dev)
+            plain = tr.normal_of_bits(plain_words)
+            if scales is not None:
+                scale = torch.tensor(scales[i], dtype=torch.float32, device=dev)
+                separate, plain = separate * scale, plain * scale
+            separate_equal &= torch.equal(got[piece], separate)
+            err = max(err, float((got[piece] - plain).abs().max()))
+            offset += count
+            del plain_words, separate, plain
+        if not separate_equal:
+            fail(f"threefry segments {name}: normals differ from the separate draws")
+        if not err <= NORMAL_ATOL:
+            fail(f"threefry segments {name}: normals max abs {err} from the plain version")
+        worst = max(worst, err)
+        lines.append(f"{name} ({len(keys)} segment{'s' * (len(keys) > 1)}, {expect}"
+                     f" launch{'es' * (expect > 1)}):"
+                     f" max abs {err:.3g}")
+        del words, got
+        torch.cuda.empty_cache()
+    print(
+        "threefry segments vs separate draws: words equal to the plain version's, normals"
+        f" equal to the kernel's separate draws times their scales; {'; '.join(lines)}"
+    )
+    return worst
+
+
+def phase_threefry_timing(torch, config, tr, tk):
     """The threefry kernel at the headline's noise (B x C x S^3 normals):
     kernel against plain, then kernel against torch.randn (Philox: another
     function, printed for scale only)."""
@@ -1604,12 +1814,25 @@ def phase_threefry_timing(torch, tr, tk):
     )
     # reads nothing, writes 4 bytes an element
     work = bound(4 * n, n * THREEFRY_OPS)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    functions = sass_of(config, tk.THREEFRY.path())
+    if THREEFRY_SASS_KERNEL not in functions:
+        fail(f"no {THREEFRY_SASS_KERNEL} in the threefry library's SASS")
+    sass = loop_profile(functions[THREEFRY_SASS_KERNEL])
+    issue_ms, alu_ms = issue_limits(sass, n, clock_mhz)
     print(
         f"threefry normals B={B} x {S}^3: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (k, p, k,"
         f" p: {', '.join(f'{t:.3f}' for t in order)}); max abs {err:.3g}, {share:.4%} equal;"
         f" torch.randn (Philox, not the same function) {randn_ms:.3f} ms (k, r, k, r:"
         f" {', '.join(f'{t:.3f}' for t in randn_order)}); bound {work[0]:.3f} ms ({work[1]},"
-        f" {THREEFRY_OPS} operations an element)"
+        f" {THREEFRY_OPS} operations an element); SASS of the loop {sass['per_element']:g}"
+        f" instructions an element, {sass['hot_per_element']:g} on its hot path"
+        f" ({', '.join(f'{k} {v:g}' for k, v in sass['pipes'].items())}):"
+        f" issue limit {issue_ms:.3f} ms, ALU pipe limit {alu_ms:.3f} ms at the maximum SM"
+        f" clock, {clock_mhz:g} MHz (a model, not measured); opcodes {sass['ops']}"
     )
     return {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": work,
@@ -1649,6 +1872,9 @@ def phase_config(torch, tio, kl, number, profile: str | None):
     out, times, per_call, totals, peak, histories = drive(
         torch, kl, pipeline, batch, ("threefry_normal",)
     )
+    draws = [c["threefry_normal"] for c in per_call]
+    if any(d != THREEFRY_LAUNCHES[name] for d in draws):
+        fail(f"{name} threefry launches per call {draws}, expected {THREEFRY_LAUNCHES[name]}")
     data = out.t1.data
     if tuple(data.shape) != (B, C, *shape) or data.device.type != DEVICE:
         fail(f"{name} output {tuple(data.shape)} on {data.device}")
@@ -1733,7 +1959,7 @@ def main() -> int:
     del brats_batch
     dense, dense_launches = phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl)
     timings.update(dense)
-    timings["threefry_normal"] = phase_threefry_timing(torch, tr, tk)
+    timings["threefry_normal"] = phase_threefry_timing(torch, config, tr, tk)
     window = "torchio_tpu/ops/window_resample.py:335"
     launches = {
         "resample": headline_launches["resample"],

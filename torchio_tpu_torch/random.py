@@ -30,9 +30,11 @@ seed and an index, and derives the JAX package's key for it, so the same
 seed gives the same noise and bias fields in both packages.
 
 On a CPU device the draws run as plain integer torch ops (int64 holding
-32-bit words); on a CUDA device :func:`random_bits` and :func:`normal`
-launch the hand-written kernel of ``csrc/threefry.cu``
-(:mod:`.ops.threefry_kernel`).
+32-bit words); on a CUDA device :func:`random_bits`, :func:`normal` and
+:func:`normals` launch the hand-written kernel of ``csrc/threefry.cu``
+(:mod:`.ops.threefry_kernel`). :func:`normals` takes a list of draws,
+each times its own scale, in one launch (BiasField's per-element fields,
+Noise's Rician pair).
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ import threading
 
 import numpy as np
 import torch
+
+from . import config
 
 _lock = threading.Lock()
 _generator = np.random.default_rng()
@@ -123,21 +127,31 @@ def prng_key(seed: int) -> Key:
     return (0, word)
 
 
+def key_injections(key: Key) -> tuple[int, ...]:
+    """The ten words threefry2x32 adds to its state after each group ``g``
+    of four rounds: ``x0 += w[2 g]``, ``x1 += w[2 g + 1]``, from the key
+    schedule ``(k0, k1, k0 ^ k1 ^ KEY_PARITY)`` and the group's index."""
+    ks = (key[0], key[1], key[0] ^ key[1] ^ KEY_PARITY)
+    return tuple(
+        w for g in range(5) for w in (ks[(g + 1) % 3], (ks[(g + 2) % 3] + g + 1) & MASK32)
+    )
+
+
 def threefry2x32(key: Key, x0, x1):
     """The threefry2x32 block of the counter pairs ``(x0, x1)`` under
     ``key``: 20 rounds, the key injected after every 4. The words are
     Python ints or int64 tensors of 32-bit words; returns the two output
     words of the same kind."""
-    ks = (key[0], key[1], key[0] ^ key[1] ^ KEY_PARITY)
-    x0 = (x0 + ks[0]) & MASK32
-    x1 = (x1 + ks[1]) & MASK32
+    inject = key_injections(key)
+    x0 = (x0 + key[0]) & MASK32
+    x1 = (x1 + key[1]) & MASK32
     for group in range(5):
         for r in ROTATIONS[group % 2]:
             x0 = (x0 + x1) & MASK32
             x1 = ((x1 << r) | (x1 >> (32 - r))) & MASK32
             x1 = x1 ^ x0
-        x0 = (x0 + ks[(group + 1) % 3]) & MASK32
-        x1 = (x1 + ks[(group + 2) % 3] + group + 1) & MASK32
+        x0 = (x0 + inject[2 * group]) & MASK32
+        x1 = (x1 + inject[2 * group + 1]) & MASK32
     return x0, x1
 
 
@@ -211,10 +225,16 @@ def normal_of_bits(words: torch.Tensor) -> torch.Tensor:
     return torch.tensor(SQRT2, dtype=torch.float32, device=u.device) * erf_inv(u)
 
 
-def random_bits(key: Key, shape: tuple[int, ...], device="cpu") -> torch.Tensor:
+def _device(device) -> torch.device:
+    """``device``, or the package's default device where it is None."""
+    return config.default_device() if device is None else torch.device(device)
+
+
+def random_bits(key: Key, shape: tuple[int, ...], device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape)``: a uint32 tensor of ``shape`` on
-    ``device`` (the threefry kernel on a CUDA device)."""
-    device = torch.device(device)
+    ``device`` (the default device where None; the threefry kernel on a
+    CUDA device)."""
+    device = _device(device)
     shape = tuple(int(s) for s in shape)
     if device.type == "cuda":
         from .ops.threefry_kernel import threefry_bits_cuda
@@ -225,18 +245,20 @@ def random_bits(key: Key, shape: tuple[int, ...], device="cpu") -> torch.Tensor:
 
 
 def key_uniform(
-    key: Key, shape: tuple[int, ...], lo: float = 0.0, hi: float = 1.0, device="cpu"
+    key: Key, shape: tuple[int, ...], lo: float = 0.0, hi: float = 1.0, device=None
 ) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, lo, hi)`` on ``device``
-    (on a CUDA device, the kernel's bits mapped by torch ops)."""
+    (the default device where None; on a CUDA device, the kernel's bits
+    mapped by torch ops)."""
     words = random_bits(key, shape, device).view(torch.int32).to(torch.int64) & MASK32
     return uniform_of_bits(words, lo, hi)
 
 
-def normal(key: Key, shape: tuple[int, ...], device="cpu") -> torch.Tensor:
+def normal(key: Key, shape: tuple[int, ...], device=None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: standard normals on
-    ``device`` (the threefry kernel on a CUDA device)."""
-    device = torch.device(device)
+    ``device`` (the default device where None; the threefry kernel on a
+    CUDA device)."""
+    device = _device(device)
     shape = tuple(int(s) for s in shape)
     if device.type == "cuda":
         from .ops.threefry_kernel import threefry_normal_cuda
@@ -244,6 +266,39 @@ def normal(key: Key, shape: tuple[int, ...], device="cpu") -> torch.Tensor:
         return threefry_normal_cuda(key, shape, device)
     _check_cpu(device)
     return normal_of_bits(bits_plain(key, 0, math.prod(shape), device)).reshape(shape)
+
+
+def normals_plain(keys, counts, scales, device) -> torch.Tensor:
+    """The plain version of the segmented threefry kernel: ``normal(keys[s],
+    (counts[s],)) * scales[s]`` (no multiply where ``scales`` is None) for
+    every ``s``, concatenated into one flat float32 tensor."""
+    parts = [torch.empty(0, dtype=torch.float32, device=device)]
+    for s, (key, count) in enumerate(zip(keys, counts)):
+        part = normal_of_bits(bits_plain(key, 0, int(count), device))
+        if scales is not None:
+            part = part * torch.tensor(scales[s], dtype=torch.float32, device=device)
+        parts.append(part)
+    return torch.cat(parts)
+
+
+def normals(
+    keys: list[Key], shapes: list[tuple[int, ...]], scales=None, device=None
+) -> torch.Tensor:
+    """``jax.random.normal(keys[s], shapes[s], float32) * scales[s]`` for
+    every ``s`` (float32 scales; none where ``scales`` is None), flattened
+    and concatenated into one float32 tensor on ``device`` (the default
+    device where None): on a CUDA device one launch of the threefry kernel
+    for all of them."""
+    device = _device(device)
+    counts = [math.prod(int(n) for n in shape) for shape in shapes]
+    if scales is not None and len(scales) != len(keys):
+        raise ValueError(f"{len(keys)} keys and {len(scales)} scales")
+    if device.type == "cuda":
+        from .ops.threefry_kernel import threefry_segments_cuda
+
+        return threefry_segments_cuda(keys, counts, scales, device)
+    _check_cpu(device)
+    return normals_plain(keys, counts, scales, device)
 
 
 def _check_cpu(device: torch.device) -> None:

@@ -86,7 +86,7 @@ def _bparam(value: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def noise_apply(names: tuple[str, ...], rician: bool, gated: bool):
-    from .intensity.noise import noise_field
+    from .intensity.noise import add_noise
 
     def apply(datas, args):
         mean, std, keep, seed = args
@@ -95,12 +95,7 @@ def noise_apply(names: tuple[str, ...], rician: bool, gated: bool):
             data = out[nm]
             m = _bparam(mean, data.ndim)
             s = _bparam(std, data.ndim)
-            noise = noise_field(seed, 2 * n + 1, data, m, s)
-            if rician:
-                noise2 = noise_field(seed, 2 * n + 2, data, m, s)
-                res = torch.sqrt((data + noise) ** 2 + noise2**2)
-            else:
-                res = data + noise
+            res = add_noise(seed, n, data, m, s, rician)
             if gated:
                 mask = keep.reshape((-1,) + (1,) * (data.ndim - 1))
                 res = torch.where(mask > 0.5, res, data.to(res.dtype))

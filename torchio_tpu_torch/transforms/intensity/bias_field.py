@@ -5,11 +5,13 @@ coarse N(0, std) field at ``scale`` x resolution, trilinearly upsampled,
 ``exp``, multiplied in. The seed is recorded in the params, one per
 element when batched, so the exact field regenerates.
 
-Fields are drawn on the batch's device through
-:func:`torchio_tpu_torch.random.device_normal` (draw index 0 of the
-recorded seed: ``PRNGKey(seed)``, the JAX package's own field). The
-upsample, ``exp`` and multiply are plain torch ops, as the JAX package
-leaves them to XLA.
+Fields are drawn on the batch's device under ``PRNGKey(seed)`` (draw
+index 0 of the recorded seed, the JAX package's own field): one draw for
+a shared seed (:func:`torchio_tpu_torch.random.device_normal`), and all
+of a batch's per-element fields, each times its element's std, in one
+:func:`torchio_tpu_torch.random.normals` (one launch of the threefry
+kernel on a card). The upsample, ``exp`` and multiply are plain torch
+ops, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -37,18 +39,15 @@ def _apply_field(data: torch.Tensor, coarse: torch.Tensor, divide: bool) -> torc
     return out.to(data.dtype)
 
 
-def bias_per_element(data, stds: torch.Tensor, seeds, scale: float, divide: bool):
+def bias_per_element(data, stds: np.ndarray, seeds, scale: float, divide: bool):
     """One field per element: element ``b``'s coarse field is drawn from
-    its own seed with the (1, C, *small) shape the JAX package uses."""
-    c = data.shape[1]
+    its own seed with the (1, C, *small) shape the JAX package uses, times
+    ``stds[b]`` (float32, on the host), all B fields in one draw."""
+    b, c = data.shape[:2]
     small = _coarse_shape(data.shape[2:], scale)
-    coarse = torch.cat(
-        [
-            tio_random.device_normal(int(sd), (1, c, *small), data.device, 0) * stds[b]
-            for b, sd in enumerate(seeds)
-        ]
-    )
-    return _apply_field(data, coarse, divide)
+    keys = [tio_random.draw_key(int(sd), 0) for sd in seeds]
+    coarse = tio_random.normals(keys, [(1, c, *small)] * b, stds, data.device)
+    return _apply_field(data, coarse.reshape(b, c, *small), divide)
 
 
 def bias_shared(data, std: torch.Tensor, seed: int, scale: float, divide: bool):
@@ -68,7 +67,7 @@ def _apply_bias(data, std, seed, scale: float, *, divide: bool):
         identity = [s == 0 for s in std]
         if all(identity):
             return data
-        out = bias_per_element(data, _f32(std, data.device), seed, scale, divide)
+        out = bias_per_element(data, np.asarray(std, np.float32), seed, scale, divide)
         return restore_gated(out, data, [not i for i in identity])
     if std == 0:
         return data
@@ -147,7 +146,7 @@ class BiasField(IntensityTransform):
             all_id = all(identity)
             gated = any(identity) and not all_id
             args = (
-                _f32(params["std"], device),
+                np.asarray(params["std"], np.float32),
                 params["seed"],
                 _f32([not i for i in identity], device),
             )

@@ -5,11 +5,12 @@ is recorded in the params, per-element mean/std broadcast, Rician
 magnitude noise, gated-out rows restored bit-exactly (the Rician map is
 not the identity at zero noise).
 
-The noise field is drawn on the batch's device through
-:func:`torchio_tpu_torch.random.device_normal` from the recorded seed:
+The noise field is drawn on the batch's device from the recorded seed:
 image ``n`` of the batch takes draw ``2 n + 1`` (and ``2 n + 2`` for the
 second Rician field), the keys the JAX package splits for it, so the
-field is the JAX package's own (the threefry kernel on a card).
+field is the JAX package's own (the threefry kernel on a card). A Rician
+pair is one :func:`torchio_tpu_torch.random.normals` of both keys: one
+launch.
 """
 
 from __future__ import annotations
@@ -26,10 +27,17 @@ from ..parameter_range import to_nonneg_range, to_range
 from ..transform import IntensityTransform
 
 
-def noise_field(seed: int, index: int, data: torch.Tensor, mean, std) -> torch.Tensor:
-    """``mean + std * N(0, 1)`` shaped like ``data``, on its device."""
-    normal = tio_random.device_normal(seed, tuple(data.shape), data.device, index)
-    return mean + std * normal
+def add_noise(seed: int, n: int, data: torch.Tensor, mean, std, rician: bool) -> torch.Tensor:
+    """Image ``n`` plus its noise ``mean + std * N(0, 1)`` (draw ``2 n +
+    1``), or Rician ``sqrt((data + noise)^2 + noise2^2)`` with ``noise2``
+    from draw ``2 n + 2``, both fields in one draw."""
+    shape = tuple(data.shape)
+    if rician:
+        keys = [tio_random.draw_key(seed, 2 * n + 1), tio_random.draw_key(seed, 2 * n + 2)]
+        pair = tio_random.normals(keys, [shape, shape], None, data.device).reshape(2, *shape)
+        noise, noise2 = mean + std * pair[0], mean + std * pair[1]
+        return torch.sqrt((data + noise) ** 2 + noise2**2)
+    return data + (mean + std * tio_random.device_normal(seed, shape, data.device, 2 * n + 1))
 
 
 class Noise(IntensityTransform):
@@ -117,11 +125,6 @@ class Noise(IntensityTransform):
             data = img_batch.data
             mean = broadcast_param(params["mean"], data)
             std = broadcast_param(params["std"], data)
-            noise = noise_field(params["seed"], 2 * n + 1, data, mean, std)
-            if rician:
-                noise2 = noise_field(params["seed"], 2 * n + 2, data, mean, std)
-                out = torch.sqrt((data + noise) ** 2 + noise2**2)
-            else:
-                out = data + noise
+            out = add_noise(params["seed"], n, data, mean, std, rician)
             img_batch.data = restore_gated(out, data, keep)
         return batch
