@@ -50,9 +50,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    noise and bias fields with the threefry kernel and the CPU with the
    plain version: the headline (1e-4), the labelled BraTS-style pipeline
    (images 1e-4, labels equal off near ties), the k-space pair (1e-4,
-   labels untouched), config 1 and config 2 (1e-4); a subject and an
-   array built from numpy go through the headline on the card (host
-   data lands there by default) and launch the resample kernel;
+   labels untouched), config 1 and config 2 (1e-4), config 3 (2 x (4 +
+   1) x 40x44x24 at 1x1x2 mm to 1 mm) and config 4's forward and inverse
+   (2 x (1 + 1) x 40x44x48; images 1e-4, labels equal off near ties of
+   any step, 4 resample launches each); a subject and an array built
+   from numpy go through the headline on the card (host data lands there
+   by default) and launch the resample kernel;
 5. headline: ``Compose([Spatial, BiasField, Noise], fuse=True)`` on
    B=4 x 1 x 256^3 float32 through ``Compose.__call__``, 2 warm-up and 5
    timed calls, with the launch counts read around the run;
@@ -74,7 +77,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (unfused) on B=4 x 1 x 256^3 float32, the same way; every path must
    launch the threefry kernel THREEFRY_LAUNCHES times a call (BiasField's
    per-element fields in one launch, Noise's draw in one);
-10. each kernel against its plain version at its path's shape, timed
+10. config3-affine-resample: BASELINE.json config 3, ``Compose([Affine(
+   scales=(0.9, 1.1), degrees=(-10, 10)), Resample(target=1.0)],
+   copy=False)`` on a copy (metadata only) of B=4 subjects of a 4-channel
+   192x192x96 float32 ``ch`` and an int32 ``seg`` at 1x1x2 mm, out at
+   192^3 and 1 mm, the same way;
+11. config4-elastic-inverse: BASELINE.json config 4 at 256^3,
+   ``Compose([ElasticDeformation(max_displacement=7.5)])`` and then
+   ``apply_inverse_transform()`` on B=4 subjects of a float32 ``t1`` and
+   an int32 ``seg``, the same way, with the round trip's interior label
+   consistency (a 12-voxel margin), which must beat the forward's alone;
+   configs 3 and 4 must launch the resample kernel RESAMPLE_LAUNCHES
+   times a call and the threefry kernel never;
+12. each kernel against its plain version at its path's shape, timed
    kernel, plain, kernel, plain with CUDA events (the dense resample
    also against ``F.grid_sample``, its one-call library equivalent at a
    zero fill: kernel, library, kernel, library); the prefilter's three
@@ -86,7 +101,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    beside ``torch.randn`` of the same shape (Philox, another function:
    printed for scale, not as the library equivalent), with its main
    loop's SASS instructions an element (``cuobjdump -sass``) and the
-   issue limit they set at the maximum SM clock (a model).
+   issue limit they set at the maximum SM clock (a model); the resample
+   kernel also on config 3's diagonal 2 mm -> 1 mm map, beside
+   ``F.interpolate(trilinear, align_corners=False)`` (the same map, which
+   clamps at the border where the kernel fills: compared off the first
+   and last k slice).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches on its path, its error against the plain version, its time, the
@@ -104,6 +123,7 @@ prints each pipeline's device time a call.
 from __future__ import annotations
 
 import argparse
+import copy
 import importlib
 import itertools
 import json
@@ -112,6 +132,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from importlib import metadata
 from pathlib import Path
 
@@ -120,6 +141,14 @@ BRATS_B, BRATS_C, BRATS_SHAPE = 4, 4, (240, 240, 155)
 #: config 1's volume: benchmarks/suite.py's synthetic stand-in for Colin27
 #: (1 mm MNI space)
 CONFIG1_SHAPE = (181, 217, 181)
+#: config 3's subjects (benchmarks/suite.py:169-194): a 4-channel ``ch``
+#: and a label map ``seg`` of 192x192x96 voxels of 1x1x2 mm; Resample to
+#: 1 mm doubles k
+CONFIG3_C, CONFIG3_SHAPE, CONFIG3_SPACING = 4, (192, 192, 96), (1.0, 1.0, 2.0)
+CONFIG3_OUT = (192, 192, 192)
+#: config 4's interior label consistency skips this margin on every axis
+#: (benchmarks/suite.py:208)
+CONFIG4_MARGIN = 12
 DEVICE = "cuda"
 WARMUP, TIMED = 2, 5
 KERNEL_ATOL = 1e-5
@@ -142,7 +171,13 @@ THREEFRY_LAUNCHES = {
     "brats-label-bspline": 2,
     "config1-flip-noise-rescale": 1,
     "config2-blur-bias-gamma": 1,
+    "config3-affine-resample": 0,
+    "config4-elastic-inverse": 0,
 }
+#: resample-kernel launches a call: config 3's Affine and Resample each
+#: resample ``ch`` (linear) and ``seg`` (nearest); config 4's
+#: ElasticDeformation and its inverse each resample ``t1`` and ``seg``
+RESAMPLE_LAUNCHES = {"config3-affine-resample": 4, "config4-elastic-inverse": 4}
 #: operations a threefry normal takes: 2 counter adds, 20 rounds of add,
 #: rotate and xor, 5 key injections of 2 adds, the final xor (73 integer
 #: operations); the mantissa's shift and or; the uniform's subtract,
@@ -216,12 +251,19 @@ def make_batch(tio, torch, b, shape, device, seed):
     return tio.SubjectsBatch.from_subjects(subjects)
 
 
-def brats_labels(torch, shape, device):
-    """(1, *shape) int32 block-structured labels in {0, 1, 2, 4}."""
+def suite_labels(torch, shape, device):
+    """(1, *shape) int32 labels (i // 24 + j // 24 + k // 24) % 4, the
+    block-structured maps of benchmarks/suite.py:61-68."""
     i, j, k = (torch.arange(n, device=device) // 24 for n in shape)
     labels = (i[:, None, None] + j[None, :, None] + k[None, None, :]) % 4
-    labels[labels == 3] = 4
     return labels.to(torch.int32)[None]
+
+
+def brats_labels(torch, shape, device):
+    """(1, *shape) int32 block-structured labels in {0, 1, 2, 4}."""
+    labels = suite_labels(torch, shape, device)
+    labels[labels == 3] = 4
+    return labels
 
 
 def make_brats_batch(tio, torch, b, shape, device, seed):
@@ -1904,6 +1946,339 @@ def phase_config(torch, tio, kl, number, profile: str | None):
     return totals
 
 
+def config3_pipeline(tio):
+    """BASELINE.json config 3 (benchmarks/suite.py:169-194)."""
+    return tio.Compose(
+        [tio.Affine(scales=(0.9, 1.1), degrees=(-10.0, 10.0)), tio.Resample(target=1.0)],
+        copy=False,
+    )
+
+
+def config3_call(tio):
+    """One config 3 call as the suite makes it: the pipeline works in
+    place (copy=False) and Resample changes the shape, so each call starts
+    from a copy of the batch (metadata only: the copy shares the
+    tensors)."""
+    pipeline = config3_pipeline(tio)
+    return lambda batch: pipeline(copy.deepcopy(batch))
+
+
+def config4_forward(tio):
+    """BASELINE.json config 4's forward (benchmarks/suite.py:197-229)."""
+    return tio.Compose([tio.ElasticDeformation(max_displacement=7.5)])
+
+
+def config4_call(tio):
+    """One config 4 call: the elastic forward, then its inverse built from
+    the recorded history (a Compose of the inverse)."""
+    forward = config4_forward(tio)
+    return lambda batch: forward(batch).apply_inverse_transform()
+
+
+def make_suite_batch(tio, torch, b, images, shape, spacing, device, seed):
+    """B subjects as benchmarks/suite.py:51-74 builds them: a ScalarImage
+    of uniform [0, 1) values for each name -> channels of ``images`` and
+    an int32 ``seg`` (suite_labels), all at ``spacing`` mm."""
+    affine = [[spacing[0], 0, 0, 0], [0, spacing[1], 0, 0], [0, 0, spacing[2], 0], [0, 0, 0, 1]]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    data = {
+        name: torch.rand((b, c, *shape), generator=gen, device=device)
+        for name, c in images.items()
+    }
+    seg = suite_labels(torch, shape, device)
+    subjects = [
+        tio.Subject(
+            **{name: tio.ScalarImage(d[i], affine=affine) for name, d in data.items()},
+            seg=tio.LabelMap(seg.clone(), affine=affine),
+        )
+        for i in range(b)
+    ]
+    return tio.SubjectsBatch.from_subjects(subjects)
+
+
+def target_grids(rs, params, affine, b, device):
+    """(maps, fields, output shape) of a recorded Resample draw (no
+    geometry, a target space) from input ``affine``."""
+    from torchio_tpu_torch.transforms.spatial.spatial import _build_grid, _deserialize_space
+
+    shape, target_affine = _deserialize_space(params["target"])
+    matrix, _ = _build_grid(
+        input_affine=affine, output_shape=shape, output_affine=target_affine,
+        affine_matrix=None, control_points=None, max_displacement=None, affine_first=True,
+    )
+    return (*rs._marshal_maps([matrix] * b, [None] * b, device), shape)
+
+
+def inverse_grids(np, rs, tio, params, affine, shape, device):
+    """(maps, fields) of the inverse of a recorded per-element Spatial
+    draw, as its inverse builds them."""
+    from torchio_tpu_torch.transforms.spatial.spatial import _build_grid
+
+    geometry = object.__new__(tio.Spatial).inverse(params).per_sample
+    grids = [
+        _build_grid(
+            input_affine=affine, output_shape=shape, output_affine=affine,
+            affine_matrix=geometry.affines[i], control_points=geometry.control_points[i],
+            max_displacement=geometry.max_displacements[i],
+            affine_first=not params["affine_first"],
+        )
+        for i in range(len(geometry))
+    ]
+    return rs._marshal_maps([g[0] for g in grids], [g[1] for g in grids], device)
+
+
+def nearest_ties(torch, rs, maps, fields, out_shape, earlier=None):
+    """(B, 1, *out) True where a nearest-neighbour label of this step may
+    legitimately differ between two devices: its own coordinate lies
+    within TIE_BAND of a .5 tie, or it reads a voxel that was a tie of the
+    step before (``earlier``)."""
+    ties = ~coord_tie_mask(torch, rs, maps, fields, out_shape)
+    if earlier is not None:
+        fill, _ = rs._fill_bc(0.0, maps.shape[0], 1, maps.device)
+        read = rs.resample_plain(
+            earlier.float(), maps, fields, fill, out_shape, "nearest", False
+        )
+        ties |= read > 0
+    return ties
+
+
+def check_path_launches(name, per_call):
+    """The resample kernel RESAMPLE_LAUNCHES[name] times a call of the
+    path, the threefry kernel THREEFRY_LAUNCHES[name] times."""
+    resample = [c["resample"] for c in per_call]
+    draws = [c["threefry_normal"] for c in per_call]
+    if any(n != RESAMPLE_LAUNCHES[name] for n in resample) or any(
+        n != THREEFRY_LAUNCHES[name] for n in draws
+    ):
+        fail(
+            f"{name}: resample launches per call {resample} (expected"
+            f" {RESAMPLE_LAUNCHES[name]}), threefry {draws} (expected"
+            f" {THREEFRY_LAUNCHES[name]})"
+        )
+    return resample, draws
+
+
+def phase_small_config3(torch, np, tio, rs, kl):
+    """Config 3 on a small batch: card against the CPU path; labels
+    equal off near ties of the Affine step (Resample's k coordinates land
+    on .25 and .75)."""
+    shape = (40, 44, 24)
+    before = kl.LAUNCHES["resample"]
+    cpu, gpu = run_on_both(
+        tio,
+        lambda: make_suite_batch(
+            tio, torch, 2, {"ch": CONFIG3_C}, shape, CONFIG3_SPACING, "cpu", 23
+        ),
+        config3_call, 33,
+    )
+    launched = kl.LAUNCHES["resample"] - before
+    out_shape = (40, 44, 48)
+    if tuple(gpu.ch.data.shape) != (2, CONFIG3_C, *out_shape) or launched != 4:
+        fail(f"small config 3: ch {tuple(gpu.ch.data.shape)}, {launched} resample launches")
+    err = float((gpu.ch.data.cpu() - cpu.ch.data).abs().max())
+    affine = tio.AffineMatrix(np.diag([*CONFIG3_SPACING, 1.0]))
+    history = [h.params for h in cpu.applied_transforms]
+    maps, fields = slice_grids(np, rs, history[0], affine, shape, "cpu")
+    ties = nearest_ties(torch, rs, maps, fields, shape)
+    maps, fields, _ = target_grids(rs, history[1], affine, 2, "cpu")
+    ties = nearest_ties(torch, rs, maps, fields, out_shape, earlier=ties)
+    got, want = gpu.seg.data.cpu(), cpu.seg.data
+    if got.dtype != torch.int32 or want.dtype != torch.int32:
+        fail(f"small config 3: seg dtypes {got.dtype} / {want.dtype}")
+    off = int(((got != want) & ~ties).sum())
+    print(
+        f"small config 3 (2 x ({CONFIG3_C} + 1) x 40x44x24 at 1x1x2 mm -> 40x44x48)"
+        f" cuda vs cpu: ch max abs {err:.3g} (limit {SLICE_ATOL}); seg voxels differing"
+        f" {int((got != want).sum())}, off near ties {off}; resample launches {launched}"
+    )
+    if not err <= SLICE_ATOL or off:
+        fail("small config 3 differs from the CPU path")
+
+
+def phase_small_config4(torch, np, tio, rs, kl):
+    """Config 4 on a small batch: forward and inverse, card against the
+    CPU path; labels equal off near ties of either step."""
+    shape = (40, 44, 48)
+    before = kl.LAUNCHES["resample"]
+    torch.exp(torch.zeros(1 << 20))  # warm the CPU thread pool (run_on_both)
+    outs = []
+    with warnings.catch_warnings():
+        # a 7.5 mm displacement on a 40 mm volume may fold
+        warnings.filterwarnings("ignore", "The maximum displacement")
+        for device in ("cpu", DEVICE):
+            batch = make_suite_batch(tio, torch, 2, {"t1": 1}, shape, (1, 1, 1), "cpu", 24)
+            tio.seed(34)
+            forward = config4_forward(tio)(batch.to(device))
+            outs.append((forward, forward.apply_inverse_transform()))
+        launched = kl.LAUNCHES["resample"] - before
+        (cpu_fwd, cpu), (gpu_fwd, gpu) = outs
+        params = cpu_fwd.applied_transforms[0].params
+        if params != gpu_fwd.applied_transforms[0].params or launched != 4:
+            fail(f"small config 4: params differ or {launched} resample launches")
+        if gpu.applied_transforms or tuple(gpu.t1.data.shape) != (2, 1, *shape):
+            fail(f"small config 4: history {gpu.applied_transforms}, t1 {tuple(gpu.t1.data.shape)}")
+        err = max(
+            float((g.t1.data.cpu() - c.t1.data).abs().max())
+            for g, c in ((gpu_fwd, cpu_fwd), (gpu, cpu))
+        )
+        affine = tio.AffineMatrix(np.eye(4))
+        maps, fields = slice_grids(np, rs, params, affine, shape, "cpu")
+        ties = nearest_ties(torch, rs, maps, fields, shape)
+        maps, fields = inverse_grids(np, rs, tio, params, affine, shape, "cpu")
+        ties = nearest_ties(torch, rs, maps, fields, shape, earlier=ties)
+    got, want = gpu.seg.data.cpu(), cpu.seg.data
+    if got.dtype != torch.int32 or want.dtype != torch.int32:
+        fail(f"small config 4: seg dtypes {got.dtype} / {want.dtype}")
+    off = int(((got != want) & ~ties).sum())
+    print(
+        f"small config 4 (2 x (1 + 1) x 40x44x48, elastic and its inverse) cuda vs cpu:"
+        f" t1 max abs {err:.3g} (limit {SLICE_ATOL}); seg voxels differing"
+        f" {int((got != want).sum())}, off near ties {off}; resample launches {launched}"
+    )
+    if not err <= SLICE_ATOL or off:
+        fail("small config 4 differs from the CPU path")
+
+
+def phase_config3(torch, tio, kl, profile: str | None):
+    """config3-affine-resample: B=4 subjects of a 4-channel 192x192x96
+    ``ch`` and a ``seg`` at 1x1x2 mm, resampled to 1 mm (192^3)."""
+    name = "config3-affine-resample"
+    dev = torch.device(DEVICE)
+    batch = make_suite_batch(
+        tio, torch, B, {"ch": CONFIG3_C}, CONFIG3_SHAPE, CONFIG3_SPACING, dev, 3
+    )
+    call = config3_call(tio)
+    tio.seed(0)
+    out, times, per_call, totals, peak, histories = drive(torch, kl, call, batch, ("resample",))
+    resample, draws = check_path_launches(name, per_call)
+    ch, seg = out.ch.data, out.seg.data
+    if tuple(ch.shape) != (B, CONFIG3_C, *CONFIG3_OUT) or ch.device.type != DEVICE:
+        fail(f"{name} ch output {tuple(ch.shape)} on {ch.device}")
+    if tuple(seg.shape) != (B, 1, *CONFIG3_OUT) or seg.dtype != torch.int32:
+        fail(f"{name} seg output {tuple(seg.shape)} {seg.dtype}")
+    if not bool(torch.isfinite(ch).all()):
+        fail(f"{name} ch output has non-finite values")
+    values = set(torch.unique(seg).tolist())
+    if not values <= {0, 1, 2, 3} or len(values) < 4:
+        fail(f"{name} seg labels {sorted(values)}, expected {{0, 1, 2, 3}}")
+    spacing = out.ch.affines[0].spacing
+    if any(h != ["Affine", "Resample"] for h in histories) or spacing != (1.0, 1.0, 1.0):
+        fail(f"{name} histories {histories}, output spacing {spacing}")
+    if tuple(batch.ch.data.shape) != (B, CONFIG3_C, *CONFIG3_SHAPE):
+        fail(f"{name} changed its input batch")
+    timed = times[WARMUP:]
+    print(
+        f"{name}: {B * TIMED / sum(timed):.2f} subjects/s over {TIMED} timed calls of"
+        f" B={B} x ({CONFIG3_C} + 1) x {'x'.join(map(str, CONFIG3_SHAPE))} at 1x1x2 mm ->"
+        f" {'x'.join(map(str, CONFIG3_OUT))} at 1 mm (median call"
+        f" {statistics.median(timed) * 1e3:.1f} ms, calls {[round(t * 1e3, 1) for t in times]}"
+        f" ms, warm-up first); resample launches per call {resample}; threefry {draws};"
+        f" peak allocated {peak / 2**30:.2f} GiB"
+    )
+    if profile:
+        profile_calls(torch, call, batch, profile, name)
+    return totals, batch
+
+
+def phase_config4(torch, tio, kl, profile: str | None):
+    """config4-elastic-inverse: ElasticDeformation and its inverse on B=4
+    subjects of a 256^3 ``t1`` and ``seg``; the interior label
+    consistency of the round trip, as benchmarks/suite.py:206-209
+    computes it."""
+    name = "config4-elastic-inverse"
+    dev = torch.device(DEVICE)
+    shape = (S, S, S)
+    batch = make_suite_batch(tio, torch, B, {"t1": 1}, shape, (1, 1, 1), dev, 4)
+    seg_in = batch.seg.data.clone()
+    call = config4_call(tio)
+    tio.seed(0)
+    out, times, per_call, totals, peak, histories = drive(torch, kl, call, batch, ("resample",))
+    resample, draws = check_path_launches(name, per_call)
+    t1, seg = out.t1.data, out.seg.data
+    if tuple(t1.shape) != (B, 1, *shape) or t1.device.type != DEVICE:
+        fail(f"{name} t1 output {tuple(t1.shape)} on {t1.device}")
+    if tuple(seg.shape) != (B, 1, *shape) or seg.dtype != torch.int32:
+        fail(f"{name} seg output {tuple(seg.shape)} {seg.dtype}")
+    if not bool(torch.isfinite(t1).all()) or any(histories):
+        fail(f"{name}: non-finite t1 or histories left {histories}")
+    interior = (slice(None), slice(None), *(slice(CONFIG4_MARGIN, -CONFIG4_MARGIN),) * 3)
+    consistency = float((seg[interior] == seg_in[interior]).float().mean())
+    # the forward alone: the inverse must bring the labels back closer
+    tio.seed(0)
+    warped = config4_forward(tio)(batch).seg.data
+    forward = float((warped[interior] == seg_in[interior]).float().mean())
+    del warped
+    if not consistency > forward:
+        fail(f"{name}: interior label consistency {consistency}, the forward alone {forward}")
+    timed = times[WARMUP:]
+    print(
+        f"{name}: {B * TIMED / sum(timed):.2f} subjects/s over {TIMED} timed calls of"
+        f" B={B} x (1 + 1) x {S}^3, forward and inverse (median call"
+        f" {statistics.median(timed) * 1e3:.1f} ms, calls {[round(t * 1e3, 1) for t in times]}"
+        f" ms, warm-up first); resample launches per call {resample}; threefry {draws};"
+        f" interior label consistency (margin {CONFIG4_MARGIN}) {consistency:.6f}, the"
+        f" forward alone {forward:.6f}; peak allocated {peak / 2**30:.2f} GiB"
+    )
+    if profile:
+        profile_calls(torch, call, batch, profile, name)
+    return totals
+
+
+def phase_diagonal_timing(torch, np, tio, rs, rk, batch):
+    """The resample kernel on config 3's Resample step (a diagonal map,
+    2 mm -> 1 mm along k: k_in = k_out / 2 - 0.25) against the plain
+    resample, and against its one-call library equivalent,
+    ``F.interpolate(trilinear, scale_factor=(1, 1, 2), align_corners=
+    False)``: the same map, which clamps at the border where the kernel
+    fills, so they are compared off the first and last k slice."""
+    dev = torch.device(DEVICE)
+    params = tio.Resample(target=1.0).make_params(batch)
+    maps, fields, out_shape = target_grids(rs, params, batch.ch.affines[0], B, dev)
+    vol = batch.ch.data.contiguous()
+    fill, apply_fill = rs._fill_bc(torch.amin(vol, dim=(-3, -2, -1)), B, CONFIG3_C, dev)
+    args = (vol, maps, fields, fill, out_shape, "linear", apply_fill)
+    got = rk.resample_cuda(*args)
+    err = float((got - rs.resample_plain(*args)).abs().max())
+    if not err <= KERNEL_ATOL:
+        fail(f"resample kernel vs plain on config 3's diagonal map: max abs {err}")
+
+    def library():
+        return torch.nn.functional.interpolate(
+            vol, scale_factor=(1.0, 1.0, 2.0), mode="trilinear", align_corners=False
+        )
+
+    lib_err = float((library()[..., 1:-1] - got[..., 1:-1]).abs().max())
+    del got
+    if not lib_err <= KERNEL_ATOL:
+        fail(f"F.interpolate differs from the kernel off the k borders by {lib_err}")
+    order, ms, plain_ms = time_pair(
+        torch, lambda: rk.resample_cuda(*args), lambda: rs.resample_plain(*args)
+    )
+    lib_order, _, library_ms = time_pair(
+        torch, lambda: rk.resample_cuda(*args), library, plain_reps=20
+    )
+    voxels = B * math.prod(out_shape)
+    # as the resample's bound: the map, 8 corner weights a voxel, 8
+    # products and 7 sums a voxel and channel
+    work = bound(
+        nbytes(vol, maps, fill) + voxels * CONFIG3_C * 4,
+        voxels * (point_flops(fields) + 16) + voxels * CONFIG3_C * 15,
+    )
+    print(
+        f"resample on config 3's diagonal map, B={B} x {CONFIG3_C} x"
+        f" {'x'.join(map(str, CONFIG3_SHAPE))} -> {'x'.join(map(str, out_shape))} linear:"
+        f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (k, p, k, p:"
+        f" {', '.join(f'{t:.3f}' for t in order)}); max abs {err:.3g}; F.interpolate"
+        f" {library_ms:.3f} ms (k, l, k, l: {', '.join(f'{t:.3f}' for t in lib_order)}),"
+        f" max abs vs the kernel off the first and last k slice {lib_err:.3g};"
+        f" bound {work[0]:.3f} ms ({work[1]})"
+    )
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": work,
+        "library_ms": library_ms,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -1948,18 +2323,24 @@ def main() -> int:
     phase_small_kspace(torch, tio, kl)
     phase_small_config(torch, tio, 1)
     phase_small_config(torch, tio, 2)
+    phase_small_config3(torch, np, tio, rs, kl)
+    phase_small_config4(torch, np, tio, rs, kl)
     phase_host_subject(torch, np, tio, kl)
     headline_launches = phase_slice(torch, tio, kl, args.profile)
     brats_launches, brats_batch = phase_brats(torch, tio, kl, args.profile)
     kspace_launches = phase_kspace(torch, tio, kl, args.profile)
     config1_launches = phase_config(torch, tio, kl, 1, args.profile)
     config2_launches = phase_config(torch, tio, kl, 2, args.profile)
+    config3_launches, config3_batch = phase_config3(torch, tio, kl, args.profile)
+    config4_launches = phase_config4(torch, tio, kl, args.profile)
     timings = {"resample": phase_kernel_timing(torch, np, tio, rs, rk)}
     timings.update(phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch))
     del brats_batch
     dense, dense_launches = phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl)
     timings.update(dense)
     timings["threefry_normal"] = phase_threefry_timing(torch, config, tr, tk)
+    timings["resample_diagonal"] = phase_diagonal_timing(torch, np, tio, rs, rk, config3_batch)
+    del config3_batch
     window = "torchio_tpu/ops/window_resample.py:335"
     launches = {
         "resample": headline_launches["resample"],
@@ -1969,12 +2350,20 @@ def main() -> int:
         "resample_coords": kspace_launches["resample_coords"],
         "bspline_coords": dense_launches["bspline_coords"],
         "threefry_normal": headline_launches["threefry_normal"],
+        "resample_diagonal": config3_launches["resample"],
+    }
+    resample_paths = {
+        "headline": headline_launches["resample"],
+        "config3-affine-resample": config3_launches["resample"],
+        "config4-elastic-inverse": config4_launches["resample"],
     }
     threefry_paths = {
         "headline": headline_launches["threefry_normal"],
         "brats-label-bspline": brats_launches["threefry_normal"],
         "config1-flip-noise-rescale": config1_launches["threefry_normal"],
         "config2-blur-bias-gamma": config2_launches["threefry_normal"],
+        "config3-affine-resample": config3_launches["threefry_normal"],
+        "config4-elastic-inverse": config4_launches["threefry_normal"],
     }
     kernels = [
         {
@@ -1983,6 +2372,7 @@ def main() -> int:
             "source": "torchio_tpu_torch/csrc/resample.cu",
             "replaces": "torchio_tpu/ops/shear_resample.py:219",
             "also_replaces": ["torchio_tpu/ops/shear_resample.py:81", window],
+            "note": f"launches on the headline; per path: {resample_paths}",
             "path": "headline",
         },
         {
@@ -2040,6 +2430,18 @@ def main() -> int:
             f" {threefry_paths}; torch.randn (Philox, not the same function)"
             f" {timings['threefry_normal']['randn_ms']:.3f} ms",
             "path": "headline",
+        },
+        {
+            "name": "resample_diagonal",
+            "route": "cuda",
+            "source": "torchio_tpu_torch/csrc/resample.cu",
+            "replaces": "torchio_tpu/ops/resample.py:298",
+            "note": "the resample kernel (tio_resample) on config 3's diagonal 2 mm ->"
+            " 1 mm map; the JAX package computes a diagonal map with XLA separable"
+            " matmuls (_resample_element_separable), no Pallas kernel; launches: every"
+            " resample launch of the config 3 path, 4 a call (Affine and Resample, ch"
+            " and seg); library: F.interpolate(trilinear, align_corners=False)",
+            "path": "config3-affine-resample",
         },
     ]
     for entry in kernels:

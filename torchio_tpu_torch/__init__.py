@@ -10,10 +10,14 @@ It covers the headline augmentation pipeline,
 ``Compose([Spatial(...), BiasField(...), Noise(...)], fuse=True)``, with
 every interpolation of ``Spatial`` (nearest, linear, B-spline orders 2-7
 and the partial-volume "label" mode); the MRI-artifact pair
-``Compose([Motion(...), Ghosting(...)])``; and Flip,
-Normalize/RescaleIntensity, Blur and Gamma. On a CUDA batch the
-resampling and the random fields run in hand-written CUDA kernels
-(``csrc/``); on a CPU batch in their plain PyTorch versions. The random
+``Compose([Motion(...), Ghosting(...)])``; Flip,
+Normalize/RescaleIntensity, Blur and Gamma; target spaces (Resample,
+``Spatial(target=...)``), Pad, Crop, CropOrPad and EnsureShapeMultiple;
+and the inverse of a recorded history (:func:`get_inverse_transform`,
+``apply_inverse_transform()`` on an image, a subject or a batch). On a
+CUDA batch the resampling and the random fields run in hand-written
+CUDA kernels (``csrc/``); on a CPU batch in their plain PyTorch
+versions. The random
 fields are ``jax.random``'s own threefry draws, so one seed gives the
 JAX package's noise and bias fields. The dense-coordinate entry
 (``ops.resample``, ``ops.build_coords``) serves Motion's rigid moves.
@@ -36,15 +40,22 @@ from .transforms import (
     Blur,
     Choice,
     Compose,
+    Crop,
+    CropOrPad,
     ElasticDeformation,
+    EnsureShapeMultiple,
     Flip,
     Gamma,
     Ghosting,
     Motion,
     Noise,
     Normalize,
+    Pad,
+    Resample,
     RescaleIntensity,
     Spatial,
+    apply_inverse_transform,
+    get_inverse_transform,
 )
 
 __all__ = [
@@ -54,7 +65,10 @@ __all__ = [
     "Blur",
     "Choice",
     "Compose",
+    "Crop",
+    "CropOrPad",
     "ElasticDeformation",
+    "EnsureShapeMultiple",
     "Flip",
     "Gamma",
     "Ghosting",
@@ -63,12 +77,16 @@ __all__ = [
     "Motion",
     "Noise",
     "Normalize",
+    "Pad",
+    "Resample",
     "RescaleIntensity",
     "ScalarImage",
     "Spatial",
     "Subject",
     "SubjectsBatch",
+    "apply_inverse_transform",
     "default_device",
+    "get_inverse_transform",
     "random",
     "seed",
     "set_default_device",

@@ -21,13 +21,14 @@ import torch
 from ..config import as_tensor
 from ..core.affine import AffineMatrix
 from .image import Image, ScalarImage
+from .invertible import Invertible
 from .subject import Subject
 
 #: Reserved param keys used for per-instance history bookkeeping.
 _BATCH_META_KEYS = ("_batch_size", "_batched_keys", "_keep")
 
 
-class ImagesBatch:
+class ImagesBatch(Invertible):
     """5D tensor ``(B, C, I, J, K)`` + per-sample affines + image class."""
 
     def __init__(
@@ -114,7 +115,7 @@ class ImagesBatch:
         )
 
 
-class SubjectsBatch:
+class SubjectsBatch(Invertible):
     """Named image batches + per-sample metadata lists.
 
     The unit every transform operates on. Supports per-element history
@@ -160,11 +161,6 @@ class SubjectsBatch:
     @property
     def metadata(self) -> dict[str, list[Any]]:
         return self._metadata
-
-    @property
-    def history(self) -> list[Any]:
-        """Alias for ``applied_transforms``."""
-        return self.applied_transforms
 
     @property
     def device(self) -> torch.device:

@@ -19,9 +19,10 @@ import torch
 
 from ..config import as_tensor
 from ..core.affine import AffineMatrix
+from .invertible import Invertible
 
 
-class Image:
+class Image(Invertible):
     """3D/4D medical image: (C, I, J, K) data + RAS+ affine.
 
     Args:
@@ -73,11 +74,6 @@ class Image:
     @affine.setter
     def affine(self, value: Any) -> None:
         self._affine = value if isinstance(value, AffineMatrix) else AffineMatrix(value)
-
-    @property
-    def history(self) -> list[Any]:
-        """Alias for ``applied_transforms``."""
-        return self.applied_transforms
 
     @property
     def metadata(self) -> dict[str, Any]:

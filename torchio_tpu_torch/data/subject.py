@@ -14,9 +14,10 @@ from typing import Any, Iterator
 import numpy as np
 
 from .image import Image
+from .invertible import Invertible
 
 
-class Subject:
+class Subject(Invertible):
     """A study: named images and metadata.
 
     Examples:
@@ -88,11 +89,6 @@ class Subject:
         return list(self._images.values())
 
     # --- Properties ---
-
-    @property
-    def history(self) -> list[Any]:
-        """Alias for ``applied_transforms``."""
-        return self.applied_transforms
 
     @property
     def metadata(self) -> dict[str, Any]:

@@ -88,6 +88,14 @@ def random(size=None):
     return get_rng().random(size)
 
 
+def randint(lo: int, hi: int, size=None):
+    return get_rng().integers(lo, hi, size)
+
+
+def choice(values, size=None, p=None):
+    return get_rng().choice(values, size=size, p=p)
+
+
 def draw_seed() -> int:
     """Draw a fresh 31-bit seed for a device draw."""
     return int(get_rng().integers(0, 2**31 - 1))

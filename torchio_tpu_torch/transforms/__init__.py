@@ -7,8 +7,12 @@ from .intensity.motion import Motion
 from .intensity.noise import Noise
 from .intensity.normalize import Normalize, RescaleIntensity
 from .parameter_range import Choice
+from .inverse import apply_inverse_transform, get_inverse_transform
+from .spatial.crop import Crop
+from .spatial.crop_or_pad import CropOrPad, EnsureShapeMultiple
 from .spatial.flip import Flip
-from .spatial.spatial import Affine, ElasticDeformation, Spatial
+from .spatial.pad import Pad
+from .spatial.spatial import Affine, ElasticDeformation, Resample, Spatial
 from .transform import IntensityTransform, SpatialTransform, Transform
 
 __all__ = [
@@ -17,7 +21,10 @@ __all__ = [
     "Blur",
     "Choice",
     "Compose",
+    "Crop",
+    "CropOrPad",
     "ElasticDeformation",
+    "EnsureShapeMultiple",
     "Flip",
     "Gamma",
     "Ghosting",
@@ -25,8 +32,12 @@ __all__ = [
     "Motion",
     "Noise",
     "Normalize",
+    "Pad",
+    "Resample",
     "RescaleIntensity",
     "Spatial",
     "SpatialTransform",
     "Transform",
+    "apply_inverse_transform",
+    "get_inverse_transform",
 ]

@@ -78,3 +78,21 @@ def compute_quantile(values, q: float) -> float:
 def compute_quantiles(values, qs) -> np.ndarray:
     """Vector of quantiles of a flattened tensor (one host transfer)."""
     return quantiles_on_device(values, qs).cpu().numpy()
+
+
+def median_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Per-row median of a (B, N) float32 tensor as ``jnp.quantile(rows,
+    0.5, axis=1)`` computes it: the order statistics at ``floor`` and
+    ``ceil`` of ``0.5 * (N - 1)`` (float32) from one sort of the ordered
+    keys, then ``low * (1 - w) + high * w``, where both products are exact
+    (``w`` is 0 or 1/2) and the sum rounds once; a row holding a NaN gives
+    NaN. Stays on the rows' device."""
+    n = rows.shape[1]
+    pos = np.float32(0.5) * (np.float32(n) - np.float32(1))
+    low = int(np.clip(np.floor(pos), 0, n - 1))
+    high = int(np.clip(np.ceil(pos), 0, n - 1))
+    w_high = np.float32(pos - np.floor(pos))
+    w_low = np.float32(1) - w_high
+    ordered = _ordered_to_f32(torch.sort(_f32_to_ordered(rows), dim=1).values)
+    median = ordered[:, low] * float(w_low) + ordered[:, high] * float(w_high)
+    return torch.where(torch.isnan(rows).any(dim=1), float("nan"), median)

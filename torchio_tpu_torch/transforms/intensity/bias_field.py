@@ -160,3 +160,31 @@ class BiasField(IntensityTransform):
             args=args,
             params=params,
         )
+
+    @property
+    def invertible(self) -> bool:
+        return True
+
+    def inverse(self, params: dict[str, Any]) -> "_BiasFieldInverse":
+        return _BiasFieldInverse(
+            std=params["std"], seed=params["seed"], scale=params["scale"], copy=False
+        )
+
+
+class _BiasFieldInverse(IntensityTransform):
+    """Divides by the regenerated field."""
+
+    def __init__(self, *, std, seed, scale: float, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self._std = std
+        self._seed = seed
+        self._scale = scale
+
+    def apply_transform(
+        self, batch: SubjectsBatch, params: dict[str, Any]
+    ) -> SubjectsBatch:
+        for img_batch in self._get_images(batch).values():
+            img_batch.data = _apply_bias(
+                img_batch.data, self._std, self._seed, self._scale, divide=True
+            )
+        return batch

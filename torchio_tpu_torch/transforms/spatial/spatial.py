@@ -32,14 +32,28 @@ each on a dense-coordinate CUDA kernel. The JAX package's ``plans`` and
 its opt-in Pallas tiled kernel (``TORCHIO_TPU_PALLAS``) have no
 counterpart: the port has one dense kernel.
 
-Not yet ported: ``target=`` (and ``Resample``), antialias, the "mean" and
-"otsu" fills, the materialized grids of those paths, and inverses.
+Target spaces (``target=``, and :class:`Resample`): an Image, the name
+of an image in the batch, a ``(shape, affine)`` pair, or a spacing spec
+(a number, an array, a 3-tuple, a range, a ``Choice`` or a
+distribution), resolved on the host as the JAX package resolves them; the
+output takes the target's shape and affine and goes through the same
+resample kernels (a diagonal map, which the JAX package computes with
+separable matmuls, is one more gather map here). Antialiasing blurs
+images with :func:`torchio_tpu_torch.ops.gaussian.gaussian_blur` before
+the resample, and label maps in "label" mode take the one-hot path. The
+"mean" and "otsu" fills are float64 border statistics of the six faces,
+computed on the host per element and channel as the JAX package computes
+them. The inverse (:class:`_SpatialInverse`) inverts the matrices in
+float64, negates the control points, flips ``affine_first`` and resamples
+to the recorded original space. A target given as a file path needs
+file I/O, which is not ported.
 """
 
 from __future__ import annotations
 
 import warnings
 from numbers import Number
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -48,11 +62,12 @@ import torch
 from ... import random as tio_random
 from ...core.affine import AffineMatrix
 from ...data.batch import ImagesBatch, SubjectsBatch
-from ...data.image import LabelMap
+from ...data.image import Image, LabelMap
 from ...ops.bspline import bspline_resample, bspline_resample_fused
+from ...ops.gaussian import gaussian_blur
 from ...ops.resample import resample, resample_fused, resample_label_fused
 from .._utils import unique_labels
-from ..parameter_range import _ParameterRange
+from ..parameter_range import Choice, _is_distribution, _ParameterRange
 from ..transform import SpatialTransform
 
 _INTERPOLATION_TO_ORDER = {
@@ -134,6 +149,94 @@ def _forward_affine(
     return t
 
 
+def _compute_new_shape_affine(shape, affine: AffineMatrix, spacing):
+    """Output (shape, affine) for a target spacing, physical center fixed."""
+    old_spacing = np.asarray(affine.spacing, np.float64)
+    new_spacing = np.asarray(spacing, np.float64)
+    old_shape = np.asarray(shape, np.float64)
+    new_shape = np.floor(old_shape * old_spacing / new_spacing)
+    new_shape[old_shape == 1] = 1
+    rotation = affine.direction
+    old_origin = np.asarray(affine.origin, np.float64)
+    old_center = old_origin + rotation @ (((old_shape - 1) / 2) * old_spacing)
+    new_origin = old_center - rotation @ (((new_shape - 1) / 2) * new_spacing)
+    new_affine = np.eye(4, dtype=np.float64)
+    new_affine[:3, :3] = rotation * new_spacing
+    new_affine[:3, 3] = new_origin
+    return (
+        (int(new_shape[0]), int(new_shape[1]), int(new_shape[2])),
+        AffineMatrix(new_affine),
+    )
+
+
+def _parse_spacing(value) -> tuple[float, float, float]:
+    if isinstance(value, (int, float)):
+        out = (float(value),) * 3
+    else:
+        vals = tuple(float(v) for v in value)
+        if len(vals) == 1:
+            out = vals * 3
+        elif len(vals) == 3:
+            out = vals
+        else:
+            raise ValueError(f"Spacing must have 1 or 3 values, got {len(vals)}")
+    if any(s <= 0 for s in out):
+        raise ValueError(f"Spacing must be positive, got {out}")
+    return out  # type: ignore[return-value]
+
+
+def _is_target_space_tuple(target) -> bool:
+    if not isinstance(target, (tuple, list)) or len(target) != 2:
+        return False
+    shape, affine = target
+    return isinstance(shape, (tuple, list, np.ndarray)) and (
+        isinstance(affine, AffineMatrix)
+        or (isinstance(affine, (np.ndarray, list)) and np.asarray(affine).shape == (4, 4))
+    )
+
+
+def _resolve_target_space(target, batch, first_shape, first_affine):
+    """User-facing target spec -> (shape, AffineMatrix) or None."""
+    if target is None:
+        return None
+    if isinstance(target, Image):
+        return target.spatial_shape, target.affine.clone()
+    if isinstance(target, (str, Path)):
+        if Path(target).is_file():
+            raise NotImplementedError(
+                f'Target "{target}" is a file: reading images from files is not'
+                " ported yet (ROADMAP.md, Queue 1, item 10); pass an Image, an"
+                " image name, a (shape, affine) pair or a spacing"
+            )
+        if isinstance(target, str) and batch is not None and target in batch.images:
+            ref = batch.images[target]
+            return tuple(ref.data.shape[-3:]), ref.affines[0].clone()
+        raise ValueError(
+            f'Unknown target "{target}": pass a file path, an image name'
+            " in the subject, an Image, or a spacing spec"
+        )
+    if _is_target_space_tuple(target):
+        shape, affine = target
+        shape = tuple(int(s) for s in shape)
+        return shape, AffineMatrix(affine)
+    if isinstance(target, np.ndarray):
+        return _compute_new_shape_affine(
+            first_shape, first_affine, _parse_spacing(tuple(target.flat))
+        )
+    if isinstance(target, (int, float)):
+        return _compute_new_shape_affine(first_shape, first_affine, float(target))
+    if isinstance(target, (tuple, list, Choice)) or _is_distribution(target):
+        spec = tuple(target) if isinstance(target, list) else target
+        if isinstance(spec, tuple) and len(spec) == 3 and all(
+            isinstance(v, (int, float)) for v in spec
+        ):
+            spacing = _parse_spacing(spec)
+        else:
+            spacing = _parse_spacing(_ParameterRange(spec).sample())
+        return _compute_new_shape_affine(first_shape, first_affine, spacing)
+    raise ValueError(f'Target not understood: "{target}"')
+
+
 def _sample_control_points(grid_shape, max_displacement, locked_borders: int):
     """Random uniform [-max, max] field (n_i, n_j, n_k, 3) with zeroed borders."""
     rng = tio_random.get_rng()
@@ -170,14 +273,80 @@ def _field_displacement_extent(control_points) -> tuple[float, float, float]:
     return (float(m[0]), float(m[1]), float(m[2]))
 
 
+def _antialias_sigmas(factors, spacing) -> np.ndarray:
+    """Per-axis voxel sigmas (Cardoso et al. MICCAI 2015)."""
+    sigmas = np.zeros(3, np.float64)
+    for axis in range(3):
+        k = factors[axis]
+        if k <= 1.0:
+            continue
+        variance = (k**2 - 1) * (2 * np.sqrt(2 * np.log(2))) ** (-2)
+        sigmas[axis] = np.sqrt(variance)  # sigma_mm / spacing == sqrt(var)
+    return sigmas
+
+
+def _otsu_threshold(values: np.ndarray) -> float:
+    """Between-class-variance-maximizing threshold over sorted values."""
+    v = np.sort(values.astype(np.float64))
+    n = v.size
+    if n < 2:
+        return float(v[0]) if n else 0.0
+    csum = np.cumsum(v)
+    total = csum[-1]
+    counts = np.arange(1, n)
+    mean_low = csum[:-1] / counts
+    mean_high = (total - csum[:-1]) / (n - counts)
+    weight_low = counts / n
+    between = weight_low * (1 - weight_low) * (mean_low - mean_high) ** 2
+    best = int(np.argmax(between))
+    return float((v[best] + v[best + 1]) / 2)
+
+
+def _border_values(data: torch.Tensor) -> np.ndarray:
+    """(B, C, n) host copy of the six faces of a (B, C, I, J, K) tensor,
+    in the JAX package's order: i = 0, i = -1, j = 0, j = -1, k = 0,
+    k = -1. The faces overlap at edges and corners, and those voxels
+    count once per face. One transfer of a few MB."""
+    faces = [
+        data[:, :, 0], data[:, :, -1],
+        data[:, :, :, 0], data[:, :, :, -1],
+        data[:, :, :, :, 0], data[:, :, :, :, -1],
+    ]
+    b, c = data.shape[:2]
+    flat = torch.cat([f.reshape(b, c, -1) for f in faces], dim=2)
+    return flat.detach().cpu().numpy()
+
+
 def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_label):
-    """Out-of-bounds fill: a number, or a (B, C) tensor of per-element,
-    per-channel minima computed on the batch's device."""
+    """Out-of-bounds fill: a number; a (B, C) tensor of per-element,
+    per-channel minima computed on the batch's device ("minimum"); or a
+    (B, C) float32 host array of per-element, per-channel float64 border
+    statistics ("mean", and "otsu": the mean of the border voxels below
+    their Otsu threshold)."""
     if issubclass(img_batch.image_class, LabelMap):
         return float(default_pad_label)
     if isinstance(default_pad_value, Number):
         return float(default_pad_value)
-    return torch.amin(img_batch.data, dim=(-3, -2, -1))
+    if not isinstance(default_pad_value, str):
+        raise TypeError(
+            f"default_pad_value must be a string or number, got {type(default_pad_value)}"
+        )
+    if default_pad_value == "minimum":
+        return torch.amin(img_batch.data, dim=(-3, -2, -1))
+    if default_pad_value not in ("mean", "otsu"):
+        raise ValueError(f'Unknown default_pad_value "{default_pad_value}"')
+    borders = _border_values(img_batch.data)
+    values = np.zeros(borders.shape[:2], np.float32)
+    for b in range(borders.shape[0]):
+        for c in range(borders.shape[1]):
+            flat = borders[b, c].astype(np.float64)
+            if default_pad_value == "mean":
+                values[b, c] = flat.mean()
+            else:
+                threshold = _otsu_threshold(flat)
+                vals = flat[flat < threshold]
+                values[b, c] = vals.mean() if vals.size else flat.mean()
+    return values
 
 
 # --------------------------------------------------------------------------
@@ -241,6 +410,12 @@ def _serialize_space(space):
     return {"shape": [int(s) for s in shape], "affine": AffineMatrix(affine).tolist()}
 
 
+def _deserialize_space(data):
+    if data is None:
+        return None
+    return tuple(data["shape"]), AffineMatrix(data["affine"])
+
+
 def _serialize_matrix(matrix):
     return None if matrix is None else np.asarray(matrix, np.float64).tolist()
 
@@ -263,10 +438,15 @@ def _deserialize_control_points(data):
 
 
 class Spatial(SpatialTransform):
-    r"""Apply a world affine and an elastic field through a single
-    sampling grid.
+    r"""Resample to a target space, apply a world affine and an elastic
+    field, all through a single sampling grid.
 
     Args:
+        target: output space: None (the input's), an Image, the name of
+            an image in the batch, a ``(shape, affine)`` pair, or a
+            spacing spec in mm (a number, an array, a 3-tuple, a range, a
+            ``Choice`` or a distribution). A file path raises
+            ``NotImplementedError`` (file I/O is not ported).
         scales, degrees, translation: affine parameter specs (see
             :mod:`..parameter_range`).
         isotropic: one scale for all axes.
@@ -283,8 +463,10 @@ class Spatial(SpatialTransform):
             partial-volume label resampling.
         one_hot_label_interpolation: interpolation of the one-hot
             channels in "label" mode (not "label" itself).
-        default_pad_value: a number, or "minimum" (per element and
-            channel) for scalar images.
+        antialias: blur images (and one-hot labels in "label" mode)
+            before downsampling to the target space.
+        default_pad_value: a number, or "minimum", "mean" or "otsu" (per
+            element and channel) for scalar images.
         default_pad_label: fill value for label maps.
     """
 
@@ -311,10 +493,6 @@ class Spatial(SpatialTransform):
         **kwargs: Any,
     ) -> None:
         super().__init__(**kwargs)
-        if target is not None:
-            raise NotImplementedError("Spatial(target=...) is not ported yet")
-        if antialias:
-            raise NotImplementedError("Spatial(antialias=True) is not ported yet")
         self.target = target
         if isotropic and isinstance(scales, (tuple, list)) and len(scales) not in (1, 2):
             raise ValueError(
@@ -376,16 +554,12 @@ class Spatial(SpatialTransform):
             raise ValueError('one_hot_label_interpolation cannot be "label"')
         self.one_hot_label_interpolation = one_hot
         self.antialias = antialias
-        if isinstance(default_pad_value, str) and default_pad_value != "minimum":
-            if default_pad_value in ("mean", "otsu"):
-                raise NotImplementedError(
-                    f'default_pad_value="{default_pad_value}" is not ported yet'
-                )
+        if isinstance(default_pad_value, str) and default_pad_value not in (
+            "minimum",
+            "mean",
+            "otsu",
+        ):
             raise ValueError(f'Unknown default_pad_value "{default_pad_value}"')
-        if not isinstance(default_pad_value, (str, Number)):
-            raise TypeError(
-                f"default_pad_value must be a string or number, got {type(default_pad_value)}"
-            )
         self.default_pad_value = default_pad_value
         if not isinstance(default_pad_label, Number):
             raise TypeError(
@@ -401,7 +575,8 @@ class Spatial(SpatialTransform):
 
     @property
     def supports_per_instance_p(self) -> bool:
-        return True
+        # shape-changing targets cannot gate per element
+        return self.target is None
 
     # --- sampling ---
 
@@ -467,7 +642,10 @@ class Spatial(SpatialTransform):
             forward, cp, disp, has_geometry = self._sample_one(first_shape, first_affine)
             if has_geometry:
                 _check_shared_space(images, first_shape, first_affine)
-            params["target"] = None
+            target_space = _resolve_target_space(
+                self.target, batch, first_shape, first_affine
+            )
+            params["target"] = _serialize_space(target_space)
             params["affine_matrix"] = _serialize_matrix(forward)
             params["control_points"] = _serialize_control_points(cp)
             params["max_displacement"] = list(disp) if disp else None
@@ -488,7 +666,10 @@ class Spatial(SpatialTransform):
             disps.append(list(disp) if disp else None)
         if any_geometry:
             _check_shared_space(images, first_shape, first_affine)
-        params["target"] = None
+        target_space = _resolve_target_space(
+            self.target, batch, first_shape, first_affine
+        )
+        params["target"] = _serialize_space(target_space)
         params["affine_matrix"] = affines
         params["control_points"] = cps
         params["max_displacement"] = disps
@@ -506,46 +687,117 @@ class Spatial(SpatialTransform):
         selected = params.get("selected_images", [])
         if not selected:
             return batch
-        if params.get("target") is not None:
-            raise NotImplementedError("Spatial target spaces are not ported yet")
         for key in ("image_interpolation", "label_interpolation"):
             _parse_interpolation(params[key])
         one_hot = _parse_interpolation(params.get("one_hot_label_interpolation", "linear"))
-        if params.get("antialias", False):
-            raise NotImplementedError("Spatial antialias is not ported yet")
-        n = batch.batch_size
-        per_sample = "affine_matrix" in (params.get("_batched_keys") or [])
-        if per_sample:
-            affines = [_deserialize_matrix(m) for m in params["affine_matrix"]]
-            cps = [_deserialize_control_points(c) for c in params["control_points"]]
-            disps = [tuple(d) if d else None for d in params["max_displacement"]]
-            passthrough = [
-                i for i in range(n) if affines[i] is None and cps[i] is None
-            ]
+        target_space = _deserialize_space(params["target"])
+        per_sample = None
+        if "affine_matrix" in (params.get("_batched_keys") or []):
+            per_sample = _PerSampleGeometry(
+                affines=[_deserialize_matrix(m) for m in params["affine_matrix"]],
+                control_points=[
+                    _deserialize_control_points(c) for c in params["control_points"]
+                ],
+                max_displacements=[
+                    tuple(d) if d else None for d in params["max_displacement"]
+                ],
+            )
+            affine_matrix = control_points = max_displacement = None
         else:
-            if params["affine_matrix"] is None and params["control_points"] is None:
-                return batch
+            affine_matrix = _deserialize_matrix(params["affine_matrix"])
+            control_points = _deserialize_control_points(params["control_points"])
             md = params["max_displacement"]
-            affines = [_deserialize_matrix(params["affine_matrix"])] * n
-            cps = [_deserialize_control_points(params["control_points"])] * n
-            disps = [tuple(md) if md else None] * n
-            passthrough = []
+            max_displacement = tuple(md) if md else None
+        if (
+            target_space is None
+            and affine_matrix is None
+            and control_points is None
+            and per_sample is None
+        ):
+            return batch
         _run_spatial_pipeline(
             batch=batch,
             image_names=selected,
-            affines=affines,
-            control_points=cps,
-            max_displacements=disps,
-            per_sample=per_sample,
-            passthrough=passthrough,
+            target_space=target_space,
+            affine_matrix=affine_matrix,
+            control_points=control_points,
+            max_displacement=max_displacement,
             affine_first=params["affine_first"],
             image_interpolation=params["image_interpolation"],
             label_interpolation=params["label_interpolation"],
             one_hot_label_interpolation=one_hot,
+            antialias=params.get("antialias", False),
             default_pad_value=params["default_pad_value"],
             default_pad_label=float(params["default_pad_label"]),
+            per_sample=per_sample,
         )
         return batch
+
+    @property
+    def invertible(self) -> bool:
+        return True
+
+    def inverse(self, params: dict[str, Any]) -> "_SpatialInverse":
+        original_space = _deserialize_space(params["original"])
+        if original_space is None:
+            raise RuntimeError("Spatial inverse needs the original output space")
+        common: dict[str, Any] = {
+            "target": original_space,
+            "affine_first": not params["affine_first"],
+            "image_interpolation": params["image_interpolation"],
+            "label_interpolation": params["label_interpolation"],
+            "one_hot_label_interpolation": params.get(
+                "one_hot_label_interpolation", "linear"
+            ),
+            "default_pad_value": params["default_pad_value"],
+            "default_pad_label": float(params["default_pad_label"]),
+            "copy": False,
+            "include": params["selected_images"],
+        }
+        if "affine_matrix" in (params.get("_batched_keys") or []):
+            per_sample = _PerSampleGeometry(
+                affines=[
+                    None if m is None else np.linalg.inv(np.asarray(m, np.float64))
+                    for m in params["affine_matrix"]
+                ],
+                control_points=[
+                    None if c is None else -np.asarray(c, np.float32)
+                    for c in params["control_points"]
+                ],
+                max_displacements=[
+                    tuple(d) if d else None for d in params["max_displacement"]
+                ],
+            )
+            return _SpatialInverse(
+                affine_matrix=None, control_points=None, per_sample=per_sample, **common
+            )
+        affine_matrix = _deserialize_matrix(params["affine_matrix"])
+        inverse_affine = None if affine_matrix is None else np.linalg.inv(affine_matrix)
+        cp = _deserialize_control_points(params["control_points"])
+        return _SpatialInverse(
+            affine_matrix=inverse_affine,
+            control_points=None if cp is None else -cp,
+            **common,
+        )
+
+
+class _PerSampleGeometry:
+    """Per-element affines / control points / displacements."""
+
+    def __init__(self, *, affines, control_points, max_displacements):
+        self.affines = affines
+        self.control_points = control_points
+        self.max_displacements = max_displacements
+
+    def __len__(self) -> int:
+        return len(self.affines)
+
+    def passthrough_indices(self) -> list[int]:
+        return [
+            i
+            for i in range(len(self.affines))
+            if self.affines[i] is None and self.control_points[i] is None
+        ]
 
 
 def _check_shared_space(images, reference_shape, reference_affine) -> None:
@@ -567,47 +819,73 @@ def _run_spatial_pipeline(
     *,
     batch: SubjectsBatch,
     image_names,
-    affines,
+    target_space,
+    affine_matrix,
     control_points,
-    max_displacements,
-    per_sample: bool,
-    passthrough: list[int],
+    max_displacement,
     affine_first: bool,
     image_interpolation: str,
     label_interpolation: str,
     one_hot_label_interpolation: str,
+    antialias: bool,
     default_pad_value,
     default_pad_label: float,
+    per_sample: _PerSampleGeometry | None = None,
 ) -> None:
     """Resample every selected image of ``batch`` through one grid spec
-    per element; ``passthrough`` elements stay bit-exact.
+    per element.
 
-    As in the JAX package, batch-shared params build one grid from the
-    first element's affine, per-element params one grid per element's
-    affine, and every output takes the first element's affine."""
+    As in the JAX package: the output takes the target's shape and
+    affine (the input's without a target); batch-shared geometry builds
+    one grid from the first element's affine, per-element geometry one
+    grid per element's own input affine, and every output takes the
+    output affine. Without a target, elements with no geometry stay
+    bit-exact, affine included."""
+    if not image_names:
+        return
     first = batch.images[image_names[0]]
-    shape = tuple(first.data.shape[-3:])
-    output_affine = first.affines[0]
-    shared = not per_sample
-    grids = [
-        _build_grid(
-            input_affine=output_affine if shared else first.affines[i],
-            output_shape=shape,
-            output_affine=output_affine if shared else first.affines[i],
-            affine_matrix=affines[i],
-            control_points=control_points[i],
-            max_displacement=max_displacements[i],
-            affine_first=affine_first,
-        )
-        for i in range(1 if shared else len(affines))
-    ]
-    if shared:
-        grids = grids * len(affines)
+    input_shape = tuple(first.data.shape[-3:])
+    input_affine = first.affines[0]
+    output_shape = tuple(target_space[0]) if target_space is not None else input_shape
+    output_affine = target_space[1] if target_space is not None else input_affine
+    n = first.batch_size
+    if per_sample is None:
+        grids = [
+            _build_grid(
+                input_affine=input_affine,
+                output_shape=output_shape,
+                output_affine=output_affine,
+                affine_matrix=affine_matrix,
+                control_points=control_points,
+                max_displacement=max_displacement,
+                affine_first=affine_first,
+            )
+        ] * n
+    else:
+        grids = [
+            _build_grid(
+                input_affine=first.affines[i],
+                output_shape=output_shape,
+                output_affine=(
+                    output_affine if target_space is not None else first.affines[i]
+                ),
+                affine_matrix=per_sample.affines[i],
+                control_points=per_sample.control_points[i],
+                max_displacement=per_sample.max_displacements[i],
+                affine_first=affine_first,
+            )
+            for i in range(len(per_sample))
+        ]
     maps = [g[0] for g in grids]
     fields = [g[1] for g in grids]
+    passthrough = (
+        per_sample.passthrough_indices()
+        if per_sample is not None and target_space is None
+        else []
+    )
     keep_original = None
     if passthrough:
-        mask = np.zeros(len(affines), bool)
+        mask = np.zeros(n, bool)
         mask[passthrough] = True
         keep_original = torch.as_tensor(mask, device=first.device).reshape(-1, 1, 1, 1, 1)
     for name in image_names:
@@ -617,7 +895,10 @@ def _run_spatial_pipeline(
         interpolation = label_interpolation if is_label else image_interpolation
         if is_label and interpolation == LABEL_INTERPOLATION:
             sampled = _resample_label_partial_volume(
-                data, maps, fields, shape,
+                data, maps, fields, output_shape,
+                input_affine=input_affine,
+                output_affine=output_affine,
+                antialias=antialias,
                 one_hot_label_interpolation=one_hot_label_interpolation,
                 default_pad_label=default_pad_label,
             )
@@ -627,8 +908,11 @@ def _run_spatial_pipeline(
                 default_pad_value=default_pad_value,
                 default_pad_label=default_pad_label,
             )
+            source = data
+            if antialias and not is_label:
+                source = _antialias(data, input_affine, output_affine)
             sampled = _dispatch_resample(
-                data, maps, fields, shape, mode=interpolation, fill=fill
+                source, maps, fields, output_shape, mode=interpolation, fill=fill
             )
             # the input dtype comes back after sampling (integer labels
             # stay integer)
@@ -664,34 +948,61 @@ def _dispatch_resample(data, maps, fields=None, out_shape=None, *, mode: str, fi
     return resample_fused(data, maps, fields, out_shape=out_shape, mode=mode, fill=fill)
 
 
+def _resolved_antialias_sigmas(
+    input_affine: AffineMatrix, output_affine: AffineMatrix
+) -> np.ndarray:
+    """Per-axis antialias sigmas for an input -> output space change (the
+    one source of both the blur and its no-op test)."""
+    in_sp = np.asarray(input_affine.spacing, np.float64)
+    out_sp = np.asarray(output_affine.spacing, np.float64)
+    return _antialias_sigmas(out_sp / in_sp, in_sp)
+
+
+def _antialias(data, input_affine: AffineMatrix, output_affine: AffineMatrix):
+    sigmas = _resolved_antialias_sigmas(input_affine, output_affine)
+    if np.all(sigmas == 0):
+        return data
+    return gaussian_blur(data, sigmas)
+
+
 def _resample_label_partial_volume(
-    data, maps, fields, out_shape, *, one_hot_label_interpolation: str,
+    data, maps, fields, out_shape, *, input_affine: AffineMatrix,
+    output_affine: AffineMatrix, antialias: bool, one_hot_label_interpolation: str,
     default_pad_label: float,
 ):
     """Partial-volume label resampling (one-hot + argmax), routed as the
     JAX package routes it:
 
-    - one channel with linear one-hot interpolation: the corner vote
-      (:func:`resample_label_fused`), equal to the one-hot path;
-    - several channels: each channel is resampled as a float map (float
-      labels keep their dtype; integer ones come back float32);
-    - otherwise the one-hot path over the sorted unique labels, ties to
-      the smallest label, ``default_pad_label`` where the summed one-hot
-      weight is <= 0.5.
+    - one channel with linear one-hot interpolation and no antialias
+      smoothing: the corner vote (:func:`resample_label_fused`), equal to
+      the one-hot path;
+    - several channels: each channel is resampled as a float map, blurred
+      first with ``antialias`` (float labels keep their dtype; integer
+      ones come back float32);
+    - otherwise the one-hot path over the sorted unique labels (blurred
+      first with ``antialias``), ties to the smallest label,
+      ``default_pad_label`` where the summed one-hot weight is <= 0.5.
     """
-    if data.shape[1] == 1 and one_hot_label_interpolation == "linear":
+    smoothing = antialias and not np.all(
+        _resolved_antialias_sigmas(input_affine, output_affine) == 0
+    )
+    if data.shape[1] == 1 and not smoothing and one_hot_label_interpolation == "linear":
         return resample_label_fused(
             data, maps, fields, out_shape=out_shape, pad_label=default_pad_label
         )
     if data.shape[1] > 1:
+        smoothed = data.to(torch.float32)
+        if antialias:
+            smoothed = _antialias(smoothed, input_affine, output_affine)
         sampled = _dispatch_resample(
-            data.to(torch.float32), maps, fields, out_shape,
-            mode=one_hot_label_interpolation, fill=0.0,
+            smoothed, maps, fields, out_shape, mode=one_hot_label_interpolation, fill=0.0,
         )
         return sampled.to(data.dtype) if data.dtype.is_floating_point else sampled
     labels = unique_labels(data)
     values = torch.as_tensor(labels, dtype=data.dtype, device=data.device)
     one_hot = (data[:, 0:1] == values.reshape(1, -1, 1, 1, 1)).to(torch.float32)
+    if antialias:
+        one_hot = _antialias(one_hot, input_affine, output_affine)
     sampled = _dispatch_resample(
         one_hot, maps, fields, out_shape, mode=one_hot_label_interpolation, fill=0.0
     )
@@ -703,9 +1014,94 @@ def _resample_label_partial_volume(
     return resampled[:, None].to(data.dtype)
 
 
+class _SpatialInverse(SpatialTransform):
+    """Concrete inverse of Spatial: exact affine inverse, negated elastic
+    field, flipped ordering, resample to the recorded original space."""
+
+    def __init__(
+        self,
+        *,
+        target,
+        affine_matrix,
+        control_points,
+        affine_first: bool,
+        image_interpolation: str,
+        label_interpolation: str,
+        one_hot_label_interpolation: str = "linear",
+        default_pad_value,
+        default_pad_label: float,
+        per_sample: _PerSampleGeometry | None = None,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        self.target = target
+        self.affine_matrix = (
+            None if affine_matrix is None else np.asarray(affine_matrix, np.float64)
+        )
+        self.control_points = (
+            None if control_points is None else np.asarray(control_points, np.float32)
+        )
+        self.per_sample = per_sample
+        self.affine_first = affine_first
+        self.image_interpolation = _parse_interpolation(image_interpolation)
+        self.label_interpolation = _parse_interpolation(label_interpolation)
+        self.one_hot_label_interpolation = _parse_interpolation(
+            one_hot_label_interpolation
+        )
+        self.default_pad_value = default_pad_value
+        self.default_pad_label = float(default_pad_label)
+
+    def apply_transform(
+        self, batch: SubjectsBatch, params: dict[str, Any]
+    ) -> SubjectsBatch:
+        max_displacement = None
+        if self.per_sample is None and self.control_points is not None:
+            max_displacement = _field_displacement_extent(self.control_points)
+        _run_spatial_pipeline(
+            batch=batch,
+            image_names=list(self._get_images(batch)),
+            target_space=self.target,
+            affine_matrix=self.affine_matrix,
+            control_points=self.control_points,
+            max_displacement=max_displacement,
+            affine_first=self.affine_first,
+            image_interpolation=self.image_interpolation,
+            label_interpolation=self.label_interpolation,
+            one_hot_label_interpolation=self.one_hot_label_interpolation,
+            antialias=False,
+            default_pad_value=self.default_pad_value,
+            default_pad_label=self.default_pad_label,
+            per_sample=self.per_sample,
+        )
+        return batch
+
+
 # --------------------------------------------------------------------------
 # Wrappers
 # --------------------------------------------------------------------------
+
+
+class Resample(Spatial):
+    r"""Resample images to another space (by default 1 mm isotropic)."""
+
+    def __init__(
+        self,
+        *,
+        target=1.0,
+        image_interpolation="linear",
+        label_interpolation="nearest",
+        one_hot_label_interpolation="linear",
+        antialias: bool = False,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            target=target,
+            image_interpolation=image_interpolation,
+            label_interpolation=label_interpolation,
+            one_hot_label_interpolation=one_hot_label_interpolation,
+            antialias=antialias,
+            **kwargs,
+        )
 
 
 class Affine(Spatial):

@@ -172,7 +172,7 @@ def record_history(batch: SubjectsBatch, transform: "Transform", params: dict) -
     element was gated out)."""
     if _has_deferred(params):
         params = _resolve_eager_deferred(params)
-    if _all_elements_gated_out(params):
+    if not transform._records_history or _all_elements_gated_out(params):
         return
     batch.applied_transforms.append(
         AppliedTransform(
@@ -243,6 +243,10 @@ class Transform:
         if isinstance(result, (Subject, Image, ImagesBatch)):
             result.applied_transforms = list(batch.applied_transforms)
         return result
+
+    #: False in transforms that delegate to children which record their
+    #: own (invertible) history entries (CropOrPad -> Pad + Crop).
+    _records_history = True
 
     # --- Per-instance machinery ---
 
@@ -346,6 +350,13 @@ class Transform:
     ) -> SubjectsBatch:
         """Apply with given params. Data is 5D (B, C, I, J, K)."""
         raise NotImplementedError
+
+    @property
+    def invertible(self) -> bool:
+        return False
+
+    def inverse(self, params: dict[str, Any]) -> "Transform":
+        raise NotImplementedError(f"{type(self).__name__} is not invertible")
 
     # --- Scoping ---
 
