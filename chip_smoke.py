@@ -53,9 +53,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    labels untouched), config 1 and config 2 (1e-4), config 3 (2 x (4 +
    1) x 40x44x24 at 1x1x2 mm to 1 mm) and config 4's forward and inverse
    (2 x (1 + 1) x 40x44x48; images 1e-4, labels equal off near ties of
-   any step, 4 resample launches each); a subject and an array built
-   from numpy go through the headline on the card (host data lands there
-   by default) and launch the resample kernel;
+   any step, 4 resample launches each); the patch layer: config 5's Queue
+   (2 x 48^3 t1 + int32 seg, LabelSampler 16^3, Motion + Ghosting,
+   ``device_batches``; images 1e-4, labels, locations and affines equal,
+   one dense resample launch a subject that kept Motion), a GridSampler
+   -> PatchAggregator pass in each mode (1e-6), Spike (1e-4), and
+   ``key_randint``'s words (equal, one threefry bits launch a draw); a
+   subject and an array built from numpy go through the headline on the
+   card (host data lands there by default) and launch the resample
+   kernel;
 5. headline: ``Compose([Spatial, BiasField, Noise], fuse=True)`` on
    B=4 x 1 x 256^3 float32 through ``Compose.__call__``, 2 warm-up and 5
    timed calls, with the launch counts read around the run;
@@ -89,7 +95,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    consistency (a 12-voxel margin), which must beat the forward's alone;
    configs 3 and 4 must launch the resample kernel RESAMPLE_LAUNCHES
    times a call and the threefry kernel never;
-12. each kernel against its plain version at its path's shape, timed
+12. config5-queue-labelsampler: BASELINE.json config 5 as
+   benchmarks/patches_bench.py's bench_queue_device, at 256^3: a Queue of
+   4 subjects (1 x 256^3 t1 + int32 block seg) behind ``Compose([Motion(
+   degrees=5, translation=3, num_transforms=1, p=0.5), Ghosting(intensity=
+   (0.3, 0.7), p=0.5)])`` in 2 worker threads, LabelSampler 64^3, 8
+   patches a subject, a ring of 64, ``device_batches(batch_size=8)``, 2
+   warm-up and 3 timed epochs, each batch consumed by a device-side
+   ``sum().item()``; every patch centre labelled, the dense resample
+   kernel launched once for each prepared subject that kept Motion and no
+   other kernel; then ``SubjectsLoader(queue, batch_size=8)`` the same
+   way (bench_queue);
+13. config5b-grid-hann-aggregator: bench_aggregator(device_output=True) at
+   256^3: ``GridSampler(patch_size=64, patch_overlap=16)`` (125 patches),
+   ``SubjectsLoader(batch_size=4)``, an identity model, a hann
+   ``PatchAggregator`` and ``get_output(device=True)``, a warm-up and 3
+   timed passes, the output within the JAX package's hann tolerance of
+   the input; then the same passes with ``get_output()`` to host numpy,
+   and the pull alone;
+14. each kernel against its plain version at its path's shape, timed
    kernel, plain, kernel, plain with CUDA events (the dense resample
    also against ``F.grid_sample``, its one-call library equivalent at a
    zero fill: kernel, library, kernel, library); the prefilter's three
@@ -105,7 +129,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernel also on config 3's diagonal 2 mm -> 1 mm map, beside
    ``F.interpolate(trilinear, align_corners=False)`` (the same map, which
    clamps at the border where the kernel fills: compared off the first
-   and last k slice).
+   and last k slice); the threefry kernel's bits mode on
+   ``RingPatchBuffer.sample`` at config 5's ring and batch (two segments
+   of 8 words in one launch), against the plain words.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches on its path, its error against the plain version, its time, the
@@ -116,8 +142,9 @@ TFLOP/s (an H100 SXM's peaks; the threefry kernel's integer operations
 count at the float32 rate, the only CUDA-core rate the data sheet
 gives), with ``roofline`` = bound / time. The last line is ``{"ok":
 true, "device": {...}}``. ``--profile PATH`` also writes a
-``torch.profiler`` table of two calls of each pipeline to PATH, and
-prints each pipeline's device time a call.
+``torch.profiler`` table of two calls of each pipeline to PATH (two
+epochs of config 5's Queue, two passes of its reassembly), and prints
+each pipeline's device time a call.
 """
 
 from __future__ import annotations
@@ -158,7 +185,7 @@ TIE_BAND = 1e-4
 ORDERS = range(2, 8)
 KERNELS = (
     "resample", "label_vote", "bspline_prefilter", "bspline_resample",
-    "resample_coords", "bspline_coords", "threefry_normal",
+    "resample_coords", "bspline_coords", "threefry_normal", "threefry_bits",
 )
 #: threefry's normals: the kernel against the plain version (the bits
 #: are held equal)
@@ -2279,6 +2306,363 @@ def phase_diagonal_timing(torch, np, tio, rs, rk, batch):
     }
 
 
+#: BASELINE.json config 5 (benchmarks/patches_bench.py): 4 subjects, 64^3
+#: LabelSampler patches, 8 a subject, a ring of 64, batches of 8, Motion +
+#: Ghosting in 2 worker threads; and its hann reassembly: a GridSampler of
+#: 64^3 patches overlapping by 16 over one subject, batches of 4. At 256^3
+#: (a 1 mm T1), where the bench's 128^3 was sized to feed a TPU
+CONFIG5_SUBJECTS, CONFIG5_SHAPE, CONFIG5_PATCH = 4, (S, S, S), 64
+CONFIG5_RING, CONFIG5_PER_VOLUME, CONFIG5_BATCH, CONFIG5_WORKERS = 64, 8, 8, 2
+CONFIG5_WARMUP, CONFIG5_TIMED = 2, 3
+CONFIG5B_OVERLAP, CONFIG5B_BATCH, CONFIG5B_TIMED = 16, 4, 3
+#: the JAX package's own hann reassembly tolerance
+#: (tests/test_patch_pipeline.py, TestAggregator.test_hann_roundtrip)
+HANN_RTOL, HANN_ATOL = 1e-3, 1e-4
+#: the aggregator on the card against the CPU: the same adds in the same
+#: order, an ulp apart at most where the card contracts a product
+AGGREGATOR_ATOL = 1e-6
+
+
+class Recorder:
+    """A Queue transform: runs ``transform`` and keeps each output's
+    history (transform names), from whichever thread prepared it."""
+
+    def __init__(self, transform):
+        self.transform = transform
+        self.histories: list[list[str]] = []
+
+    def __call__(self, subject):
+        out = self.transform(subject)
+        self.histories.append([h.name for h in out.applied_transforms])
+        return out
+
+    def motion_kept(self) -> int:
+        return sum("Motion" in names for names in self.histories)
+
+
+def config5_subjects(tio, torch, n, shape, device, seed):
+    """``n`` subjects of a float32 ``t1`` in [0, 1) and the int32 block
+    ``seg`` of benchmarks/patches_bench.py:30-31, made on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    subjects = []
+    for sid in range(n):
+        t1 = torch.rand((1, *shape), generator=gen, device=device)
+        subjects.append(tio.Subject(
+            t1=tio.ScalarImage(t1), seg=tio.LabelMap(block_seg(torch, shape, device)), sid=sid,
+        ))
+    return subjects
+
+
+def config5_queue(tio, subjects, patch, workers, ring=CONFIG5_RING, per_volume=CONFIG5_PER_VOLUME):
+    return tio.Queue(
+        subjects,
+        tio.LabelSampler(patch_size=patch, label_name="seg"),
+        max_length=ring,
+        patches_per_volume=per_volume,
+        num_workers=workers,
+        transform=Recorder(kspace_pipeline(tio)),
+    )
+
+
+def patch_centres(batch, n, patch, name):
+    """The ``seg`` voxel at each patch's centre (on the card, not read
+    yet), after checking the batch is (n, 1, patch^3) t1 and seg there."""
+    t1, seg = batch.images["t1"].data, batch.images["seg"].data
+    shape = (n, 1, patch, patch, patch)
+    if tuple(t1.shape) != shape or tuple(seg.shape) != shape or t1.device.type != DEVICE:
+        fail(f"{name}: batch of {tuple(t1.shape)} / {tuple(seg.shape)} on {t1.device}")
+    c = patch // 2
+    return seg[:, 0, c, c, c]
+
+
+def check_centres(torch, centres, name):
+    """LabelSampler's contract: every patch's centre voxel is labelled."""
+    if not bool((torch.cat(centres) > 0).all()):
+        fail(f"{name}: a patch centre is not labelled")
+
+
+def phase_small_patches(torch, np, tio, tr, kl):
+    """The patch layer on small inputs, card against CPU: config 5's Queue
+    (``device_batches``), a GridSampler -> PatchAggregator pass in each
+    mode, Spike, and ``key_randint``'s words."""
+    started = time.perf_counter()
+    import random
+
+    shape, patch = (48, 48, 48), 16
+    runs = {}
+    for device in ("cpu", DEVICE):
+        previous = tio.set_default_device(device)
+        try:
+            subjects = config5_subjects(tio, torch, 2, shape, "cpu", 5)
+            for subject in subjects:
+                subject.to(device)
+            queue = config5_queue(tio, subjects, patch, 0, ring=12, per_volume=6)
+            random.seed(4)
+            tio.seed(4)
+            before = kl.LAUNCHES["resample_coords"]
+            batches = list(queue.device_batches(batch_size=4, epochs=2))
+            runs[device] = (batches, queue.transform, kl.LAUNCHES["resample_coords"] - before)
+        finally:
+            tio.set_default_device(previous)
+    (cpu, cpu_rec, _), (gpu, gpu_rec, launched) = runs["cpu"], runs[DEVICE]
+    if cpu_rec.histories != gpu_rec.histories or not gpu_rec.motion_kept():
+        fail(f"small Queue: histories {cpu_rec.histories} (cpu), {gpu_rec.histories} (cuda)")
+    if launched != gpu_rec.motion_kept():
+        fail(f"small Queue: {launched} dense resample launches, Motion kept"
+             f" {gpu_rec.motion_kept()} times")
+    err = 0.0
+    if len(cpu) != len(gpu) or not gpu:
+        fail(f"small Queue: {len(cpu)} batches on the cpu, {len(gpu)} on the card")
+    for a, b in zip(cpu, gpu):
+        check_centres(torch, [patch_centres(b, 4, patch, "small Queue")], "small Queue")
+        err = max(err, float((b.images["t1"].data.cpu() - a.images["t1"].data).abs().max()))
+        same = torch.equal(b.images["seg"].data.cpu(), a.images["seg"].data) and all(
+            x.to_json() == y.to_json()
+            for x, y in zip(a.metadata["patch_location"], b.metadata["patch_location"])
+        ) and all(
+            np.array_equal(x.data, y.data)
+            for name in ("t1", "seg")
+            for x, y in zip(a.images[name].affines, b.images[name].affines)
+        )
+        if not same or not err <= SLICE_ATOL:
+            fail(f"small Queue: a batch differs from the CPU path (t1 max abs {err})")
+    print(
+        f"small Queue (2 x 48^3 t1 + seg, LabelSampler 16^3, Motion + Ghosting,"
+        f" device_batches of 4) cuda vs cpu: {len(gpu)} batches, t1 max abs {err:.3g}"
+        f" (limit {SLICE_ATOL}), seg, locations and affines equal; histories"
+        f" {gpu_rec.histories}; dense resample launches {launched}"
+    )
+    agg_err = {}
+    volume = torch.rand((2, *shape), generator=torch.Generator().manual_seed(8))
+    for mode in ("crop", "average", "hann"):
+        outs = []
+        for device in ("cpu", DEVICE):
+            subject = tio.Subject(t1=tio.ScalarImage(volume.to(device)))
+            sampler = tio.GridSampler(subject, patch_size=patch, patch_overlap=4)
+            agg = tio.PatchAggregator(shape, overlap_mode=mode, patch_overlap=4)
+            for batch in tio.SubjectsLoader(sampler, batch_size=5):
+                agg.add_batch(batch.images["t1"].data, batch.metadata["patch_location"])
+            outs.append(agg.get_output(device=True))
+        if outs[1].device.type != DEVICE:
+            fail(f"aggregator ({mode}): output on {outs[1].device}")
+        agg_err[mode] = float((outs[1].cpu() - outs[0]).abs().max())
+        recon = float((outs[1].cpu() - volume).abs().max())
+        if not agg_err[mode] <= AGGREGATOR_ATOL or not recon <= HANN_ATOL + HANN_RTOL:
+            fail(f"aggregator ({mode}): cuda vs cpu {agg_err[mode]}, vs the input {recon}")
+    print(f"small GridSampler -> PatchAggregator (2 x 48^3, 16^3 overlapping by 4) cuda vs"
+          f" cpu: max abs {agg_err} (limit {AGGREGATOR_ATOL})")
+    cpu_out, gpu_out = run_on_both(
+        tio, lambda: make_batch(tio, torch, 2, (40, 44, 48), "cpu", 9),
+        lambda t: t.Spike(num_spikes=(1, 3), intensity=(1, 3)), 6,
+    )
+    spike_err = float((gpu_out.t1.data.cpu() - cpu_out.t1.data).abs().max())
+    print(f"small Spike (2 x 40x44x48) cuda vs cpu: max abs {spike_err:.3g} (limit {SLICE_ATOL})")
+    if not spike_err <= SLICE_ATOL:
+        fail(f"Spike differs from the CPU path by {spike_err}")
+    before = kl.LAUNCHES["threefry_bits"]
+    spans = ((0, 1), (0, 64), (0, 1000), (-7, 12), (0, 2**31 - 1))
+    for lo, hi in spans:
+        for n in (8, 4097):
+            key = tr.prng_key(lo * 31 + n)
+            got = tr.key_randint(key, (n,), lo, hi, device=DEVICE)
+            want = tr.key_randint(key, (n,), lo, hi, device="cpu")
+            if not torch.equal(got.cpu(), want):
+                fail(f"key_randint [{lo}, {hi}) x {n}: the card's draw differs")
+    launched = kl.LAUNCHES["threefry_bits"] - before
+    if launched != 2 * len(spans):
+        fail(f"key_randint: {launched} threefry bits launches for {2 * len(spans)} draws")
+    print(f"key_randint on the card vs cpu: equal on spans {spans} (8 and 4,097 draws),"
+          f" one threefry bits launch a draw; the patch layer's small checks took"
+          f" {time.perf_counter() - started:.1f} s")
+
+
+def phase_config5_queue(torch, tio, kl, profile: str | None):
+    """config5-queue-labelsampler: benchmarks/patches_bench.py's
+    bench_queue_device on the card (``Queue.device_batches``), then its
+    bench_queue (``SubjectsLoader`` over the Queue) once beside it."""
+    started = time.perf_counter()
+    name = "config5-queue-labelsampler"
+    dev = torch.device(DEVICE)
+    subjects = config5_subjects(tio, torch, CONFIG5_SUBJECTS, CONFIG5_SHAPE, dev, 0)
+    queue = config5_queue(tio, subjects, CONFIG5_PATCH, CONFIG5_WORKERS)
+    recorder = queue.transform
+    centres = []
+
+    def epoch(times=None):
+        t0 = time.perf_counter()
+        n = 0
+        for batch in queue.device_batches(batch_size=CONFIG5_BATCH):
+            batch.images["t1"].data.sum().item()  # a device-side consumer
+            centres.append(patch_centres(batch, CONFIG5_BATCH, CONFIG5_PATCH, name))
+            n += batch.batch_size
+            if times is not None:
+                times.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+        return n
+
+    tio.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kl.reset_launches()
+    for _ in range(CONFIG5_WARMUP):
+        epoch()
+    batch_times: list[float] = []
+    t0 = time.perf_counter()
+    patches = sum(epoch(batch_times) for _ in range(CONFIG5_TIMED))
+    wall = time.perf_counter() - t0
+    launches = {k: kl.LAUNCHES[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    prepared = (CONFIG5_WARMUP + CONFIG5_TIMED) * CONFIG5_SUBJECTS
+    if len(recorder.histories) != prepared:
+        fail(f"{name}: {len(recorder.histories)} subjects prepared, expected {prepared}")
+    kept = recorder.motion_kept()
+    if not kept or launches["resample_coords"] != kept:
+        fail(f"{name}: {launches['resample_coords']} dense resample launches, Motion kept"
+             f" {kept} times in {prepared} subjects")
+    others = {k: v for k, v in launches.items() if v and k != "resample_coords"}
+    if others:
+        fail(f"{name}: launched kernels off its path: {others}")
+    expected = CONFIG5_TIMED * (CONFIG5_SUBJECTS * CONFIG5_PER_VOLUME // CONFIG5_BATCH)
+    if len(batch_times) * CONFIG5_BATCH != patches or len(batch_times) != expected:
+        fail(f"{name}: {len(batch_times)} timed batches, expected {expected}")
+    loader_patches = 0
+    for i in range(CONFIG5_WARMUP + CONFIG5_TIMED):
+        if i == CONFIG5_WARMUP:
+            t1 = time.perf_counter()
+            loader_patches = 0
+        for batch in tio.SubjectsLoader(queue, batch_size=CONFIG5_BATCH):
+            batch.images["t1"].data.sum().item()
+            centres.append(patch_centres(batch, CONFIG5_BATCH, CONFIG5_PATCH, name))
+            loader_patches += batch.batch_size
+    loader_wall = time.perf_counter() - t1
+    check_centres(torch, centres, name)
+    print(
+        f"{name}: {patches / wall:.2f} patches/s over {CONFIG5_TIMED} timed epochs of"
+        f" Queue.device_batches ({CONFIG5_SUBJECTS} subjects of 1 x {CONFIG5_SHAPE[0]}^3 t1 +"
+        f" int32 seg, LabelSampler {CONFIG5_PATCH}^3, {CONFIG5_PER_VOLUME} a subject, ring"
+        f" {CONFIG5_RING}, batches of {CONFIG5_BATCH}, {CONFIG5_WORKERS} workers; after"
+        f" {CONFIG5_WARMUP} warm-up epochs); median batch"
+        f" {statistics.median(batch_times) * 1e3:.2f} ms (batches"
+        f" {[round(t * 1e3, 1) for t in batch_times]} ms); dense resample launches"
+        f" {launches['resample_coords']} = subjects that kept Motion ({kept} of {prepared});"
+        f" peak allocated {peak / 2**30:.2f} GiB; SubjectsLoader over the Queue:"
+        f" {loader_patches / loader_wall:.2f} patches/s ({CONFIG5_TIMED} epochs after"
+        f" {CONFIG5_WARMUP}); the phase took {time.perf_counter() - started:.1f} s"
+    )
+    if profile:
+        profile_calls(torch, lambda _: epoch(), None, profile, f"{name} (an epoch a call)")
+    return launches
+
+
+def phase_config5_aggregator(torch, np, tio, profile: str | None):
+    """config5b-grid-hann-aggregator: benchmarks/patches_bench.py's
+    bench_aggregator(device_output=True) on the card (GridSampler ->
+    SubjectsLoader -> an identity model -> hann PatchAggregator ->
+    ``get_output(device=True)``), and the pull to the host beside it."""
+    started = time.perf_counter()
+    name = "config5b-grid-hann-aggregator"
+    dev = torch.device(DEVICE)
+    subject = config5_subjects(tio, torch, 1, CONFIG5_SHAPE, dev, 1)[0]
+    sampler = tio.GridSampler(
+        subject, patch_size=CONFIG5_PATCH, patch_overlap=CONFIG5B_OVERLAP
+    )
+    loader = tio.SubjectsLoader(sampler, batch_size=CONFIG5B_BATCH)
+
+    def run_pass(device_output=True):
+        agg = tio.PatchAggregator(subject.spatial_shape, overlap_mode="hann")
+        for batch in loader:
+            agg.add_batch(batch.images["t1"].data, batch.metadata["patch_location"])
+        out = agg.get_output(device=device_output)
+        torch.cuda.synchronize()
+        return out
+
+    run_pass()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(CONFIG5B_TIMED):
+        t0 = time.perf_counter()
+        out = run_pass()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    volume = subject.t1.data
+    if tuple(out.shape) != tuple(volume.shape) or out.device.type != DEVICE:
+        fail(f"{name}: output {tuple(out.shape)} on {out.device}")
+    err = (out - volume).abs()
+    if not bool((err <= HANN_ATOL + HANN_RTOL * volume.abs()).all()):
+        fail(f"{name}: output differs from the input by up to {float(err.max())}")
+    host_times = []
+    for _ in range(CONFIG5B_TIMED):
+        t0 = time.perf_counter()
+        host = run_pass(device_output=False)
+        host_times.append(time.perf_counter() - t0)
+    if not np.allclose(host, volume.cpu().numpy(), rtol=HANN_RTOL, atol=HANN_ATOL):
+        fail(f"{name}: the host output differs from the input")
+    pull = []
+    for _ in range(CONFIG5B_TIMED):
+        t0 = time.perf_counter()
+        out.cpu().numpy()
+        pull.append(time.perf_counter() - t0)
+    n = len(sampler)
+    print(
+        f"{name}: {n / statistics.median(times):.2f} patches/s (median pass"
+        f" {statistics.median(times) * 1e3:.1f} ms, passes {[round(t * 1e3, 1) for t in times]}"
+        f" ms after a warm-up) for {n} patches of {CONFIG5_PATCH}^3 overlapping by"
+        f" {CONFIG5B_OVERLAP} over 1 x {CONFIG5_SHAPE[0]}^3, batches of {CONFIG5B_BATCH},"
+        f" get_output(device=True); max abs vs the input {float(err.max()):.3g}; peak allocated"
+        f" {peak / 2**30:.2f} GiB; with get_output() to host numpy:"
+        f" {n / statistics.median(host_times):.2f} patches/s (median pass"
+        f" {statistics.median(host_times) * 1e3:.1f} ms), the pull of the"
+        f" {out.numel() * 4 / 2**20:.0f} MiB volume alone {statistics.median(pull) * 1e3:.2f} ms;"
+        f" the phase took {time.perf_counter() - started:.1f} s"
+    )
+    if profile:
+        profile_calls(torch, lambda _: run_pass(), None, profile, f"{name} (a pass a call)")
+
+
+def phase_ring_sample_timing(torch, tr, tk, kl):
+    """The threefry kernel's bits mode on its path, ``RingPatchBuffer.
+    sample`` (``key_randint``: two segments in one launch) at config 5's
+    ring and batch: launches counted around one call, then the kernel
+    against the plain words at the draw's shape."""
+    from torchio_tpu_torch.ops.patches import RingPatchBuffer
+
+    dev = torch.device(DEVICE)
+    ring = RingPatchBuffer(CONFIG5_RING, (1, *(CONFIG5_PATCH,) * 3), device=dev)
+    ring.push(torch.rand((CONFIG5_RING, 1, *(CONFIG5_PATCH,) * 3), device=dev))
+    torch.cuda.synchronize()
+    kl.reset_launches()
+    drawn = ring.sample(CONFIG5_BATCH, seed=11)
+    torch.cuda.synchronize()
+    launches = kl.LAUNCHES["threefry_bits"]
+    if launches != 1 or tuple(drawn.shape) != (CONFIG5_BATCH, 1, *(CONFIG5_PATCH,) * 3):
+        fail(f"RingPatchBuffer.sample: {launches} threefry bits launches, {tuple(drawn.shape)}")
+    keys = tr.split(tr.prng_key(11))
+    counts = [CONFIG5_BATCH, CONFIG5_BATCH]
+
+    def kernel():
+        return tk.threefry_segments_cuda(keys, counts, None, dev, normal=False)
+
+    def plain():
+        return torch.cat([tr.bits_plain(k, 0, c, dev) for k, c in zip(keys, counts)])
+
+    got = kernel().to(torch.int64) & tr.MASK32
+    err = float((got - plain()).abs().max())
+    if err != 0:
+        fail(f"threefry bits at the ring's draw: max abs {err}")
+    order, ms, plain_ms = time_pair(torch, kernel, plain, kernel_reps=200, plain_reps=20)
+    n = sum(counts)
+    work = bound(4 * n, n * 73)  # writes 4 bytes a word; 73 integer operations a word
+    print(
+        f"threefry bits on RingPatchBuffer.sample ({CONFIG5_BATCH} rows of a {CONFIG5_RING}-patch"
+        f" ring: 2 x {CONFIG5_BATCH} words in one launch): kernel {ms:.4f} ms, plain"
+        f" {plain_ms:.4f} ms (k, p, k, p: {', '.join(f'{t:.4f}' for t in order)}); bound"
+        f" {work[0]:.2e} ms ({work[1]}); launches a call {launches}"
+    )
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": work}, launches
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -2325,6 +2709,7 @@ def main() -> int:
     phase_small_config(torch, tio, 2)
     phase_small_config3(torch, np, tio, rs, kl)
     phase_small_config4(torch, np, tio, rs, kl)
+    phase_small_patches(torch, np, tio, tr, kl)
     phase_host_subject(torch, np, tio, kl)
     headline_launches = phase_slice(torch, tio, kl, args.profile)
     brats_launches, brats_batch = phase_brats(torch, tio, kl, args.profile)
@@ -2333,6 +2718,8 @@ def main() -> int:
     config2_launches = phase_config(torch, tio, kl, 2, args.profile)
     config3_launches, config3_batch = phase_config3(torch, tio, kl, args.profile)
     config4_launches = phase_config4(torch, tio, kl, args.profile)
+    config5_launches = phase_config5_queue(torch, tio, kl, args.profile)
+    phase_config5_aggregator(torch, np, tio, args.profile)
     timings = {"resample": phase_kernel_timing(torch, np, tio, rs, rk)}
     timings.update(phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch))
     del brats_batch
@@ -2341,6 +2728,7 @@ def main() -> int:
     timings["threefry_normal"] = phase_threefry_timing(torch, config, tr, tk)
     timings["resample_diagonal"] = phase_diagonal_timing(torch, np, tio, rs, rk, config3_batch)
     del config3_batch
+    timings["threefry_bits"], ring_sample_launches = phase_ring_sample_timing(torch, tr, tk, kl)
     window = "torchio_tpu/ops/window_resample.py:335"
     launches = {
         "resample": headline_launches["resample"],
@@ -2351,6 +2739,7 @@ def main() -> int:
         "bspline_coords": dense_launches["bspline_coords"],
         "threefry_normal": headline_launches["threefry_normal"],
         "resample_diagonal": config3_launches["resample"],
+        "threefry_bits": ring_sample_launches,
     }
     resample_paths = {
         "headline": headline_launches["resample"],
@@ -2403,6 +2792,10 @@ def main() -> int:
             "route": "cuda",
             "source": "torchio_tpu_torch/csrc/resample.cu",
             "replaces": "torchio_tpu/ops/pallas_resample.py:117",
+            "note": "launches on kspace-motion-ghosting; config5-queue-labelsampler"
+            f" (Motion in the Queue's transform, {CONFIG5_WARMUP + CONFIG5_TIMED} epochs of"
+            f" {CONFIG5_SUBJECTS} subjects): {config5_launches['resample_coords']}, one a"
+            " subject that kept Motion",
             "path": "kspace-motion-ghosting",
         },
         {
@@ -2442,6 +2835,17 @@ def main() -> int:
             " resample launch of the config 3 path, 4 a call (Affine and Resample, ch"
             " and seg); library: F.interpolate(trilinear, align_corners=False)",
             "path": "config3-affine-resample",
+        },
+        {
+            "name": "threefry_bits",
+            "route": "cuda",
+            "source": "torchio_tpu_torch/csrc/threefry.cu",
+            "replaces": "torchio_tpu/ops/patches.py:115",
+            "note": "jax.random.randint's two words (XLA in the JAX package, no Pallas"
+            " kernel): the threefry kernel's bits mode, both words in one launch of two"
+            " segments, through random.key_randint on RingPatchBuffer.sample; launches: one"
+            " call of sample on config 5's ring; no library call draws jax.random's words",
+            "path": "ring-sample",
         },
     ]
     for entry in kernels:

@@ -1,5 +1,5 @@
-"""Port parity: Motion and Ghosting (the k-space transforms) against the
-JAX package.
+"""Port parity: Motion, Ghosting and Spike (the k-space transforms)
+against the JAX package.
 
 Both packages draw the same parameters from the same ``seed`` (host numpy
 only: neither transform draws on the device) and run them on the same
@@ -100,6 +100,10 @@ TRANSFORMS = {
     "ghosting-restore": lambda pkg: pkg.Ghosting(intensity=0.8, restore=0.3),
     "ghosting-shared": lambda pkg: pkg.Ghosting(intensity=(0.3, 0.7), per_instance=False),
     "ghosting-gated": lambda pkg: pkg.Ghosting(intensity=(0.3, 0.7), p=0.5),
+    "spike": lambda pkg: pkg.Spike(intensity=(1, 3)),
+    "spike-many": lambda pkg: pkg.Spike(num_spikes=(1, 5), intensity=(-2, 2)),
+    "spike-shared": lambda pkg: pkg.Spike(num_spikes=3, intensity=1.5, per_instance=False),
+    "spike-gated": lambda pkg: pkg.Spike(num_spikes=2, intensity=(1, 3), p=0.5),
 }
 
 
@@ -224,3 +228,35 @@ def test_names_register_as_in_the_jax_package():
     for name in ("Motion", "Ghosting"):
         assert get_transform_class(name) is getattr(tt, name)
         assert name in tt.__all__ and name in tj.__all__
+
+
+def test_spike_on_two_channels_matches_jax():
+    _, jax_out, port_out = run_both(
+        lambda pkg: pkg.Spike(num_spikes=(2, 4), intensity=(0.5, 2)), b=3, shape=(2, 10, 12, 9)
+    )
+    assert_same(jax_out, port_out)
+
+
+def test_spike_gated_out_elements_are_bit_exact():
+    _, batch = make_batches(b=4, shape=SHAPE, seed=6)
+    tt.seed(12)
+    out = tt.Spike(intensity=(1, 3), p=0.5)(batch)
+    params = out.applied_transforms[0].params
+    keep = params["_keep"]
+    assert any(keep) and not all(keep)
+    for i, kept in enumerate(keep):
+        assert torch.equal(out.t1.data[i], batch.t1.data[i]) != kept
+        assert (params["positions"][i] == []) != kept
+
+
+def test_spike_warns_as_the_jax_package_when_it_is_a_noop():
+    messages = []
+    for pkg in (tj, tt):
+        with pytest.warns(RuntimeWarning, match="Spike with default arguments is a no-op") as got:
+            pkg.Spike()
+        messages.append([str(w.message) for w in got])
+    assert messages[0] == messages[1]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tt.Spike(intensity=1.0)
+    assert get_transform_class("Spike") is tt.Spike and "Spike" in tt.__all__

@@ -22,6 +22,13 @@ fields are ``jax.random``'s own threefry draws, so one seed gives the
 JAX package's noise and bias fields. The dense-coordinate entry
 (``ops.resample``, ``ops.build_coords``) serves Motion's rigid moves.
 
+The patch layer between the transforms and a training or inference loop
+(BASELINE.json config 5): the samplers (GridSampler, UniformSampler,
+WeightedSampler, LabelSampler), the Queue (with ``device_batches``, ring
+buffers of patches on the device), the loaders and collate functions,
+and the PatchAggregator (crop, average and hann reassembly); Spike joins
+Motion and Ghosting as the third k-space artifact.
+
 Host data (numpy arrays) given to an image, a subject, or a transform's
 ndarray or dict entry lands on the card; :func:`set_default_device`
 (``"cpu"``) asks for the CPU instead.
@@ -32,7 +39,27 @@ __version__ = "0.1.0"
 from . import random  # noqa: A004  (named like the stdlib on purpose)
 from .config import default_device, set_default_device
 from .core.affine import AffineMatrix
-from .data import ImagesBatch, LabelMap, ScalarImage, Subject, SubjectsBatch
+from .data import (
+    GridSampler,
+    ImagesBatch,
+    ImagesLoader,
+    LabelMap,
+    LabelSampler,
+    PatchAggregator,
+    PatchLocation,
+    PatchSampler,
+    Queue,
+    ScalarImage,
+    StudiesLoader,
+    Subject,
+    SubjectsBatch,
+    SubjectsLoader,
+    UniformSampler,
+    WeightedSampler,
+    collate_images,
+    collate_studies,
+    collate_subjects,
+)
 from .random import seed
 from .transforms import (
     Affine,
@@ -54,6 +81,7 @@ from .transforms import (
     Resample,
     RescaleIntensity,
     Spatial,
+    Spike,
     apply_inverse_transform,
     get_inverse_transform,
 )
@@ -72,19 +100,34 @@ __all__ = [
     "Flip",
     "Gamma",
     "Ghosting",
+    "GridSampler",
     "ImagesBatch",
+    "ImagesLoader",
     "LabelMap",
+    "LabelSampler",
     "Motion",
     "Noise",
     "Normalize",
     "Pad",
+    "PatchAggregator",
+    "PatchLocation",
+    "PatchSampler",
+    "Queue",
     "Resample",
     "RescaleIntensity",
     "ScalarImage",
     "Spatial",
+    "Spike",
+    "StudiesLoader",
     "Subject",
     "SubjectsBatch",
+    "SubjectsLoader",
+    "UniformSampler",
+    "WeightedSampler",
     "apply_inverse_transform",
+    "collate_images",
+    "collate_studies",
+    "collate_subjects",
     "default_device",
     "get_inverse_transform",
     "random",

@@ -1,12 +1,44 @@
+from .aggregator import PatchAggregator
 from .batch import ImagesBatch, SubjectsBatch
 from .image import Image, LabelMap, ScalarImage
+from .loader import (
+    ImagesLoader,
+    StudiesLoader,
+    SubjectsLoader,
+    collate_images,
+    collate_studies,
+    collate_subjects,
+)
+from .patch import PatchLocation
+from .queue import Queue
+from .sampler import (
+    GridSampler,
+    LabelSampler,
+    PatchSampler,
+    UniformSampler,
+    WeightedSampler,
+)
 from .subject import Subject
 
 __all__ = [
+    "GridSampler",
     "Image",
     "ImagesBatch",
+    "ImagesLoader",
     "LabelMap",
+    "LabelSampler",
+    "PatchAggregator",
+    "PatchLocation",
+    "PatchSampler",
+    "Queue",
     "ScalarImage",
+    "StudiesLoader",
     "Subject",
     "SubjectsBatch",
+    "SubjectsLoader",
+    "UniformSampler",
+    "WeightedSampler",
+    "collate_images",
+    "collate_studies",
+    "collate_subjects",
 ]

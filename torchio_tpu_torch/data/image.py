@@ -6,7 +6,9 @@ device it was given on; host data (numpy, lists) goes to the package's
 default device (:func:`..config.default_device`, ``cuda`` unless a
 caller asks for the CPU), as the JAX package puts host data on its
 default device at the batch boundary. ``to(device)`` moves the data;
-``numpy()`` copies it to the host.
+``numpy()`` copies it to the host. ``image[i0:i1, ...]`` reads a region
+(the patch samplers slice with it): a view on the data's device, no axis
+dropped, the origin moved to the region's corner.
 """
 
 from __future__ import annotations
@@ -20,6 +22,53 @@ import torch
 from ..config import as_tensor
 from ..core.affine import AffineMatrix
 from .invertible import Invertible
+
+
+Type4Slices = tuple[slice, slice, slice, slice]
+
+
+def normalize_index(index: Any, shape: tuple[int, int, int, int]) -> Type4Slices:
+    """Normalize any indexing expression into exactly four slices.
+
+    Integers become single-element slices so axes are never dropped;
+    ``Ellipsis`` expands to full slices; missing trailing axes are padded.
+    Negative indices and slice steps are resolved against ``shape``. (The
+    port's copy of ``torchio_tpu/io/backends.py::normalize_index``.)
+    """
+    if not isinstance(index, tuple):
+        index = (index,)
+    if index.count(Ellipsis) > 1:
+        raise IndexError("An index can only have a single ellipsis")
+    items: list[Any] = []
+    if Ellipsis in index:
+        pos = index.index(Ellipsis)
+        explicit = len(index) - 1
+        fill = 4 - explicit
+        items.extend(index[:pos])
+        items.extend([slice(None)] * fill)
+        items.extend(index[pos + 1 :])
+    else:
+        items = list(index)
+    if len(items) > 4:
+        raise IndexError(f"Too many indices for 4D image data: {len(items)}")
+    items.extend([slice(None)] * (4 - len(items)))
+    out: list[slice] = []
+    for axis, item in enumerate(items):
+        size = shape[axis]
+        if isinstance(item, (int, np.integer)):
+            i = int(item)
+            if i < 0:
+                i += size
+            if not 0 <= i < size:
+                raise IndexError(
+                    f"Index {item} out of range for axis {axis} with size {size}"
+                )
+            out.append(slice(i, i + 1, 1))
+        elif isinstance(item, slice):
+            out.append(slice(*item.indices(size)))
+        else:
+            raise IndexError(f"Unsupported index type for lazy images: {type(item)}")
+    return (out[0], out[1], out[2], out[3])
 
 
 class Image(Invertible):
@@ -131,10 +180,36 @@ class Image(Invertible):
         """Data as host numpy."""
         return self._data.detach().cpu().numpy()
 
-    # --- Metadata access ---
+    def load(self) -> None:
+        """Nothing to read: the port holds its data in memory (the JAX
+        package's lazy file backends are not ported)."""
 
-    def __getitem__(self, key: str) -> Any:
-        return self._metadata[key]
+    def unload(self) -> None:
+        """Nothing to drop: an in-memory image cannot be read again."""
+
+    def new_like(self, *, data: Any = None, affine: Any = None, **kwargs: Any) -> "Image":
+        """New image of the same class sharing metadata."""
+        new_data = self._data if data is None else data
+        new_affine = self._affine if affine is None else affine
+        meta = dict(self._metadata)
+        meta.update(kwargs)
+        return type(self)(new_data, affine=AffineMatrix(new_affine), **meta)
+
+    # --- Metadata access and region reads ---
+
+    def __getitem__(self, index: Any) -> Any:
+        """A string reads metadata. Anything else reads a region: a new
+        image of the same class whose data is a view of this one's, on
+        its device, with no axis dropped and the affine origin moved (in
+        float64) to the region's corner."""
+        if isinstance(index, str):
+            return self._metadata[index]
+        slices = normalize_index(index, self.shape)
+        region = self._data[slices]
+        corner = np.array([slices[1].start, slices[2].start, slices[3].start])
+        aff = np.array(self._affine.data)
+        aff[:3, 3] = aff[:3, :3] @ corner.astype(np.float64) + aff[:3, 3]
+        return self.new_like(data=region, affine=aff)
 
     def __setitem__(self, key: str, value: Any) -> None:
         self._metadata[key] = value

@@ -125,6 +125,14 @@ class Subject(Invertible):
 
     # --- Behavior ---
 
+    def load(self) -> None:
+        for image in self._images.values():
+            image.load()
+
+    def unload(self) -> None:
+        for image in self._images.values():
+            image.unload()
+
     def to(self, device: Any = None, dtype: Any = None) -> "Subject":
         for image in self._images.values():
             image.to(device, dtype)

@@ -9,7 +9,8 @@ never loaded. :func:`build_all` compiles every library at once, one
 
 Every exported function returns ``cudaGetLastError()`` after its launch;
 :meth:`KernelLibrary.launch` raises on a nonzero code and otherwise adds
-one to the kernel's entry in :data:`LAUNCHES`.
+one to the kernel's entry in :data:`LAUNCHES` (:func:`count_launch`,
+under a lock: a Queue's worker threads launch kernels too).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from .. import config
 #: Launches per kernel name since import (:func:`reset_launches` zeroes
 #: them to count a run).
 LAUNCHES: dict[str, int] = {}
+_launch_lock = threading.Lock()
 
 FLAGS = (
     *config.NVCC_ARCH,
@@ -48,8 +50,16 @@ U32 = ctypes.c_uint32
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(kernel: str) -> None:
+    """Add one to ``kernel``'s launch count (read-modify-write under the
+    module's lock, so threads that launch at once lose no count)."""
+    with _launch_lock:
+        LAUNCHES[kernel] += 1
 
 
 class KernelLibrary:
@@ -132,7 +142,7 @@ class KernelLibrary:
             raise RuntimeError(
                 f"{kernel} kernel launch failed: {lib.tio_error_string(err).decode()}"
             )
-        LAUNCHES[kernel] += 1
+        count_launch(kernel)
 
 
 def build_all() -> list[KernelLibrary]:

@@ -18,7 +18,8 @@ an integer seed drawn here and recorded in the params. The draws are
   ``(e >> 32, e & 0xFFFFFFFF)``;
 - :func:`key_uniform` is ``jax.random.uniform`` (the name ``uniform``
   stays the host draw of the parameter generator, as in the JAX
-  package);
+  package), and :func:`key_randint` is ``jax.random.randint`` for int32
+  (``randint`` is the host draw);
 - :func:`normal` is ``jax.random.normal``: ``sqrt(2) * erf_inv(u)`` with
   ``u`` uniform on ``[nextafter(-1, 0), 1)`` and ``erf_inv`` Giles'
   single-precision polynomial, the one XLA evaluates.
@@ -32,7 +33,8 @@ seed gives the same noise and bias fields in both packages.
 On a CPU device the draws run as plain integer torch ops (int64 holding
 32-bit words); on a CUDA device :func:`random_bits`, :func:`normal` and
 :func:`normals` launch the hand-written kernel of ``csrc/threefry.cu``
-(:mod:`.ops.threefry_kernel`). :func:`normals` takes a list of draws,
+(:mod:`.ops.threefry_kernel`); :func:`key_randint` draws its two words
+in one launch of that kernel's bits mode. :func:`normals` takes a list of draws,
 each times its own scale, in one launch (BiasField's per-element fields,
 Noise's Rician pair).
 """
@@ -260,6 +262,44 @@ def key_uniform(
     mapped by torch ops)."""
     words = random_bits(key, shape, device).view(torch.int32).to(torch.int64) & MASK32
     return uniform_of_bits(words, lo, hi)
+
+
+def key_randint(
+    key: Key, shape: tuple[int, ...], minval: int, maxval: int, device=None
+) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) on
+    ``device`` (the default device where None).
+
+    As JAX: ``k1, k2 = split(key)``, the high and the low 32-bit words of
+    each element drawn under ``k1`` and ``k2``; ``span = maxval - minval``
+    as uint32 (1 where ``maxval <= minval``); ``m = ((2^16 mod span)^2)
+    mod span``; the element is ``minval + ((hi mod span) * m + (lo mod
+    span)) mod span``, every product and sum wrapping at 2^32. On a CUDA
+    device both words come from one launch of the threefry kernel's bits
+    mode (two segments); on the CPU from :func:`bits_plain`."""
+    device = _device(device)
+    shape = tuple(int(s) for s in shape)
+    minval, maxval = int(minval), int(maxval)
+    for name, value in (("minval", minval), ("maxval", maxval)):
+        if not -(2**31) <= value < 2**31:
+            raise ValueError(f"{name} must be an int32, got {value}")
+    count = math.prod(shape)
+    k1, k2 = split(key)
+    if device.type == "cuda":
+        from .ops.threefry_kernel import threefry_segments_cuda
+
+        words = threefry_segments_cuda([k1, k2], [count, count], None, device, normal=False)
+        words = words.to(torch.int64) & MASK32
+        hi, lo = words[:count], words[count:]
+    else:
+        _check_cpu(device)
+        hi, lo = bits_plain(k1, 0, count, device), bits_plain(k2, 0, count, device)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    multiplier = (((2**16 % span) ** 2) & MASK32) % span
+    offset = (((hi % span) * multiplier) & MASK32) + (lo % span)
+    offset = (offset & MASK32) % span
+    value = (offset + minval) & MASK32
+    return torch.where(value >= 2**31, value - 2**32, value).to(torch.int32).reshape(shape)
 
 
 def normal(key: Key, shape: tuple[int, ...], device=None) -> torch.Tensor:

@@ -6,6 +6,7 @@ from .intensity.ghosting import Ghosting
 from .intensity.motion import Motion
 from .intensity.noise import Noise
 from .intensity.normalize import Normalize, RescaleIntensity
+from .intensity.spike import Spike
 from .parameter_range import Choice
 from .inverse import apply_inverse_transform, get_inverse_transform
 from .spatial.crop import Crop
@@ -37,6 +38,7 @@ __all__ = [
     "RescaleIntensity",
     "Spatial",
     "SpatialTransform",
+    "Spike",
     "Transform",
     "apply_inverse_transform",
     "get_inverse_transform",
