@@ -58,8 +58,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``device_batches``; images 1e-4, labels, locations and affines equal,
    one dense resample launch a subject that kept Motion), a GridSampler
    -> PatchAggregator pass in each mode (1e-6), Spike (1e-4), and
-   ``key_randint``'s words (equal, one threefry bits launch a draw); a
-   subject and an array built from numpy go through the headline on the
+   ``key_randint``'s words (equal, one threefry bits launch a draw), the
+   Label and Weighted samplers' corners on non-dyadic weights (equal: the
+   CDF is summed in XLA:CPU's order, ``sampler.xla_cumsum``) and a 256^3
+   CDF (bit-equal); the new paths below at a small size: policy-someof
+   (4 x (1 + 1) x 40x44x48, forward and per-element inverse; images 1e-4,
+   labels equal off near ties of each element's Spatial step and of its
+   inverse, per-element histories equal, launches as the draws imply),
+   kspace-oneof (4 x 40x44x48; 1e-4, labels untouched, one dense resample
+   launch a Motion move) and brats-preprocess-fused (2 x (4 + 1) x
+   50x52x48; 1e-4, fused equal to unfused on the card, no kernel launch);
+   a subject and an array built from numpy go through the headline on the
    card (host data lands there by default) and launch the resample
    kernel;
 5. headline: ``Compose([Spatial, BiasField, Noise], fuse=True)`` on
@@ -113,7 +122,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    timed passes, the output within the JAX package's hann tolerance of
    the input; then the same passes with ``get_output()`` to host numpy,
    and the pull alone;
-14. each kernel against its plain version at its path's shape, timed
+14. policy-someof: ``docs/tutorials/augmentation.md:82-91``,
+   ``Compose([Flip(axes=(0,), p=0.5), Spatial(scales=(0.95, 1.05),
+   degrees=5.0), SomeOf([BiasField(), Blur(std=(0.1, 0.8)), Gamma()],
+   num_transforms=(0, 2)), RescaleIntensity(out_min=0.0, out_max=1.0)])``
+   and then ``apply_inverse_transform()`` on B=4 subjects of a 256^3
+   float32 ``t1`` and an int32 block ``seg``: the SomeOf runs each
+   element as a batch of one and re-stacks them with per-element
+   histories, the inverse runs element by element; each call must launch
+   the resample kernel 2 + 2 x 4 times (batch-wide, then each element's
+   inverse) and the threefry kernel twice for each element that drew
+   BiasField (its field and its inverse's), nothing else;
+15. kspace-oneof: ``docs/tutorials/augmentation.md:48-52``, ``OneOf({
+   Motion(): 0.5, Ghosting(): 0.3, Spike(): 0.2})`` per instance on B=4
+   subjects of a 256^3 ``t1`` and an int32 ``seg``: one dense resample
+   launch for each Motion move (2 an element that drew Motion), nothing
+   else; ``seg`` comes back equal;
+16. brats-preprocess-fused: ``Compose([Clamp(out_min=0.0),
+   ZNormalization(masking_method="seg"), Mask(masking_method="seg",
+   labels=[1, 2, 4])], fuse=True)`` (the members of
+   ``docs/concepts/performance.md:144-150``'s fused chain) on the brats
+   cell's subjects: no kernel launch, zeros outside the labels, and the
+   fused run equal to the unfused one on the card, data and history;
+   phases 14-16 print their median call, launches and peak beside the
+   card's name and power limit, and with ``--profile`` the device time a
+   call and the idle share;
+17. each kernel against its plain version at its path's shape, timed
    kernel, plain, kernel, plain with CUDA events (the dense resample
    also against ``F.grid_sample``, its one-call library equivalent at a
    zero fill: kernel, library, kernel, library); the prefilter's three
@@ -983,18 +1017,7 @@ def run_on_both(tio, make, pipeline, seed):
     """``pipeline`` from one seed on the CPU and on the card: each draws
     its own noise and bias fields (the plain threefry version on the CPU,
     the kernel on the card)."""
-    import torch
-
-    # the first multithreaded torch.exp of a process has returned results
-    # off by up to 2e-4 on PyTorch's CPU build (2.13.0+cpu); warm the
-    # CPU thread pool before the CPU path is the reference
-    torch.exp(torch.zeros(1 << 20))
-    outs = []
-    for device in ("cpu", DEVICE):
-        batch = make().to(device)
-        tio.seed(seed)
-        outs.append(pipeline(tio)(batch))
-    cpu, gpu = outs
+    (cpu, gpu), _, _ = both_devices(tio, make, lambda: pipeline(tio), seed)
     if [h.params for h in cpu.applied_transforms] != [
         h.params for h in gpu.applied_transforms
     ]:
@@ -1128,6 +1151,7 @@ def profile_calls(torch, pipeline, batch, path, title):
     with path.open("a") as f:
         f.write(f"== {title}: two calls ==\n{table}\n")
     print(f"profile ({title}): device time {device_us / 2e3:.3f} ms a call; table in {path}")
+    return device_us / 2e3
 
 
 def phase_slice(torch, tio, kl, profile: str | None):
@@ -2451,6 +2475,36 @@ def phase_small_patches(torch, np, tio, tr, kl):
             fail(f"aggregator ({mode}): cuda vs cpu {agg_err[mode]}, vs the input {recon}")
     print(f"small GridSampler -> PatchAggregator (2 x 48^3, 16^3 overlapping by 4) cuda vs"
           f" cpu: max abs {agg_err} (limit {AGGREGATOR_ATOL})")
+    from torchio_tpu_torch.data.sampler import xla_cumsum
+
+    # non-dyadic weights: the samplers' CDF is summed in XLA:CPU's order with
+    # plain float32 adds, so the card's corners equal the CPU's
+    corners = {}
+    labels = suite_labels(torch, shape, "cpu")
+    samplers = {
+        "LabelSampler {0: 0.1, 1: 0.3, 2: 0.7, 3: 0.9}": lambda: tio.LabelSampler(
+            patch_size=patch, label_name="seg",
+            label_probabilities={0: 0.1, 1: 0.3, 2: 0.7, 3: 0.9},
+        ),
+        "WeightedSampler on t1": lambda: tio.WeightedSampler(patch_size=patch, probability_map="t1"),
+    }
+    for device in ("cpu", DEVICE):
+        subject = tio.Subject(
+            t1=tio.ScalarImage(volume[:1].to(device)), seg=tio.LabelMap(labels.to(device))
+        )
+        for name, make in samplers.items():
+            tio.seed(13)
+            corners[device, name] = [loc.index for loc in make().sample_locations(subject, 400)]
+    for name in samplers:
+        if corners["cpu", name] != corners[DEVICE, name]:
+            fail(f"{name}: the card's corners differ from the CPU's")
+    weights = torch.rand(S**3, generator=torch.Generator().manual_seed(14))
+    cdf_cpu = xla_cumsum(weights)
+    cdf_gpu = xla_cumsum(weights.to(DEVICE)).cpu()
+    if not torch.equal(cdf_cpu.view(torch.int32), cdf_gpu.view(torch.int32)):
+        fail(f"xla_cumsum of {S}^3 weights: the card's bits differ from the CPU's")
+    print(f"samplers on non-dyadic weights ({', '.join(samplers)}; 400 corners each) cuda vs"
+          f" cpu: equal; the CDF of {S}^3 float32 weights bit-equal")
     cpu_out, gpu_out = run_on_both(
         tio, lambda: make_batch(tio, torch, 2, (40, 44, 48), "cpu", 9),
         lambda t: t.Spike(num_spikes=(1, 3), intensity=(1, 3)), 6,
@@ -2663,6 +2717,396 @@ def phase_ring_sample_timing(torch, tr, tk, kl):
 
 
 
+#: docs/tutorials/augmentation.md:82-91, the composition policy: a B=4
+#: batch of 256^3 ``t1`` + int32 block ``seg``, then its per-element
+#: inverse; and the k-space OneOf of :48-52 on the same subjects
+POLICY_SEED, ONEOF_SEED = 0, 0
+#: history keys that hold statistics of the data: their floats come from
+#: sums in another order on the card than on the CPU
+DATA_STATS = ("in_ranges", "stats")
+
+
+def policy_pipeline(tio):
+    """``docs/tutorials/augmentation.md:82-91``."""
+    return tio.Compose(
+        [
+            tio.Flip(axes=(0,), p=0.5),
+            tio.Spatial(scales=(0.95, 1.05), degrees=5.0),
+            tio.SomeOf(
+                [tio.BiasField(), tio.Blur(std=(0.1, 0.8)), tio.Gamma()],
+                num_transforms=(0, 2),
+            ),
+            tio.RescaleIntensity(out_min=0.0, out_max=1.0),
+        ]
+    )
+
+
+def kspace_oneof(tio):
+    """``docs/tutorials/augmentation.md:48-52``."""
+    return tio.OneOf({tio.Motion(): 0.5, tio.Ghosting(): 0.3, tio.Spike(): 0.2})
+
+
+def brats_preprocess(tio, fuse=True):
+    """The fused preprocessing chain: its members are those of
+    ``docs/concepts/performance.md:144-150``."""
+    return tio.Compose(
+        [
+            tio.Clamp(out_min=0.0),
+            tio.ZNormalization(masking_method="seg"),
+            tio.Mask(masking_method="seg", labels=[1, 2, 4]),
+        ],
+        fuse=fuse,
+    )
+
+
+class PolicyCall:
+    """The policy forward, then ``apply_inverse_transform()``; keeps each
+    call's per-element histories (transform names) and forward output."""
+
+    def __init__(self, tio):
+        self.pipeline = policy_pipeline(tio)
+        self.elements: list[list[list[str]]] = []
+        self.forward = None
+
+    def __call__(self, batch):
+        self.forward = self.pipeline(batch)
+        if self.forward._per_element_history is None:
+            fail("policy-someof: the SomeOf left no per-element histories")
+        self.elements.append(
+            [[h.name for h in s.applied_transforms] for s in self.forward.unbatch()]
+        )
+        return self.forward.apply_inverse_transform(warn=False)
+
+
+class OneOfCall:
+    """The k-space OneOf, keeping each call's per-element histories and
+    Motion's moves (one dense resample launch a move of an element)."""
+
+    def __init__(self, tio):
+        self.pipeline = kspace_oneof(tio)
+        self.elements: list[list[list[str]]] = []
+        self.moves: list[int] = []
+
+    def __call__(self, batch):
+        out = self.pipeline(batch)
+        records = [h for s in out.unbatch() for h in s.applied_transforms]
+        self.elements.append([[h.name for h in s.applied_transforms] for s in out.unbatch()])
+        self.moves.append(sum(len(h.params["transforms"]) for h in records if h.name == "Motion"))
+        return out
+
+
+def policy_launches(elements):
+    """The resample and threefry launches a policy call implies: Spatial
+    resamples ``t1`` and ``seg`` once batch-wide and once more in each
+    element's inverse; BiasField draws one field on its element (a batch
+    of one) and its inverse draws it again."""
+    return {
+        "resample": 2 + 2 * sum("Spatial" in names for names in elements),
+        "threefry_normal": 2 * sum("BiasField" in names for names in elements),
+    }
+
+
+def json_close(got, want, stats=False) -> bool:
+    """Equal history trees, floats under DATA_STATS keys within SLICE_ATOL
+    (relative above 1)."""
+    if isinstance(want, dict):
+        return isinstance(got, dict) and sorted(got) == sorted(want) and all(
+            json_close(got[k], want[k], stats or k in DATA_STATS) for k in want
+        )
+    if isinstance(want, (list, tuple)):
+        return isinstance(got, (list, tuple)) and len(got) == len(want) and all(
+            json_close(g, w, stats) for g, w in zip(got, want)
+        )
+    if stats and isinstance(want, float):
+        return isinstance(got, float) and abs(got - want) <= SLICE_ATOL * max(1.0, abs(want))
+    return got == want
+
+
+def element_histories(batch):
+    return [
+        [(h.name, h.params, h.include, h.exclude) for h in s.applied_transforms]
+        for s in batch.unbatch()
+    ]
+
+
+def element_ties(torch, tio, rs, params, affine, shape, earlier=None, inverse=False):
+    """(1, 1, *shape) near ties of one element's (sliced) Spatial record,
+    forward or its inverse (see ``nearest_ties``)."""
+    from torchio_tpu_torch.transforms.spatial.spatial import _build_grid
+
+    if inverse:
+        spatial = object.__new__(tio.Spatial).inverse(params)
+        matrix, points, first = spatial.affine_matrix, spatial.control_points, spatial.affine_first
+    else:
+        matrix, points, first = (
+            params["affine_matrix"], params["control_points"], params["affine_first"]
+        )
+    grid = _build_grid(
+        input_affine=affine, output_shape=shape, output_affine=affine, affine_matrix=matrix,
+        control_points=points, max_displacement=None, affine_first=first,
+    )
+    maps, fields = rs._marshal_maps([grid[0]], [grid[1]], "cpu")
+    return nearest_ties(torch, rs, maps, fields, shape, earlier)
+
+
+def policy_ties(torch, tio, rs, forward, shape):
+    """(B, 1, *shape) near ties of each element's seg after the forward
+    and after the inverse (Spatial's inverse reads the forward's ties;
+    Flip's inverse flips them)."""
+    affine = forward.seg.affines[0]
+    fwd, back = [], []
+    for subject in forward.unbatch():
+        records = {h.name: h.params for h in subject.applied_transforms}
+        ties = element_ties(torch, tio, rs, records["Spatial"], affine, shape)
+        fwd.append(ties)
+        ties = element_ties(
+            torch, tio, rs, records["Spatial"], affine, shape, earlier=ties, inverse=True
+        )
+        if "Flip" in records:
+            ties = torch.flip(ties, [2 + a for a in records["Flip"]["axes"]])
+        back.append(ties)
+    return torch.cat(fwd), torch.cat(back)
+
+
+def both_devices(tio, make, make_pipeline, seed):
+    """A new ``make_pipeline()`` on a batch from ``make`` on the CPU and on
+    the card, from one seed: ((cpu output, card output), (cpu pipeline,
+    card pipeline), the card run's launches)."""
+    import torch
+    from torchio_tpu_torch.ops import kernel_lib as kl
+
+    # the first multithreaded torch.exp of a process has returned results
+    # off by up to 2e-4 on PyTorch's CPU build (2.13.0+cpu); warm the
+    # CPU thread pool before the CPU path is the reference
+    torch.exp(torch.zeros(1 << 20))
+    outs, pipelines, launched = [], [], {}
+    for device in ("cpu", DEVICE):
+        batch = make().to(device)
+        tio.seed(seed)
+        pipelines.append(make_pipeline())
+        before = dict(kl.LAUNCHES)
+        outs.append(pipelines[-1](batch))
+        launched = {k: kl.LAUNCHES.get(k, 0) - before.get(k, 0) for k in KERNELS}
+    return outs, pipelines, launched
+
+
+def phase_small_policy(torch, np, tio, rs, kl):
+    """policy-someof on a small batch, forward and per-element inverse:
+    card against the CPU path."""
+    shape = (40, 44, 48)
+    (cpu, gpu), calls, launched = both_devices(
+        tio,
+        lambda: make_suite_batch(tio, torch, B, {"t1": 1}, shape, (1, 1, 1), "cpu", 41),
+        lambda: PolicyCall(tio), 42,
+    )
+    fwd_cpu, fwd_gpu = calls[0].forward, calls[1].forward
+    if not json_close(element_histories(fwd_gpu), element_histories(fwd_cpu)):
+        fail("small policy: the card's per-element histories differ from the CPU's")
+    elements = calls[0].elements[0]
+    want = policy_launches(elements)
+    if any(launched[k] != n for k, n in want.items()):
+        fail(f"small policy: launches {launched}, the draws {elements} imply {want}")
+    err = max(
+        float((g.t1.data.cpu() - c.t1.data).abs().max())
+        for g, c in ((fwd_gpu, fwd_cpu), (gpu, cpu))
+    )
+    ties_fwd, ties_back = policy_ties(torch, tio, rs, fwd_cpu, shape)
+    off = [
+        int(((g.seg.data.cpu() != c.seg.data) & ~ties).sum())
+        for g, c, ties in ((fwd_gpu, fwd_cpu, ties_fwd), (gpu, cpu, ties_back))
+    ]
+    print(
+        f"small policy-someof ({B} x (1 + 1) x 40x44x48, forward and per-element inverse)"
+        f" cuda vs cpu: t1 max abs {err:.3g} (limit {SLICE_ATOL}); seg voxels off near"
+        f" ties {off}; per-element histories {elements}; launches {want}"
+    )
+    if not err <= SLICE_ATOL or any(off):
+        fail("the small policy differs from the CPU path")
+
+
+def phase_small_kspace_oneof(torch, tio, kl):
+    """kspace-oneof on a small batch: card against the CPU path."""
+    shape = (40, 44, 48)
+    (cpu, gpu), calls, launched = both_devices(
+        tio, lambda: make_kspace_batch(tio, torch, B, shape, "cpu", 7),
+        lambda: OneOfCall(tio), 1,
+    )
+    if not json_close(element_histories(gpu), element_histories(cpu)):
+        fail("small k-space OneOf: the card's per-element histories differ from the CPU's")
+    elements, moves = calls[0].elements[0], calls[0].moves[0]
+    if not moves or launched["resample_coords"] != moves or launched["threefry_normal"]:
+        fail(f"small k-space OneOf: launches {launched}, histories {elements}, {moves} moves")
+    err = float((gpu.t1.data.cpu() - cpu.t1.data).abs().max())
+    seg_in = block_seg(torch, shape, "cpu").expand(B, 1, *shape)
+    seg_ok = torch.equal(gpu.seg.data.cpu(), seg_in) and torch.equal(cpu.seg.data, seg_in)
+    print(
+        f"small kspace-oneof ({B} x 40x44x48) cuda vs cpu: t1 max abs {err:.3g} (limit"
+        f" {SLICE_ATOL}); seg untouched {seg_ok}; per-element histories {elements};"
+        f" dense resample launches {launched['resample_coords']} ({moves} moves)"
+    )
+    if not err <= SLICE_ATOL or not seg_ok:
+        fail("the small k-space OneOf differs from the CPU path")
+
+
+def phase_small_brats_preprocess(torch, tio, kl):
+    """brats-preprocess-fused on a small batch: card against the CPU path,
+    fused against unfused on the card."""
+    shape = (50, 52, 48)
+    (cpu, gpu), _, launched = both_devices(
+        tio, lambda: make_brats_batch(tio, torch, 2, shape, "cpu", 5),
+        lambda: brats_preprocess(tio), 0,
+    )
+    tio.seed(0)
+    unfused = brats_preprocess(tio, fuse=False)(
+        make_brats_batch(tio, torch, 2, shape, "cpu", 5).to(DEVICE)
+    )
+    history = [(h.name, h.params) for h in gpu.applied_transforms]
+    if not json_close(history, [(h.name, h.params) for h in cpu.applied_transforms]):
+        fail(f"small brats preprocess: histories {history} (card)")
+    if [(h.name, h.params) for h in unfused.applied_transforms] != history:
+        fail("small brats preprocess: fused and unfused histories differ on the card")
+    err = float((gpu.mri.data.cpu() - cpu.mri.data).abs().max())
+    fused_equal = torch.equal(unfused.mri.data, gpu.mri.data)
+    print(
+        f"small brats-preprocess-fused (2 x (4 + 1) x 50x52x48) cuda vs cpu: mri max abs"
+        f" {err:.3g} (limit {SLICE_ATOL}); fused equal to unfused on the card {fused_equal};"
+        f" kernel launches {sum(launched.values())}; stats {history[1][1]['stats']}"
+    )
+    if not err <= SLICE_ATOL or not fused_equal or any(launched.values()):
+        fail("the small brats preprocess differs from the CPU path or its unfused run")
+
+
+def report_path(name, times, peak, per_call, kernels, smi, unit, count):
+    """One line of a full-width path: rate, median call, launches, peak."""
+    timed = times[WARMUP:]
+    launches = {k: [c[k] for c in per_call] for k in kernels}
+    print(
+        f"{name}: {count * TIMED / sum(timed):.2f} {unit}/s over {TIMED} timed calls"
+        f" (median call {statistics.median(timed) * 1e3:.1f} ms, calls"
+        f" {[round(t * 1e3, 1) for t in times]} ms, warm-up first); launches per call"
+        f" {launches}; peak allocated {peak / 2**30:.2f} GiB; card {smi}"
+    )
+
+
+def profile_same_draws(torch, tio, seed, call, batch, profile, name):
+    """Device time a call (the profiler, two calls) and the idle share
+    against the wall time of two unprofiled calls of the same draws (the
+    work of these paths depends on what each element draws)."""
+    tio.seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        call(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 2 * 1e3
+    tio.seed(seed)
+    device_ms = profile_calls(torch, call, batch, profile, name)
+    print(
+        f"{name}: device {device_ms:.3f} ms a call, wall {wall_ms:.1f} ms a call over the"
+        f" same two draws, idle {1 - device_ms / wall_ms:.0%}"
+    )
+
+
+def phase_policy(torch, tio, kl, smi, profile: str | None):
+    """policy-someof: the docs' composition policy on B=4 subjects of a
+    256^3 ``t1`` and an int32 block ``seg``, then the batch's
+    ``apply_inverse_transform()`` (per element)."""
+    name = "policy-someof"
+    shape = (S, S, S)
+    batch = make_suite_batch(tio, torch, B, {"t1": 1}, shape, (1, 1, 1), torch.device(DEVICE), 11)
+    call = PolicyCall(tio)
+    tio.seed(POLICY_SEED)
+    out, times, per_call, totals, peak, _ = drive(torch, kl, call, batch, ("resample",))
+    for elements, launched in zip(call.elements, per_call):
+        want = policy_launches(elements)
+        others = {k: n for k, n in launched.items() if k not in want and n}
+        if any(launched[k] != n for k, n in want.items()) or others:
+            fail(f"{name}: launches {launched}, the draws {elements} imply {want}")
+    if sum("BiasField" in n for elements in call.elements for n in elements) == 0:
+        fail(f"{name}: no element drew BiasField in {call.elements}")
+    fwd = call.forward
+    for data, what in ((fwd.t1.data, "forward"), (out.t1.data, "inverse")):
+        if tuple(data.shape) != (B, 1, *shape) or data.device.type != DEVICE:
+            fail(f"{name} {what} t1 {tuple(data.shape)} on {data.device}")
+        if not bool(torch.isfinite(data).all()):
+            fail(f"{name} {what} t1 has non-finite values")
+    low, high = float(fwd.t1.data.min()), float(fwd.t1.data.max())
+    values = set(torch.unique(out.seg.data).tolist())
+    if low < 0.0 or high > 1.0 or not values <= {0, 1, 2, 3} or out.seg.data.dtype != torch.int32:
+        fail(f"{name}: t1 in [{low}, {high}], seg labels {sorted(values)} {out.seg.data.dtype}")
+    report_path(name, times, peak, per_call, ("resample", "threefry_normal"), smi, "subjects", B)
+    print(f"{name}: per-element histories of each call {call.elements}")
+    if profile:
+        profile_same_draws(torch, tio, POLICY_SEED, call, batch, profile, name)
+    return totals
+
+
+def phase_kspace_oneof(torch, tio, kl, smi, profile: str | None):
+    """kspace-oneof: the docs' k-space OneOf, per instance, on B=4
+    subjects of a 256^3 ``t1`` and an int32 ``seg``."""
+    name = "kspace-oneof"
+    shape = (S, S, S)
+    batch = make_kspace_batch(tio, torch, B, shape, torch.device(DEVICE), 0)
+    seg_in = batch.seg.data.clone()
+    call = OneOfCall(tio)
+    tio.seed(ONEOF_SEED)
+    out, times, per_call, totals, peak, _ = drive(torch, kl, call, batch, ())
+    for elements, moves, launched in zip(call.elements, call.moves, per_call):
+        others = {k: n for k, n in launched.items() if k != "resample_coords" and n}
+        if launched["resample_coords"] != moves or others:
+            fail(f"{name}: launches {launched}, histories {elements}, {moves} moves")
+    if not sum(call.moves):
+        fail(f"{name}: no element drew Motion in {call.elements}")
+    t1 = out.t1.data
+    if tuple(t1.shape) != (B, 1, *shape) or t1.device.type != DEVICE:
+        fail(f"{name} t1 output {tuple(t1.shape)} on {t1.device}")
+    if not bool(torch.isfinite(t1).all()):
+        fail(f"{name} t1 output has non-finite values")
+    if not torch.equal(out.seg.data, seg_in) or not torch.equal(batch.seg.data, seg_in):
+        fail(f"{name} seg output is not the input label map")
+    report_path(name, times, peak, per_call, ("resample_coords",), smi, "volumes", B)
+    print(f"{name}: per-element histories of each call {call.elements}; Motion's moves"
+          f" (one dense resample launch each) {call.moves}")
+    if profile:
+        profile_same_draws(torch, tio, ONEOF_SEED, call, batch, profile, name)
+    return totals
+
+
+def phase_brats_preprocess(torch, tio, kl, smi, profile: str | None):
+    """brats-preprocess-fused: Clamp, ZNormalization and Mask fused on the
+    brats cell's B=4 subjects (4 x 240x240x155 ``mri``, int32 ``seg``);
+    no hand-written kernel; fused equal to unfused."""
+    name = "brats-preprocess-fused"
+    batch = make_brats_batch(tio, torch, BRATS_B, BRATS_SHAPE, torch.device(DEVICE), 0)
+    pipeline = brats_preprocess(tio)
+    tio.seed(0)
+    out, times, per_call, totals, peak, histories = drive(torch, kl, pipeline, batch, ())
+    if any(any(call.values()) for call in per_call):
+        fail(f"{name}: a hand-written kernel launched: {per_call}")
+    if any(h != ["Clamp", "Standardize", "Mask"] for h in histories):
+        fail(f"{name}: histories {histories}")
+    mri = out.mri.data
+    if tuple(mri.shape) != (BRATS_B, BRATS_C, *BRATS_SHAPE) or mri.device.type != DEVICE:
+        fail(f"{name} mri output {tuple(mri.shape)} on {mri.device}")
+    if not bool(torch.isfinite(mri).all()):
+        fail(f"{name} mri output has non-finite values")
+    outside = (batch.seg.data == 0).expand_as(mri)
+    if bool((mri[outside] != 0).any()):
+        fail(f"{name}: a voxel outside the labels is not 0")
+    tio.seed(0)
+    unfused = brats_preprocess(tio, fuse=False)(batch)
+    if not torch.equal(unfused.mri.data, mri) or [
+        (h.name, h.params) for h in unfused.applied_transforms
+    ] != [(h.name, h.params) for h in out.applied_transforms]:
+        fail(f"{name}: the fused run differs from the unfused one")
+    del unfused
+    report_path(name, times, peak, per_call, (), smi, "subjects", BRATS_B)
+    print(f"{name}: fused equal to unfused on the card; stats {out.applied_transforms[1].params}")
+    if profile:
+        profile_same_draws(torch, tio, 0, pipeline, batch, profile, name)
+    return totals
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -2710,6 +3154,9 @@ def main() -> int:
     phase_small_config3(torch, np, tio, rs, kl)
     phase_small_config4(torch, np, tio, rs, kl)
     phase_small_patches(torch, np, tio, tr, kl)
+    phase_small_policy(torch, np, tio, rs, kl)
+    phase_small_kspace_oneof(torch, tio, kl)
+    phase_small_brats_preprocess(torch, tio, kl)
     phase_host_subject(torch, np, tio, kl)
     headline_launches = phase_slice(torch, tio, kl, args.profile)
     brats_launches, brats_batch = phase_brats(torch, tio, kl, args.profile)
@@ -2720,6 +3167,9 @@ def main() -> int:
     config4_launches = phase_config4(torch, tio, kl, args.profile)
     config5_launches = phase_config5_queue(torch, tio, kl, args.profile)
     phase_config5_aggregator(torch, np, tio, args.profile)
+    policy_launches_total = phase_policy(torch, tio, kl, smi, args.profile)
+    oneof_launches = phase_kspace_oneof(torch, tio, kl, smi, args.profile)
+    phase_brats_preprocess(torch, tio, kl, smi, args.profile)
     timings = {"resample": phase_kernel_timing(torch, np, tio, rs, rk)}
     timings.update(phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch))
     del brats_batch
@@ -2745,6 +3195,7 @@ def main() -> int:
         "headline": headline_launches["resample"],
         "config3-affine-resample": config3_launches["resample"],
         "config4-elastic-inverse": config4_launches["resample"],
+        "policy-someof": policy_launches_total["resample"],
     }
     threefry_paths = {
         "headline": headline_launches["threefry_normal"],
@@ -2753,6 +3204,7 @@ def main() -> int:
         "config2-blur-bias-gamma": config2_launches["threefry_normal"],
         "config3-affine-resample": config3_launches["threefry_normal"],
         "config4-elastic-inverse": config4_launches["threefry_normal"],
+        "policy-someof": policy_launches_total["threefry_normal"],
     }
     kernels = [
         {
@@ -2795,7 +3247,9 @@ def main() -> int:
             "note": "launches on kspace-motion-ghosting; config5-queue-labelsampler"
             f" (Motion in the Queue's transform, {CONFIG5_WARMUP + CONFIG5_TIMED} epochs of"
             f" {CONFIG5_SUBJECTS} subjects): {config5_launches['resample_coords']}, one a"
-            " subject that kept Motion",
+            " subject that kept Motion; kspace-oneof (per element, B=4, 7 calls):"
+            f" {oneof_launches['resample_coords']}, one a move of an element that drew"
+            " Motion (2 moves each)",
             "path": "kspace-motion-ghosting",
         },
         {

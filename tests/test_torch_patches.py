@@ -9,7 +9,9 @@ branch: every image a ``jnp`` array) and ``torchio_tpu_torch`` on the CPU:
   the patch, the end snap, every padding mode) and ``get_batch``, bit for
   bit with affines and metadata;
 - the Uniform, Weighted and Label samplers' corners for one seed: equal on
-  0/1 maps and dyadic label weights, a stated bound on other weights;
+  0/1 maps, dyadic and other label weights and a float probability map
+  (the CDF is summed in XLA:CPU's order, bit for bit with
+  ``jnp.cumsum`` at every length up to 256^3);
 - ``extract_patches(_multi)``, ``RingPatchBuffer`` (push, wrap-around,
   over-capacity truncation, ``gather``, ``sample`` against
   ``_ring_sample_kernel``) and ``random.key_randint`` against
@@ -270,24 +272,37 @@ def test_random_sampler_corners_match_jax(name, seed):
             assert port_subject.seg.data[0][tuple(centre)] > 0
 
 
-#: Share of corners allowed to differ from the JAX package's on label
-#: weights that are not dyadic: a float32 ``cumsum`` summed in another
-#: order than XLA's can move a step by an ulp, and a draw within that ulp
-#: then picks the neighbouring voxel.
-NON_DYADIC_BOUND = 0.02
+NON_DYADIC = {
+    "label": lambda pkg: pkg.LabelSampler(
+        patch_size=6, label_name="seg", label_probabilities={0: 0.1, 1: 0.3, 2: 0.7}
+    ),
+    "weighted-t1": lambda pkg: pkg.WeightedSampler(patch_size=(5, 6, 7), probability_map="t1"),
+}
 
 
-def test_label_sampler_non_dyadic_weights_within_bound():
-    jax_subject, port_subject = subject_pair(seed=4, shape=(24, 24, 24))
-    weights = {0: 0.1, 1: 0.3, 2: 0.7}
+@pytest.mark.parametrize("name", list(NON_DYADIC))
+def test_samplers_non_dyadic_weights_equal_jax(name):
+    """Every corner equal: the port sums its CDF in XLA:CPU's order (with
+    ``torch.cumsum`` instead, 9-12 of these 2,000 corners differ)."""
+    jax_subject, port_subject = subject_pair(seed=4, shape=(64, 64, 64))
+    want = corners_of(tj, NON_DYADIC[name], jax_subject, 2000, 9)
+    got = corners_of(tt, NON_DYADIC[name], port_subject, 2000, 9)
+    assert got == want
 
-    def factory(pkg):
-        return pkg.LabelSampler(patch_size=6, label_name="seg", label_probabilities=weights)
 
-    want = corners_of(tj, factory, jax_subject, 400, 9)
-    got = corners_of(tt, factory, port_subject, 400, 9)
-    differ = sum(a != b for a, b in zip(got, want))
-    assert differ / len(want) <= NON_DYADIC_BOUND
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 13824, 100000, 256**3])
+def test_cdf_equals_jnp_cumsum_bit_for_bit(n):
+    """``xla_cumsum`` against ``jnp.cumsum`` on non-dyadic float32 weights,
+    every length, the zero padding of a partial block and 16^6 included."""
+    from torchio_tpu_torch.data.sampler import xla_cumsum
+
+    rng = np.random.default_rng(n)
+    weights = rng.choice(np.array([0.1, 0.3, 0.7], np.float32), n)
+    weights[rng.random(n) < 0.25] = rng.random(1, np.float32)[0]
+    want = np.asarray(jnp.cumsum(jnp.asarray(weights)))
+    got = xla_cumsum(torch.from_numpy(weights)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 @pytest.mark.parametrize("iterate", [False, True])

@@ -11,7 +11,10 @@ It covers the headline augmentation pipeline,
 every interpolation of ``Spatial`` (nearest, linear, B-spline orders 2-7
 and the partial-volume "label" mode); the MRI-artifact pair
 ``Compose([Motion(...), Ghosting(...)])``; Flip,
-Normalize/RescaleIntensity, Blur and Gamma; target spaces (Resample,
+Normalize/RescaleIntensity, Blur, Gamma, Clamp, Standardize
+(ZNormalization) and Mask; OneOf and SomeOf (``t1 | t2`` builds a
+OneOf), per instance with per-element histories; point sets and
+bounding boxes carried by images and subjects; target spaces (Resample,
 ``Spatial(target=...)``), Pad, Crop, CropOrPad and EnsureShapeMultiple;
 and the inverse of a recorded history (:func:`get_inverse_transform`,
 ``apply_inverse_transform()`` on an image, a subject or a batch). On a
@@ -40,6 +43,8 @@ from . import random  # noqa: A004  (named like the stdlib on purpose)
 from .config import default_device, set_default_device
 from .core.affine import AffineMatrix
 from .data import (
+    BoundingBoxes,
+    BoundingBoxFormat,
     GridSampler,
     ImagesBatch,
     ImagesLoader,
@@ -48,7 +53,9 @@ from .data import (
     PatchAggregator,
     PatchLocation,
     PatchSampler,
+    Points,
     Queue,
+    Representation,
     ScalarImage,
     StudiesLoader,
     Subject,
@@ -66,6 +73,7 @@ from .transforms import (
     BiasField,
     Blur,
     Choice,
+    Clamp,
     Compose,
     Crop,
     CropOrPad,
@@ -74,14 +82,19 @@ from .transforms import (
     Flip,
     Gamma,
     Ghosting,
+    Mask,
     Motion,
     Noise,
     Normalize,
+    OneOf,
     Pad,
     Resample,
     RescaleIntensity,
+    SomeOf,
     Spatial,
     Spike,
+    Standardize,
+    ZNormalization,
     apply_inverse_transform,
     get_inverse_transform,
 )
@@ -91,7 +104,10 @@ __all__ = [
     "AffineMatrix",
     "BiasField",
     "Blur",
+    "BoundingBoxFormat",
+    "BoundingBoxes",
     "Choice",
+    "Clamp",
     "Compose",
     "Crop",
     "CropOrPad",
@@ -105,25 +121,32 @@ __all__ = [
     "ImagesLoader",
     "LabelMap",
     "LabelSampler",
+    "Mask",
     "Motion",
     "Noise",
     "Normalize",
+    "OneOf",
     "Pad",
     "PatchAggregator",
     "PatchLocation",
     "PatchSampler",
+    "Points",
     "Queue",
+    "Representation",
     "Resample",
     "RescaleIntensity",
     "ScalarImage",
+    "SomeOf",
     "Spatial",
     "Spike",
+    "Standardize",
     "StudiesLoader",
     "Subject",
     "SubjectsBatch",
     "SubjectsLoader",
     "UniformSampler",
     "WeightedSampler",
+    "ZNormalization",
     "apply_inverse_transform",
     "collate_images",
     "collate_studies",

@@ -1,5 +1,6 @@
 from .aggregator import PatchAggregator
 from .batch import ImagesBatch, SubjectsBatch
+from .bboxes import BoundingBoxes, BoundingBoxFormat, Representation
 from .image import Image, LabelMap, ScalarImage
 from .loader import (
     ImagesLoader,
@@ -10,6 +11,7 @@ from .loader import (
     collate_subjects,
 )
 from .patch import PatchLocation
+from .points import Points
 from .queue import Queue
 from .sampler import (
     GridSampler,
@@ -21,6 +23,8 @@ from .sampler import (
 from .subject import Subject
 
 __all__ = [
+    "BoundingBoxFormat",
+    "BoundingBoxes",
     "GridSampler",
     "Image",
     "ImagesBatch",
@@ -30,7 +34,9 @@ __all__ = [
     "PatchAggregator",
     "PatchLocation",
     "PatchSampler",
+    "Points",
     "Queue",
+    "Representation",
     "ScalarImage",
     "StudiesLoader",
     "Subject",

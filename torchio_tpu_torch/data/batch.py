@@ -1,7 +1,9 @@
 """Batch containers: 5D stacked image tensors with per-sample affines.
 
 Counterpart of ``torchio_tpu/data/batch.py``: ``ImagesBatch`` and
-``SubjectsBatch`` with per-element history slicing at :meth:`unbatch`.
+``SubjectsBatch`` with per-element history slicing at :meth:`unbatch`,
+and the per-element histories that a per-instance OneOf or SomeOf
+freezes when it re-stacks its elements.
 Data is one ``(B, C, I, J, K)`` torch tensor; a batch runs where that
 tensor lives. Affines stay float64 on the host, one per sample.
 
@@ -119,7 +121,8 @@ class SubjectsBatch(Invertible):
     """Named image batches + per-sample metadata lists.
 
     The unit every transform operates on. Supports per-element history
-    slicing on :meth:`unbatch`.
+    slicing on :meth:`unbatch` and per-element branch histories from
+    per-instance OneOf/SomeOf.
     """
 
     def __init__(
@@ -131,6 +134,7 @@ class SubjectsBatch(Invertible):
         self._images = images
         self._metadata: dict[str, list[Any]] = metadata or {}
         self.applied_transforms: list[Any] = []
+        self._per_element_history: list[list[Any]] | None = None
 
     @classmethod
     def from_subjects(cls, subjects: list[Subject]) -> "SubjectsBatch":
@@ -185,19 +189,64 @@ class SubjectsBatch(Invertible):
     def __len__(self) -> int:
         return self.batch_size
 
+    # --- Per-element history ---
+
+    def set_per_element_history(self, histories: list[list[Any]]) -> None:
+        """Freeze distinct per-element histories (per-instance OneOf path)."""
+        if len(histories) != self.batch_size:
+            raise ValueError(
+                f"Expected {self.batch_size} per-element histories,"
+                f" got {len(histories)}"
+            )
+        self._per_element_history = [list(h) for h in histories]
+        self.applied_transforms = []
+
+    def adopt_history(self, source: "SubjectsBatch", subjects: list[Any]) -> None:
+        """Carry history over after an unbatch -> process -> re-stack round trip."""
+        if source._per_element_history is not None:
+            self.set_per_element_history([s.applied_transforms for s in subjects])
+        else:
+            self.applied_transforms = list(source.applied_transforms)
+
+    def clear_history(self) -> None:
+        self.applied_transforms = []
+        self._per_element_history = None
+
     # --- Unbatch ---
 
     def unbatch(self) -> list[Subject]:
-        """Split into Subjects, slicing per-instance history per element."""
+        """Split into Subjects, slicing per-instance history per element;
+        a frozen per-element history comes before the batch-wide suffix."""
         subjects = []
         for i in range(self.batch_size):
             kwargs: dict[str, Any] = {name: ib[i] for name, ib in self._images.items()}
             for key, values in self._metadata.items():
                 kwargs[key] = values[i]
             sub = Subject(**kwargs)
-            sub.applied_transforms = _slice_history(self.applied_transforms, i)
+            suffix = _slice_history(self.applied_transforms, i)
+            if self._per_element_history is not None:
+                sub.applied_transforms = list(self._per_element_history[i]) + suffix
+            else:
+                sub.applied_transforms = suffix
             subjects.append(sub)
         return subjects
+
+    # --- Inversion ---
+
+    def get_inverse_transform(self, **kwargs: Any):
+        if self._per_element_history is not None:
+            raise RuntimeError(
+                "This batch has per-element transform histories; a single"
+                " batch inverse is ambiguous. Use apply_inverse_transform()"
+                " or unbatch() and invert per subject."
+            )
+        return super().get_inverse_transform(**kwargs)
+
+    def apply_inverse_transform(self, **kwargs: Any) -> "SubjectsBatch":
+        if self._per_element_history is not None:
+            inverted = [s.apply_inverse_transform(**kwargs) for s in self.unbatch()]
+            return type(self).from_subjects(inverted)
+        return super().apply_inverse_transform(**kwargs)
 
     def __repr__(self) -> str:
         names = ", ".join(self._images)

@@ -21,7 +21,9 @@ import torch
 
 from ..config import as_tensor
 from ..core.affine import AffineMatrix
+from .bboxes import BoundingBoxes
 from .invertible import Invertible
+from .points import Points
 
 
 Type4Slices = tuple[slice, slice, slice, slice]
@@ -78,6 +80,8 @@ class Image(Invertible):
         source: a numpy array or torch tensor, (I, J, K) or (C, I, J, K).
         affine: 4x4 voxel-to-world matrix (identity when omitted).
         channels_last: input array is (I, J, K, C) and is permuted.
+        points: named :class:`Points` annotations attached to the image.
+        bounding_boxes: named :class:`BoundingBoxes` annotations.
         **kwargs: arbitrary metadata (attribute- and key-accessible).
     """
 
@@ -87,6 +91,8 @@ class Image(Invertible):
         *,
         affine: Any = None,
         channels_last: bool = False,
+        points: dict[str, Points] | None = None,
+        bounding_boxes: dict[str, BoundingBoxes] | None = None,
         **kwargs: Any,
     ) -> None:
         data = as_tensor(source)
@@ -103,6 +109,8 @@ class Image(Invertible):
             affine.clone() if isinstance(affine, AffineMatrix) else AffineMatrix(affine)
         )
         self._metadata: dict[str, Any] = dict(kwargs)
+        self._points: dict[str, Points] = dict(points or {})
+        self._bounding_boxes: dict[str, BoundingBoxes] = dict(bounding_boxes or {})
         self.applied_transforms: list[Any] = []
 
     # --- Properties ---
@@ -127,6 +135,14 @@ class Image(Invertible):
     @property
     def metadata(self) -> dict[str, Any]:
         return self._metadata
+
+    @property
+    def points(self) -> dict[str, Points]:
+        return self._points
+
+    @property
+    def bounding_boxes(self) -> dict[str, BoundingBoxes]:
+        return self._bounding_boxes
 
     @property
     def shape(self) -> tuple[int, int, int, int]:
@@ -188,12 +204,18 @@ class Image(Invertible):
         """Nothing to drop: an in-memory image cannot be read again."""
 
     def new_like(self, *, data: Any = None, affine: Any = None, **kwargs: Any) -> "Image":
-        """New image of the same class sharing metadata."""
+        """New image of the same class sharing metadata; annotations copied."""
         new_data = self._data if data is None else data
         new_affine = self._affine if affine is None else affine
         meta = dict(self._metadata)
         meta.update(kwargs)
-        return type(self)(new_data, affine=AffineMatrix(new_affine), **meta)
+        return type(self)(
+            new_data,
+            affine=AffineMatrix(new_affine),
+            points={k: _copy.deepcopy(v) for k, v in self._points.items()},
+            bounding_boxes={k: _copy.deepcopy(v) for k, v in self._bounding_boxes.items()},
+            **meta,
+        )
 
     # --- Metadata access and region reads ---
 
@@ -234,6 +256,10 @@ class Image(Invertible):
         new._data = self._data.clone()
         new._affine = self._affine.clone()
         new._metadata = _copy.deepcopy(self._metadata, memo)
+        new._points = {k: _copy.deepcopy(v, memo) for k, v in self._points.items()}
+        new._bounding_boxes = {
+            k: _copy.deepcopy(v, memo) for k, v in self._bounding_boxes.items()
+        }
         new.applied_transforms = list(self.applied_transforms)
         return new
 

@@ -1,8 +1,8 @@
 """Mixin giving history-carrying objects inverse-transform support.
 
 Counterpart of ``torchio_tpu/data/invertible.py``. A batch holding
-per-element histories (from a per-instance OneOf/SomeOf) has no
-counterpart yet: those transforms are not ported.
+per-element histories (from a per-instance OneOf/SomeOf) overrides both
+entry points (``SubjectsBatch``): it inverts subject by subject.
 """
 
 from __future__ import annotations

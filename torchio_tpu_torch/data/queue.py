@@ -166,7 +166,7 @@ class Queue(IterableDataset):
     def _batched_prepared(self, group_size: int) -> Iterator[Subject]:
         """Load subjects and run the transform on groups of
         ``group_size`` stacked into one batch. Every transform of the
-        pipeline, nested Composes included, must gate per element
+        pipeline, nested composers included, must gate per element
         (``p == 1``, or per-instance p on this instance) so that grouping
         cannot couple the subjects' p-coins; a group whose shapes differ
         is prepared subject by subject."""
@@ -404,14 +404,19 @@ class Queue(IterableDataset):
 
 
 def _check_gates_per_element(transform: Any) -> None:
-    """Raise unless every transform of the pipeline (nested Composes
-    included) gates each element alone: ``p == 1``, or per-instance p on
-    this instance (``per_instance`` and ``supports_per_instance_p``)."""
+    """Raise unless every transform of the pipeline (the children of
+    Compose, OneOf and SomeOf included) gates each element alone: ``p ==
+    1``, or per-instance p on this instance (``per_instance`` and
+    ``supports_per_instance_p``). A per-instance OneOf or SomeOf draws a
+    coin for each element and runs its children on one element at a
+    time, so any gating of theirs is per element too."""
     pending = [transform]
     while pending:
         t = pending.pop()
-        pending.extend(getattr(t, "transforms", ()))
-        if t.p < 1.0 and not (t.per_instance and t.supports_per_instance_p):
+        per_element = t.per_instance and getattr(t, "runs_children_per_element", False)
+        if not per_element:
+            pending.extend(getattr(t, "transforms", ()))
+        if t.p < 1.0 and not (per_element or (t.per_instance and t.supports_per_instance_p)):
             raise ValueError(
                 f"prep_batch > 1 needs per-element p-gating, but"
                 f" {type(t).__name__}(p={t.p}) gates batch-wide —"

@@ -7,10 +7,11 @@ masked and each centre moved to a corner; LabelSampler's map from label
 values.
 
 A port image is always a tensor, so the weighted draws take the JAX
-package's device branch: the map in float32 on the image's device,
-``torch.cumsum`` in float32, the host's ``rng.random(n) * total`` cast to
-float32, ``torch.searchsorted(right=True)`` and one device-to-host copy of
-the N indices. The random samplers are torch ``IterableDataset``s;
+package's device branch: the map in float32 on the image's device, its
+cumulative sum in float32 in XLA:CPU's order (:func:`xla_cumsum`), the
+host's ``rng.random(n) * total`` cast to float32,
+``torch.searchsorted(right=True)`` and one device-to-host copy of the N
+indices. The random samplers are torch ``IterableDataset``s;
 GridSampler stays map-style (``__len__`` and ``__getitem__``).
 """
 
@@ -25,6 +26,34 @@ from torch.utils.data import IterableDataset
 from .. import random as tio_random
 from .patch import PatchLocation
 from .subject import Subject
+
+
+#: XLA:CPU lowers a cumulative sum to windows of this many elements
+CUMSUM_BLOCK = 16
+
+
+def xla_cumsum(values: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum of a 1-D float32 tensor, summed in the
+    order of ``jnp.cumsum`` on XLA:CPU, so that its bits equal it.
+
+    XLA rewrites the scan as windows of 16: each block of 16 is scanned
+    in order, the block totals are scanned the same way (recursively),
+    and each block's exclusive prefix is added once. The scan inside a
+    block is 15 column adds on an ``(n / 16, 16)`` view (a CUDA
+    ``cumsum`` need not add in order). The tail is padded with zeros,
+    which change no sum.
+    """
+    n = values.shape[0]
+    rows = -(-n // CUMSUM_BLOCK)
+    blocks = torch.zeros(rows * CUMSUM_BLOCK, dtype=values.dtype, device=values.device)
+    blocks[:n] = values
+    blocks = blocks.reshape(rows, CUMSUM_BLOCK)
+    for col in range(1, CUMSUM_BLOCK):
+        blocks[:, col] += blocks[:, col - 1]
+    if rows > 1:
+        totals = xla_cumsum(blocks[:, -1].contiguous())
+        blocks[1:] += totals[:-1, None]
+    return blocks.reshape(-1)[:n]
 
 
 class PatchSampler:
@@ -259,7 +288,7 @@ class WeightedSampler(PatchSampler, IterableDataset):
         """(map shape, cumulative distribution, total): one O(N) pass a
         subject on its device, O(log N) a draw."""
         prob = self._device_probability_map_for(subject)
-        cdf = torch.cumsum(prob.reshape(-1), dim=0)
+        cdf = xla_cumsum(prob.reshape(-1))
         total = float(cdf[-1])
         if total == 0:
             raise RuntimeError(f"Probability map '{self.probability_map}' is all zeros")

@@ -1,12 +1,15 @@
-from .compose import Compose
+from .compose import Compose, OneOf, SomeOf
 from .intensity.bias_field import BiasField
 from .intensity.blur import Blur
+from .intensity.clamp import Clamp
 from .intensity.gamma import Gamma
 from .intensity.ghosting import Ghosting
+from .intensity.mask import Mask
 from .intensity.motion import Motion
 from .intensity.noise import Noise
 from .intensity.normalize import Normalize, RescaleIntensity
 from .intensity.spike import Spike
+from .intensity.standardize import Standardize, ZNormalization
 from .parameter_range import Choice
 from .inverse import apply_inverse_transform, get_inverse_transform
 from .spatial.crop import Crop
@@ -21,6 +24,7 @@ __all__ = [
     "BiasField",
     "Blur",
     "Choice",
+    "Clamp",
     "Compose",
     "Crop",
     "CropOrPad",
@@ -30,16 +34,21 @@ __all__ = [
     "Gamma",
     "Ghosting",
     "IntensityTransform",
+    "Mask",
     "Motion",
     "Noise",
     "Normalize",
+    "OneOf",
     "Pad",
     "Resample",
     "RescaleIntensity",
+    "SomeOf",
     "Spatial",
     "SpatialTransform",
     "Spike",
+    "Standardize",
     "Transform",
+    "ZNormalization",
     "apply_inverse_transform",
     "get_inverse_transform",
 ]

@@ -1,8 +1,8 @@
 """Fused elementwise transform chains.
 
 Counterpart of ``torchio_tpu/transforms/fuse.py`` for the families this
-package has: Flip, Noise, BiasField, Normalize/RescaleIntensity, Gamma
-and the per-instance Blur. ``Compose(..., fuse=True)`` collects
+package has: Flip, Noise, BiasField, Normalize/RescaleIntensity, Gamma,
+the per-instance Blur, Clamp, Standardize and Mask. ``Compose(..., fuse=True)`` collects
 consecutive elementwise transforms into one chain. In the JAX package
 the chain is one jit-compiled program; here it runs eagerly, stage by
 stage, and keeps the contract that matters to users:
@@ -23,8 +23,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable
-
-import torch
 
 import numpy as np
 import torch
@@ -205,6 +203,58 @@ def normalize_apply(names: tuple[str, ...], percentiles: tuple[float, float] | N
         return out, aux
 
     return apply
+
+
+def clamp_apply(names: tuple[str, ...], out_min: float | None, out_max: float | None):
+    from .intensity.clamp import clamp_values
+
+    def apply(datas, args):
+        return {**datas, **{nm: clamp_values(datas[nm], out_min, out_max) for nm in names}}, None
+
+    return apply
+
+
+def standardize_apply(names: tuple[str, ...], mask_name: str | None):
+    """Each image standardized by the statistics of its first element
+    (within ``mask_name``'s non-zero voxels); the device triples return
+    as aux."""
+    from .intensity.standardize import standardize_stats, standardized
+
+    def apply(datas, args):
+        out = dict(datas)
+        aux = {}
+        mask = None if mask_name is None else datas[mask_name][0] != 0
+        for nm in names:
+            triple = standardize_stats(out[nm][0].to(torch.float32), mask)
+            aux[nm] = triple
+            out[nm] = standardized(out[nm], triple)
+        return out, aux
+
+    return apply
+
+
+def mask_apply(
+    names: tuple[str, ...], mask_name: str, labels: tuple | None, outside_value: float
+):
+    from .intensity.mask import label_mask
+
+    def apply(datas, args):
+        mask = label_mask(datas[mask_name][0], labels)
+        return {
+            **datas,
+            **{nm: torch.where(mask, datas[nm], outside_value) for nm in names},
+        }, None
+
+    return apply
+
+
+def install_standardize_params(aux: dict, params: dict) -> None:
+    from .intensity.standardize import _finalize_stats
+
+    params["stats"] = {
+        nm: DeferredParam(triple, _finalize_stats(nm), eager=True)
+        for nm, triple in aux.items()
+    }
 
 
 def finalize_range_warn(name: str):

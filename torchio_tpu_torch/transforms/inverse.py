@@ -62,10 +62,16 @@ def apply_inverse_transform(
     warn: bool = True,
     ignore_intensity: bool = False,
 ) -> Any:
-    """Undo every recorded transform of a history-carrying object."""
+    """Undo every recorded transform of a history-carrying object.
+
+    Batches holding per-element histories (from a per-instance
+    OneOf/SomeOf) delegate to their own element-wise inversion.
+    """
     history = getattr(data, "applied_transforms", None)
     if history is None:
         return data
+    if getattr(data, "_per_element_history", None) is not None:
+        return data.apply_inverse_transform(warn=warn, ignore_intensity=ignore_intensity)
     pipeline = get_inverse_transform(
         history, warn=warn, ignore_intensity=ignore_intensity
     )

@@ -8,8 +8,8 @@ batch path composes Pad and Crop. The JAX package's lazy path for a
 Subject or an Image installs deferred crop and pad views of its I/O
 backends, which are not ported. Here a Subject or an Image goes through
 an eager path that does the same: one draw for ``p``, the same crop and
-pad of every selected image, and the same ``Pad`` and ``Crop`` history
-records.
+pad of every selected image, the same ``Pad`` and ``Crop`` history
+records, and each image's points and bounding boxes carried unmoved.
 """
 
 from __future__ import annotations
@@ -80,10 +80,18 @@ def _compute_crop_and_pad(
 
 def _replaced_image(image: Image, data, corner) -> Image:
     """A new image of the same class holding ``data``, its origin moved
-    by ``corner`` voxels; metadata copied, history kept."""
+    by ``corner`` voxels; metadata and annotations copied (the points and
+    boxes unmoved, as the JAX package's lazy views carry them), history
+    kept."""
     affine = image.affine.clone()
     shift_origin(affine, corner)
-    new = type(image)(data, affine=affine, **_copy.deepcopy(image.metadata))
+    new = type(image)(
+        data,
+        affine=affine,
+        points={k: _copy.deepcopy(v) for k, v in image.points.items()},
+        bounding_boxes={k: _copy.deepcopy(v) for k, v in image.bounding_boxes.items()},
+        **_copy.deepcopy(image.metadata),
+    )
     new.applied_transforms = list(image.applied_transforms)
     return new
 

@@ -380,6 +380,25 @@ class Transform:
                 stacklevel=3,
             )
 
+    def to_hydra(self) -> dict[str, Any]:
+        """Hydra config: ``_target_`` + non-default constructor args."""
+        from .parameter_range import _ParameterRange
+
+        cls = type(self)
+        cfg: dict[str, Any] = {"_target_": f"torchio_tpu_torch.{cls.__qualname__}"}
+        for name, default in _collect_init_params(cls).items():
+            value = getattr(self, name, default)
+            if isinstance(value, _ParameterRange):
+                if value._original == default:
+                    continue
+                value = _hydra_value(value._original)
+            elif _values_equal(value, default):
+                continue
+            else:
+                value = _hydra_value(value)
+            cfg[name] = value
+        return cfg
+
     def __repr__(self) -> str:
         from .parameter_range import _ParameterRange
 
@@ -404,6 +423,16 @@ class Transform:
         left = self.transforms if isinstance(self, Compose) else [self]
         right = other.transforms if isinstance(other, Compose) else [other]
         return Compose([*left, *right])
+
+    def __or__(self, other: "Transform"):
+        """``t1 | t2 -> OneOf([t1, t2])``, flattening OneOf operands."""
+        from .compose import OneOf
+
+        if not isinstance(other, Transform):
+            return NotImplemented
+        left = self.transforms if isinstance(self, OneOf) else [self]
+        right = other.transforms if isinstance(other, OneOf) else [other]
+        return OneOf([*left, *right])
 
     # --- Wrapping ---
 
@@ -506,7 +535,19 @@ def _values_equal(a: Any, b: Any) -> bool:
         return False
     if isinstance(result, np.ndarray):
         return bool(np.all(result))
+    if isinstance(result, torch.Tensor):
+        return bool(result.all())
     return bool(result)
+
+
+def _hydra_value(value: Any) -> Any:
+    if isinstance(value, tuple):
+        return list(value)
+    if isinstance(value, np.ndarray):
+        return value.tolist()
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().tolist()
+    return value
 
 
 class SpatialTransform(Transform):
