@@ -68,6 +68,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kspace-oneof (4 x 40x44x48; 1e-4, labels untouched, one dense resample
    launch a Motion move) and brats-preprocess-fused (2 x (4 + 1) x
    50x52x48; 1e-4, fused equal to unfused on the card, no kernel launch);
+   every module of the rest of the zoo (Transpose, CopyAffine,
+   Reorient, ToReferenceSpace, Resize, Anisotropy, Swap, the label tools,
+   PCA, HistogramStandardization, LabelsToImage, Lambda, To) on 2 x (1 +
+   3 + 1) x 24x28x32 (equal for the index and label transforms, else
+   1e-5; histories, the next host draw and the launches equal; Anisotropy
+   and Swap with the first element gated out), synthseg-labels-to-image
+   on 2 x 32x36x28 with a whole-voxel Spatial (1e-4, seg equal) and
+   ixi-preprocess-histstd on 2 x 40x44x24 (1e-4, one-hot equal off near
+   ties of its Resample); int16, uint16 and uint32 images through Flip,
+   Reorient, Swap, RemapLabels (equal), Resize, Anisotropy, Blur, Motion,
+   Ghosting and Spike (within 1 + 1e-5 of the largest magnitude), their
+   dtypes kept;
    a subject and an array built from numpy go through the headline on the
    card (host data lands there by default) and launch the resample
    kernel;
@@ -147,7 +159,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    phases 14-16 print their median call, launches and peak beside the
    card's name and power limit, and with ``--profile`` the device time a
    call and the idle share;
-17. each kernel against its plain version at its path's shape, timed
+17. synthseg-labels-to-image: ``Compose([Spatial(scales=(0.9, 1.1),
+   degrees=10, max_displacement=7.5), LabelsToImage(label_key="seg"),
+   BiasField(std=0.5), Gamma(log_gamma=(-0.3, 0.3)), Anisotropy(
+   downsampling=(1.5, 5)), Noise(std=0.05), RescaleIntensity(0, 1)])`` on
+   B=4 label maps of 256^3 (32 labels in blocks, made on the card): one
+   resample launch a call (the labels, nearest) and a threefry launch for
+   each label drawn, plus BiasField's and Noise's; the image in [0, 1];
+18. ixi-preprocess-histstd: ``Compose([Reorient("RAS"), Resample(
+   target=1.0), CropOrPad((224, 224, 160)), HistogramStandardization(
+   landmarks, include=["t1"]), ZNormalization(include=["t1"]),
+   OneHot()])`` on B=4 subjects of a 256x256x150 ``t1`` and an int32
+   ``seg`` at 0.9375x0.9375x1.2 mm stored in "PLI", the landmarks from
+   ``compute_histogram_landmarks`` over 8 volumes (set-up): two resample
+   launches a call (the diagonal map), t1 z-normalised, the one-hot
+   summing to 1, RAS at 1 mm; phases 17-18 print what phases 14-16 print;
+19. one timed call of KeepLargestComponent on the brats cell's seg with a
+   stray island a label (its host time and its two copies), and of
+   Swap(patch_size=15, num_iterations=100) on B=4 x 256^3 (its device
+   kernels a call, under the profiler);
+20. each kernel against its plain version at its path's shape, timed
    kernel, plain, kernel, plain with CUDA events (the dense resample
    also against ``F.grid_sample``, its one-call library equivalent at a
    zero fill: kernel, library, kernel, library); the prefilter's three
@@ -3107,6 +3138,564 @@ def phase_brats_preprocess(torch, tio, kl, smi, profile: str | None):
     return totals
 
 
+# --- the rest of the transform zoo: small checks and two paths -----------------
+
+#: synthseg-labels-to-image: B=4 label maps of 256^3 at 1 mm, 32 labels
+#: (0-31) in blocks, the scale of a whole-brain parcellation
+SYNTH_B, SYNTH_SHAPE, SYNTH_LABELS, SYNTH_SEED = 4, (256, 256, 256), 32, 0
+#: ixi-preprocess-histstd: an IXI T1's shape and spacing, stored in "PLI"
+#: (Reorient to RAS permutes i and j and flips all three), cropped to
+#: IXI_CROP after Resample to 1 mm; landmarks from IXI_CORPUS volumes
+IXI_B, IXI_SHAPE, IXI_SPACING, IXI_CODES = 4, (256, 256, 150), (0.9375, 0.9375, 1.2), "PLI"
+IXI_CROP, IXI_CORPUS, IXI_SEED = (224, 224, 160), 8, 0
+#: the single timed calls at full width
+SWAP_B, SWAP_SHAPE, SWAP_PATCH, SWAP_ITERATIONS = 4, (256, 256, 256), 15, 100
+#: the small checks: B=2 subjects at ZOO_SHAPE, card against the CPU path
+ZOO_B, ZOO_SHAPE = 2, (24, 28, 32)
+ZOO_ATOL = 1e-5
+
+
+def synthseg_pipeline(tio, spatial=None):
+    """A SynthSeg-style generator: geometry on the label map, tissue drawn
+    per label, then the intensity and resolution artifacts."""
+    return tio.Compose(
+        [
+            spatial or tio.Spatial(scales=(0.9, 1.1), degrees=10, max_displacement=7.5),
+            tio.LabelsToImage(label_key="seg"),
+            tio.BiasField(std=0.5),
+            tio.Gamma(log_gamma=(-0.3, 0.3)),
+            tio.Anisotropy(downsampling=(1.5, 5)),
+            tio.Noise(std=0.05),
+            tio.RescaleIntensity(out_min=0.0, out_max=1.0),
+        ]
+    )
+
+
+def ixi_pipeline(tio, landmarks, crop):
+    """TorchIO's classic preprocessing with histogram standardization."""
+    return tio.Compose(
+        [
+            tio.Reorient("RAS"),
+            tio.Resample(target=1.0),
+            tio.CropOrPad(crop),
+            tio.HistogramStandardization(landmarks, include=["t1"]),
+            tio.ZNormalization(include=["t1"]),
+            tio.OneHot(),
+        ]
+    )
+
+
+def synthseg_labels(torch, shape, device):
+    """(1, *shape) int32 labels 0-31 in blocks: ``(i // 64) * 8 + (j //
+    64) * 2 + k // 128`` at 256^3, the same blocks scaled to ``shape``."""
+    i, j, k = (torch.arange(n, device=device) for n in shape)
+    labels = (
+        (i * 4 // shape[0])[:, None, None] * 8
+        + (j * 4 // shape[1])[None, :, None] * 2
+        + (k * 2 // shape[2])[None, None, :]
+    )
+    return labels.to(torch.int32)[None]
+
+
+def make_synth_batch(tio, torch, b, shape, device):
+    seg = synthseg_labels(torch, shape, device)
+    subjects = [tio.Subject(seg=tio.LabelMap(seg.clone())) for _ in range(b)]
+    return tio.SubjectsBatch.from_subjects(subjects)
+
+
+def stored_affine(np, spacing, codes):
+    """A 4x4 affine whose voxel axes run along ``codes`` (one letter a
+    world axis, its sign), with ``spacing`` mm and an off-centre origin."""
+    world = {"R": (0, 1), "L": (0, -1), "A": (1, 1), "P": (1, -1), "S": (2, 1), "I": (2, -1)}
+    matrix = np.eye(4)
+    matrix[:3, :3] = 0.0
+    for voxel, code in enumerate(codes):
+        axis, sign = world[code]
+        matrix[axis, voxel] = sign * spacing[voxel]
+    matrix[:3, 3] = (90.0, 110.0, 70.0)
+    return matrix
+
+
+def ixi_volumes(torch, b, shape, device, seed):
+    """(B, 1, *shape) float32 intensities skewed toward the dark end, as
+    an MR histogram is (the square of a uniform draw)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((b, 1, *shape), generator=gen, device=device) ** 2
+
+
+def make_ixi_batch(tio, torch, np, b, shape, device, seed):
+    """B subjects of a ``t1`` and an int32 ``seg`` (labels {0, 1, 2, 4} in
+    blocks), stored in IXI_CODES at IXI_SPACING."""
+    affine = stored_affine(np, IXI_SPACING, IXI_CODES)
+    t1 = ixi_volumes(torch, b, shape, device, seed)
+    seg = brats_labels(torch, shape, device)
+    subjects = [
+        tio.Subject(
+            t1=tio.ScalarImage(t1[i], affine=affine), seg=tio.LabelMap(seg.clone(), affine=affine)
+        )
+        for i in range(b)
+    ]
+    return tio.SubjectsBatch.from_subjects(subjects)
+
+
+def ixi_landmarks(tio, torch, shape, device, seed):
+    """``compute_histogram_landmarks`` over IXI_CORPUS volumes made from
+    ``seed`` (set-up: not timed)."""
+    corpus = ixi_volumes(torch, IXI_CORPUS, shape, device, seed + 1000)
+    return tio.compute_histogram_landmarks(list(corpus))
+
+
+def islands_seg(torch, seg):
+    """``seg`` (B, 1, I, J, K) with a stray 3^3 island of every label
+    near the far corner, each in a shell of background, so that
+    KeepLargestComponent removes it."""
+    out = seg.clone()
+    for n, label in enumerate(sorted(set(torch.unique(seg).tolist()) - {0})):
+        i, j, k = (s - 6 - 5 * n for s in seg.shape[2:])
+        out[:, :, i - 1 : i + 4, j - 1 : j + 4, k - 1 : k + 4] = 0  # a shell of background
+        out[:, :, i : i + 3, j : j + 3, k : k + 3] = label
+    return out
+
+
+def small_zoo_batch(tio, torch, np):
+    """The small checks' subjects (on the CPU): a 1-channel ``t1``, a
+    3-channel ``feat`` and an int32 ``seg`` (labels {0, 1, 2, 4} in blocks
+    with a stray island each), stored in IXI_CODES at IXI_SPACING."""
+    affine = stored_affine(np, IXI_SPACING, IXI_CODES)
+    gen = torch.Generator().manual_seed(7)
+    t1 = torch.rand((ZOO_B, 1, *ZOO_SHAPE), generator=gen)
+    feat = torch.rand((ZOO_B, 3, *ZOO_SHAPE), generator=gen)
+    feat[:, 1] += 0.5 * feat[:, 0]
+    seg = islands_seg(torch, brats_labels(torch, ZOO_SHAPE, "cpu").expand(ZOO_B, 1, *ZOO_SHAPE))
+    subjects = [
+        tio.Subject(
+            t1=tio.ScalarImage(t1[i], affine=affine),
+            feat=tio.ScalarImage(feat[i], affine=affine),
+            seg=tio.LabelMap(seg[i], affine=affine),
+        )
+        for i in range(ZOO_B)
+    ]
+    return tio.SubjectsBatch.from_subjects(subjects)
+
+
+def zoo_cases(tio, torch, np):
+    """(name, transform maker taking the device, seed, exact) of each
+    module of the zoo's rest; ``exact``: the card must give the CPU's
+    data bit for bit (index and label transforms), else within ZOO_ATOL."""
+    gen = torch.Generator().manual_seed(3)
+    corpus = [torch.rand((1, *ZOO_SHAPE), generator=gen) ** 2 for _ in range(3)]
+    landmarks = tio.compute_histogram_landmarks(corpus)
+    reference = torch.rand((1, 20, 18, 16), generator=gen)
+    ref_affine = stored_affine(np, (1.1, 1.3, 0.9), "RAS")
+    return [
+        ("Transpose", lambda dev: tio.Transpose(), 0, True),
+        ("CopyAffine", lambda dev: tio.CopyAffine("t1"), 0, True),
+        ("Reorient", lambda dev: tio.Reorient("RAS"), 0, True),
+        (
+            "ToReferenceSpace",
+            lambda dev: tio.ToReferenceSpace(tio.ScalarImage(reference.to(dev), affine=ref_affine)),
+            0, True,
+        ),
+        ("Resize nearest", lambda dev: tio.Resize((20, 31, 17), image_interpolation="nearest"), 0, True),
+        ("Resize linear", lambda dev: tio.Resize((20, 31, 17)), 0, False),
+        # seed 0 gates the first element out (per instance, p=0.5)
+        ("Anisotropy nearest", lambda dev: tio.Anisotropy(downsampling=(2, 4), image_interpolation="nearest", p=0.5), 0, True),
+        ("Anisotropy linear", lambda dev: tio.Anisotropy(downsampling=(2, 4), p=0.5), 0, False),
+        ("Swap", lambda dev: tio.Swap(patch_size=(5, 4, 6), num_iterations=(6, 12), p=0.5), 0, True),
+        ("RemapLabels", lambda dev: tio.RemapLabels({1: 7, 4: 1}), 0, True),
+        ("RemoveLabels", lambda dev: tio.RemoveLabels([2]), 0, True),
+        ("SequentialLabels", lambda dev: tio.SequentialLabels(), 0, True),
+        ("OneHot", lambda dev: tio.OneHot(num_classes=4), 0, True),
+        ("Contour", lambda dev: tio.Contour(), 0, True),
+        ("KeepLargestComponent", lambda dev: tio.KeepLargestComponent(), 0, True),
+        ("PCA", lambda dev: tio.PCA(num_components=2, include=["feat"]), 0, False),
+        ("HistogramStandardization", lambda dev: tio.HistogramStandardization(landmarks, include=["t1"]), 0, False),
+        ("LabelsToImage", lambda dev: tio.LabelsToImage(label_key="seg", ignore_background=True), 0, False),
+        ("Lambda", lambda dev: tio.Lambda(lambda x: x * 2 + 1, types_to_apply=[tio.ScalarImage]), 0, True),
+        ("To", lambda dev: tio.To(torch.float16), 0, True),
+    ]
+
+
+def zoo_on_both(tio, make_batch, make_transform, seed):
+    """``make_transform(device)`` on a batch from ``make_batch`` on the CPU
+    and on the card from one seed: ((cpu, card) outputs, (cpu, card) next
+    host draws, the card run's launches)."""
+    import torch
+    from torchio_tpu_torch.ops import kernel_lib as kl
+
+    outs, draws, launched = [], [], {}
+    for device in ("cpu", DEVICE):
+        batch = make_batch().to(device)
+        tio.seed(seed)
+        transform = make_transform(torch.device(device))
+        before = dict(kl.LAUNCHES)
+        outs.append(transform(batch))
+        draws.append(float(tio.random.random()))
+        launched = {k: kl.LAUNCHES.get(k, 0) - before.get(k, 0) for k in KERNELS}
+    return outs, draws, launched
+
+
+def zoo_difference(np, name, cpu, gpu, exact):
+    """The largest difference between the card's and the CPU's images;
+    fails on another set of images, dtype, shape, affine or device."""
+    if list(cpu.images) != list(gpu.images):
+        fail(f"small {name}: images {list(gpu.images)} on the card, {list(cpu.images)} on the CPU")
+    err = 0.0
+    for key in cpu.images:
+        want, got = cpu.images[key], gpu.images[key]
+        if got.data.device.type != DEVICE or got.data.dtype != want.data.dtype:
+            fail(f"small {name}: {key} {got.data.dtype} on {got.data.device}, {want.data.dtype}")
+        if got.data.shape != want.data.shape or got.image_class is not want.image_class:
+            fail(f"small {name}: {key} {tuple(got.data.shape)} against {tuple(want.data.shape)}")
+        for a, b in zip(want.affines, got.affines):
+            if not np.array_equal(a.data, b.data):
+                fail(f"small {name}: {key} affines differ")
+        diff = (got.data.cpu().double() - want.data.double()).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+    if err > (0.0 if exact else ZOO_ATOL):
+        fail(f"small {name}: card against CPU max abs {err} (limit {0.0 if exact else ZOO_ATOL})")
+    return err
+
+
+def phase_small_zoo(torch, np, tio):
+    """Each module of the zoo's rest on B=2 subjects at ZOO_SHAPE: card
+    against the CPU path, from one seed. Index and label transforms equal,
+    the rest within ZOO_ATOL; histories (Swap's locations included) and
+    the next host draw equal; LabelsToImage launches the threefry kernel
+    once for each label it draws, the others launch no kernel."""
+    torch.exp(torch.zeros(1 << 20))  # warm the CPU thread pool (see both_devices)
+    lines = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # Swap warns of the label map
+        for name, make, seed, exact in zoo_cases(tio, torch, np):
+            (cpu, gpu), draws, launched = zoo_on_both(
+                tio, lambda: small_zoo_batch(tio, torch, np), make, seed
+            )
+            history = [(h.name, h.params) for h in gpu.applied_transforms]
+            if not json_close(history, [(h.name, h.params) for h in cpu.applied_transforms]):
+                fail(f"small {name}: the card's history {history} differs from the CPU's")
+            if draws[0] != draws[1]:
+                fail(f"small {name}: next host draws {draws}")
+            err = zoo_difference(np, name, cpu, gpu, exact)
+            want = {k: 0 for k in KERNELS}
+            if name == "LabelsToImage":
+                means = history[0][1]["means"]
+                want["threefry_normal"] = sum(
+                    any(m[label] for m in means) for label in sorted(means[0])
+                )
+            if launched != want:
+                fail(f"small {name}: launches {launched}, expected {want}")
+            keep = history[0][1].get("_keep") if history else None
+            if name.startswith(("Anisotropy", "Swap")) and keep != [False, True]:
+                fail(f"small {name}: gated elements {keep}, expected the first gated out")
+            lines.append(f"{name} {'equal' if exact else f'{err:.3g}'}")
+    print(
+        f"small zoo ({ZOO_B} x (1 + 3 + 1) x {'x'.join(map(str, ZOO_SHAPE))}) cuda vs cpu:"
+        f" {'; '.join(lines)} (limit {ZOO_ATOL} where not equal); histories, the next host"
+        " draw and the launches equal"
+    )
+
+
+#: integer images on the card: torch's support for uint16 and uint32 is
+#: partial, so each dtype goes through the modules that cast or move it
+INTEGER_DTYPES = ("int16", "uint16", "uint32")
+
+
+def integer_cases(tio):
+    """(name, transform maker, exact) of the modules that move or cast an
+    integer image: the index and label ones must equal the CPU path, the
+    float32 ones (then a saturating cast) within 1 + ZOO_ATOL of the
+    image's largest magnitude."""
+    return [
+        ("Flip", lambda: tio.Flip(axes=(0, 2)), True),
+        ("Reorient", lambda: tio.Reorient("RAS"), True),
+        ("Swap", lambda: tio.Swap(patch_size=4, num_iterations=5), True),
+        ("RemapLabels", lambda: tio.RemapLabels({1: 7, 4: 1}), True),
+        ("Resize", lambda: tio.Resize((20, 31, 17)), False),
+        ("Anisotropy", lambda: tio.Anisotropy(downsampling=(2, 4)), False),
+        ("Blur", lambda: tio.Blur(std=(0.5, 1.5)), False),
+        ("Motion", lambda: tio.Motion(degrees=10, translation=5, num_transforms=2), False),
+        ("Ghosting", lambda: tio.Ghosting(intensity=(0.5, 1)), False),
+        ("Spike", lambda: tio.Spike(intensity=(1, 3)), False),
+    ]
+
+
+def integer_batch(tio, torch, np, dtype):
+    """small_zoo_batch's ``t1`` at 10 % to 97 % of ``dtype``'s range (the
+    k-space artifacts ring past both ends) and its ``seg``, both in
+    ``dtype``."""
+    batch = small_zoo_batch(tio, torch, np)
+    info = np.iinfo(dtype)
+    top = float(info.max) * 0.97
+    t1 = batch.t1.data.double() * top * 0.87 + top * 0.1
+    batch.t1.data = t1.to(torch.int64).to(getattr(torch, dtype))
+    batch.seg.data = batch.seg.data.to(getattr(torch, dtype))
+    return batch
+
+
+def phase_small_integers(torch, np, tio):
+    """int16, uint16 and uint32 images through the modules that move or
+    cast them, on the card against the CPU path: the same dtype, the
+    index and label transforms equal, the float32 ones within 1 +
+    ZOO_ATOL of the largest magnitude (cuFFT and the CPU's FFT round
+    differently; both convert back saturating, as XLA does)."""
+    worst = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # Swap warns of the label map
+        for dtype in INTEGER_DTYPES:
+            for name, make, exact in integer_cases(tio):
+                (cpu, gpu), draws, _ = zoo_on_both(
+                    tio, lambda: integer_batch(tio, torch, np, dtype), lambda dev: make(), 2
+                )
+                if draws[0] != draws[1]:
+                    fail(f"small {name} on {dtype}: next host draws {draws}")
+                for key in ("t1", "seg"):
+                    want, got = cpu.images[key].data, gpu.images[key].data
+                    if got.dtype != want.dtype or got.dtype != getattr(torch, dtype):
+                        fail(f"small {name} on {dtype}: {key} {got.dtype}, the CPU's {want.dtype}")
+                    diff = float((got.cpu().double() - want.double()).abs().max())
+                    limit = 0.0 if exact else 1 + ZOO_ATOL * float(want.double().abs().max())
+                    if diff > limit:
+                        fail(f"small {name} on {dtype}: {key} differs by {diff} (limit {limit})")
+                    worst[name] = max(worst.get(name, 0.0), diff)
+    print(
+        f"small integer images ({', '.join(INTEGER_DTYPES)}; {ZOO_B} x 24x28x32) cuda vs cpu:"
+        f" largest difference {worst} (index and label transforms equal, the rest within 1 +"
+        f" {ZOO_ATOL} of the largest magnitude); dtypes kept"
+    )
+
+
+def phase_small_zoo_paths(torch, np, tio, rs):
+    """synthseg-labels-to-image (its Spatial a whole-voxel translation, so
+    that the nearest label resample has no ties) and ixi-preprocess-histstd
+    on small batches: card against the CPU path; ixi's labels equal off
+    near ties of its Resample."""
+    shape = (32, 36, 28)
+    spatial = lambda: tio.Spatial(translation=(1, -2, 1))  # noqa: E731
+    (cpu, gpu), _, launched = both_devices(
+        tio, lambda: make_synth_batch(tio, torch, 2, shape, "cpu"),
+        lambda: synthseg_pipeline(tio, spatial()), 5,
+    )
+    if not json_close(element_histories(gpu), element_histories(cpu)):
+        fail("small synthseg: the card's history differs from the CPU's")
+    err = float((gpu.image_from_labels.data.cpu() - cpu.image_from_labels.data).abs().max())
+    labels = len(cpu.applied_transforms[1].params["means"][0])
+    seg_equal = torch.equal(gpu.seg.data.cpu(), cpu.seg.data)
+    if launched["resample"] != 1 or launched["threefry_normal"] != labels + 2:
+        fail(f"small synthseg: launches {launched}, {labels} labels")
+    print(
+        f"small synthseg-labels-to-image (2 x 32x36x28, {labels} labels) cuda vs cpu:"
+        f" image max abs {err:.3g} (limit {SLICE_ATOL}); seg equal {seg_equal}; launches"
+        f" resample {launched['resample']}, threefry {launched['threefry_normal']}"
+    )
+    if not err <= SLICE_ATOL or not seg_equal:
+        fail("the small synthseg path differs from the CPU path")
+
+    shape, crop = (40, 44, 24), (32, 32, 24)
+    gen = torch.Generator().manual_seed(4)
+    landmarks = tio.compute_histogram_landmarks(
+        [torch.rand((1, *shape), generator=gen) ** 2 for _ in range(3)]
+    )
+    (cpu, gpu), _, launched = both_devices(
+        tio, lambda: make_ixi_batch(tio, torch, np, 2, shape, "cpu", 6),
+        lambda: ixi_pipeline(tio, landmarks, crop), 6,
+    )
+    if not json_close(element_histories(gpu), element_histories(cpu)):
+        fail("small ixi: the card's history differs from the CPU's")
+    records = {h.name: h.params for h in cpu.applied_transforms}
+    err = float((gpu.t1.data.cpu() - cpu.t1.data).abs().max())
+    original = records["Resample"]["original"]
+    affine = tio.AffineMatrix(np.asarray(original["affine"]))
+    maps, fields, out_shape = target_grids(rs, records["Resample"], affine, 2, "cpu")
+    ties = nearest_ties(torch, rs, maps, fields, out_shape)
+    i0, i1, j0, j1, k0, k1 = records["Crop"]["cropping"]
+    n = ties.shape[2:]
+    ties = ties[:, :, i0 : n[0] - i1, j0 : n[1] - j1, k0 : n[2] - k1]
+    differ = (gpu.seg.data.cpu() != cpu.seg.data).any(dim=1, keepdim=True)
+    off = int((differ & ~ties).sum())
+    if launched["resample"] != 2 or launched["threefry_normal"]:
+        fail(f"small ixi: launches {launched}")
+    print(
+        f"small ixi-preprocess-histstd (2 x (1 + 1) x 40x44x24 in {IXI_CODES} at"
+        f" {IXI_SPACING} mm -> RAS, 1 mm, {'x'.join(map(str, crop))}) cuda vs cpu: t1 max abs"
+        f" {err:.3g} (limit {SLICE_ATOL}); one-hot voxels differing {int(differ.sum())}, off"
+        f" near ties {off}; resample launches {launched['resample']}"
+    )
+    if not err <= SLICE_ATOL or off:
+        fail("the small ixi path differs from the CPU path")
+
+
+def synth_launches(call_history):
+    """The threefry launches a synthseg call implies: one for each label
+    LabelsToImage draws (means or stds not all zero), one for BiasField's
+    fields and one for Noise."""
+    records = {h.name: h.params for h in call_history}
+    means, stds = records["LabelsToImage"]["means"], records["LabelsToImage"]["stds"]
+    drawn = sum(
+        any(m[label] for m in means) or any(s[label] for s in stds) for label in sorted(means[0])
+    )
+    return drawn + 2
+
+
+class KeptHistory:
+    """A pipeline that keeps each call's history records."""
+
+    def __init__(self, pipeline):
+        self.pipeline = pipeline
+        self.histories = []
+
+    def __call__(self, batch):
+        out = self.pipeline(batch)
+        self.histories.append(list(out.applied_transforms))
+        return out
+
+
+def phase_synthseg(torch, tio, kl, smi, profile: str | None):
+    """synthseg-labels-to-image: the generator on B=4 label maps of 256^3
+    (32 labels, made on the card)."""
+    name = "synthseg-labels-to-image"
+    batch = make_synth_batch(tio, torch, SYNTH_B, SYNTH_SHAPE, torch.device(DEVICE))
+    call = KeptHistory(synthseg_pipeline(tio))
+    tio.seed(SYNTH_SEED)
+    out, times, per_call, totals, peak, histories = drive(
+        torch, kl, call, batch, ("resample", "threefry_normal")
+    )
+    for launched, history in zip(per_call, call.histories):
+        want = {"resample": 1, "threefry_normal": synth_launches(history)}
+        others = {k: n for k, n in launched.items() if k not in want and n}
+        if any(launched[k] != n for k, n in want.items()) or others:
+            fail(f"{name}: launches {launched}, expected {want}")
+    image = out.image_from_labels.data
+    if tuple(image.shape) != (SYNTH_B, 1, *SYNTH_SHAPE) or image.device.type != DEVICE:
+        fail(f"{name} image {tuple(image.shape)} on {image.device}")
+    low, high = float(image.min()), float(image.max())
+    if not bool(torch.isfinite(image).all()) or low < 0.0 or high > 1.0:
+        fail(f"{name}: image in [{low}, {high}]")
+    labels = set(torch.unique(out.seg.data).tolist())
+    if out.seg.data.dtype != torch.int32 or not labels <= set(range(SYNTH_LABELS)):
+        fail(f"{name}: seg {out.seg.data.dtype} labels {sorted(labels)}")
+    drawn = [synth_launches(h) - 2 for h in call.histories]
+    report_path(name, times, peak, per_call, ("resample", "threefry_normal"), smi, "subjects", SYNTH_B)
+    print(f"{name}: labels drawn by LabelsToImage per call {drawn}; histories {histories[-1]}")
+    if profile:
+        profile_same_draws(torch, tio, SYNTH_SEED, call, batch, profile, name)
+    return totals
+
+
+def phase_ixi(torch, np, tio, kl, smi, profile: str | None):
+    """ixi-preprocess-histstd: TorchIO's classic preprocessing on B=4 IXI
+    T1-shaped subjects stored in IXI_CODES, with landmarks from
+    ``compute_histogram_landmarks`` (set-up, untimed)."""
+    name = "ixi-preprocess-histstd"
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    landmarks = ixi_landmarks(tio, torch, IXI_SHAPE, dev, IXI_SEED)
+    setup_s = time.perf_counter() - t0
+    batch = make_ixi_batch(tio, torch, np, IXI_B, IXI_SHAPE, dev, IXI_SEED)
+    pipeline = ixi_pipeline(tio, landmarks, IXI_CROP)
+    tio.seed(IXI_SEED)
+    out, times, per_call, totals, peak, histories = drive(torch, kl, pipeline, batch, ("resample",))
+    for launched in per_call:
+        if launched["resample"] != 2 or any(n for k, n in launched.items() if k != "resample"):
+            fail(f"{name}: launches {launched}, expected 2 resample launches a call")
+    t1, seg = out.t1.data, out.seg.data
+    if tuple(t1.shape) != (IXI_B, 1, *IXI_CROP) or t1.device.type != DEVICE:
+        fail(f"{name} t1 {tuple(t1.shape)} on {t1.device}")
+    if tuple(seg.shape) != (IXI_B, 5, *IXI_CROP) or seg.dtype != torch.float32:
+        fail(f"{name} seg {tuple(seg.shape)} {seg.dtype}")
+    if not bool(torch.isfinite(t1).all()) or not torch.equal(seg.sum(dim=1), torch.ones_like(seg[:, 0])):
+        fail(f"{name}: non-finite t1 or a one-hot voxel that does not sum to 1")
+    means = t1.mean(dim=(1, 2, 3, 4))
+    stds = t1.std(dim=(1, 2, 3, 4))
+    if float((means.abs()).max()) > 1e-3 or float((stds - 1).abs().max()) > 1e-3:
+        fail(f"{name}: z-normalised t1 means {means.tolist()}, stds {stds.tolist()}")
+    orientation = "".join(out.t1.affines[0].orientation)
+    spacing = out.t1.affines[0].spacing
+    if orientation != "RAS" or not np.allclose(spacing, 1.0):
+        fail(f"{name}: output {orientation} at {spacing} mm")
+    report_path(name, times, peak, per_call, ("resample",), smi, "subjects", IXI_B)
+    print(
+        f"{name}: landmarks {[round(float(x), 3) for x in landmarks]} from {IXI_CORPUS} volumes in"
+        f" {setup_s:.2f} s (set-up); histories {histories[-1]}"
+    )
+    if profile:
+        profile_same_draws(torch, tio, IXI_SEED, pipeline, batch, profile, name)
+    return totals
+
+
+def device_kernels(torch, fn):
+    """The number of kernels the card ran in one ``fn()``, under the
+    profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in p.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def phase_zoo_timing(torch, tio, smi):
+    """One timed call each at full width: KeepLargestComponent on the
+    brats cell's seg with a stray island a label (its host time and its
+    two copies), and Swap(patch_size=15, num_iterations=100) on B=4 x
+    256^3 (its device kernels a call)."""
+    dev = torch.device(DEVICE)
+    batch = make_brats_batch(tio, torch, BRATS_B, BRATS_SHAPE, dev, 0)
+    batch.seg.data = islands_seg(torch, batch.seg.data)
+    seg = batch.seg.data
+    transform = tio.KeepLargestComponent()
+    transform(copy.deepcopy(batch))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = transform(batch)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = seg.cpu()
+    pull_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host.to(dev)
+    torch.cuda.synchronize()
+    push_s = time.perf_counter() - t0
+    kept = out.seg.data
+    changed = kept != seg
+    if kept.device.type != DEVICE or kept.dtype != torch.int32:
+        fail(f"KeepLargestComponent: {kept.dtype} on {kept.device}")
+    if not bool(changed.any()) or bool((kept[changed] != 0).any()):
+        fail(f"KeepLargestComponent: {int(changed.sum())} voxels changed, not all to 0")
+    print(
+        f"KeepLargestComponent (B={BRATS_B} x {'x'.join(map(str, BRATS_SHAPE))} int32, a stray"
+        f" island a label): {int(changed.sum())} voxels removed; {call_s * 1e3:.1f} ms a"
+        f" call, of which the copies to the host"
+        f" {pull_s * 1e3:.1f} ms and back {push_s * 1e3:.1f} ms (timed alone), host"
+        f" {(call_s - pull_s - push_s) * 1e3:.1f} ms; card {smi}"
+    )
+    del batch, out, seg, kept, host, changed
+
+    batch = make_batch(tio, torch, SWAP_B, SWAP_SHAPE, dev, 1)
+    swap = tio.Swap(patch_size=SWAP_PATCH, num_iterations=SWAP_ITERATIONS)
+    tio.seed(0)
+    swap(batch)  # warm-up
+    torch.cuda.synchronize()
+    tio.seed(1)
+    t0 = time.perf_counter()
+    out = swap(batch)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    params = out.applied_transforms[0].params
+    steps = max(len(locations) for locations in params["locations"])
+    tio.seed(1)
+    kernels = device_kernels(torch, lambda: swap(batch))
+    if not bool(torch.isfinite(out.t1.data).all()) or torch.equal(out.t1.data, batch.t1.data):
+        fail("Swap: the output is not finite or equals the input")
+    print(
+        f"Swap(patch_size={SWAP_PATCH}, num_iterations={SWAP_ITERATIONS}) on B={SWAP_B} x"
+        f" {'x'.join(map(str, SWAP_SHAPE))}: {call_s * 1e3:.1f} ms a call, {steps} steps,"
+        f" {kernels} device kernels a call (4 a step: two gathers, two scatters); card {smi}"
+    )
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -3157,6 +3746,9 @@ def main() -> int:
     phase_small_policy(torch, np, tio, rs, kl)
     phase_small_kspace_oneof(torch, tio, kl)
     phase_small_brats_preprocess(torch, tio, kl)
+    phase_small_zoo(torch, np, tio)
+    phase_small_integers(torch, np, tio)
+    phase_small_zoo_paths(torch, np, tio, rs)
     phase_host_subject(torch, np, tio, kl)
     headline_launches = phase_slice(torch, tio, kl, args.profile)
     brats_launches, brats_batch = phase_brats(torch, tio, kl, args.profile)
@@ -3170,6 +3762,9 @@ def main() -> int:
     policy_launches_total = phase_policy(torch, tio, kl, smi, args.profile)
     oneof_launches = phase_kspace_oneof(torch, tio, kl, smi, args.profile)
     phase_brats_preprocess(torch, tio, kl, smi, args.profile)
+    synthseg_launches = phase_synthseg(torch, tio, kl, smi, args.profile)
+    ixi_launches = phase_ixi(torch, np, tio, kl, smi, args.profile)
+    phase_zoo_timing(torch, tio, smi)
     timings = {"resample": phase_kernel_timing(torch, np, tio, rs, rk)}
     timings.update(phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch))
     del brats_batch
@@ -3196,6 +3791,8 @@ def main() -> int:
         "config3-affine-resample": config3_launches["resample"],
         "config4-elastic-inverse": config4_launches["resample"],
         "policy-someof": policy_launches_total["resample"],
+        "synthseg-labels-to-image": synthseg_launches["resample"],
+        "ixi-preprocess-histstd": ixi_launches["resample"],
     }
     threefry_paths = {
         "headline": headline_launches["threefry_normal"],
@@ -3205,6 +3802,7 @@ def main() -> int:
         "config3-affine-resample": config3_launches["threefry_normal"],
         "config4-elastic-inverse": config4_launches["threefry_normal"],
         "policy-someof": policy_launches_total["threefry_normal"],
+        "synthseg-labels-to-image": synthseg_launches["threefry_normal"],
     }
     kernels = [
         {
@@ -3287,7 +3885,9 @@ def main() -> int:
             " 1 mm map; the JAX package computes a diagonal map with XLA separable"
             " matmuls (_resample_element_separable), no Pallas kernel; launches: every"
             " resample launch of the config 3 path, 4 a call (Affine and Resample, ch"
-            " and seg); library: F.interpolate(trilinear, align_corners=False)",
+            " and seg); ixi-preprocess-histstd (t1 linear and seg nearest from 0.9375 x"
+            f" 0.9375 x 1.2 mm to 1 mm, 7 calls): {ixi_launches['resample']}; library:"
+            " F.interpolate(trilinear, align_corners=False)",
             "path": "config3-affine-resample",
         },
         {

@@ -12,7 +12,11 @@ every interpolation of ``Spatial`` (nearest, linear, B-spline orders 2-7
 and the partial-volume "label" mode); the MRI-artifact pair
 ``Compose([Motion(...), Ghosting(...)])``; Flip,
 Normalize/RescaleIntensity, Blur, Gamma, Clamp, Standardize
-(ZNormalization) and Mask; OneOf and SomeOf (``t1 | t2`` builds a
+(ZNormalization) and Mask; the rest of the zoo: Swap, PCA,
+HistogramStandardization, LabelsToImage (SynthSeg's generator),
+Anisotropy, Resize, Reorient, Transpose, CopyAffine, ToReferenceSpace,
+the label tools (OneHot, RemapLabels, RemoveLabels, SequentialLabels,
+Contour, KeepLargestComponent), Lambda and To; OneOf and SomeOf (``t1 | t2`` builds a
 OneOf), per instance with per-element histories; point sets and
 bounding boxes carried by images and subjects; target spaces (Resample,
 ``Spatial(target=...)``), Pad, Crop, CropOrPad and EnsureShapeMultiple;
@@ -70,11 +74,15 @@ from .data import (
 from .random import seed
 from .transforms import (
     Affine,
+    Anisotropy,
+    AppliedTransform,
     BiasField,
     Blur,
     Choice,
     Clamp,
     Compose,
+    Contour,
+    CopyAffine,
     Crop,
     CropOrPad,
     ElasticDeformation,
@@ -82,26 +90,44 @@ from .transforms import (
     Flip,
     Gamma,
     Ghosting,
+    HistogramStandardization,
+    KeepLargestComponent,
+    LabelsToImage,
+    Lambda,
     Mask,
     Motion,
     Noise,
     Normalize,
+    OneHot,
     OneOf,
+    PCA,
     Pad,
+    RemapLabels,
+    RemoveLabels,
+    Reorient,
     Resample,
     RescaleIntensity,
+    Resize,
+    SequentialLabels,
     SomeOf,
     Spatial,
     Spike,
     Standardize,
+    Swap,
+    To,
+    ToReferenceSpace,
+    Transpose,
     ZNormalization,
     apply_inverse_transform,
+    compute_histogram_landmarks,
     get_inverse_transform,
 )
 
 __all__ = [
     "Affine",
     "AffineMatrix",
+    "Anisotropy",
+    "AppliedTransform",
     "BiasField",
     "Blur",
     "BoundingBoxFormat",
@@ -109,6 +135,8 @@ __all__ = [
     "Choice",
     "Clamp",
     "Compose",
+    "Contour",
+    "CopyAffine",
     "Crop",
     "CropOrPad",
     "ElasticDeformation",
@@ -117,25 +145,36 @@ __all__ = [
     "Gamma",
     "Ghosting",
     "GridSampler",
+    "HistogramStandardization",
     "ImagesBatch",
     "ImagesLoader",
+    "KeepLargestComponent",
     "LabelMap",
     "LabelSampler",
+    "LabelsToImage",
+    "Lambda",
     "Mask",
     "Motion",
     "Noise",
     "Normalize",
+    "OneHot",
     "OneOf",
+    "PCA",
     "Pad",
     "PatchAggregator",
     "PatchLocation",
     "PatchSampler",
     "Points",
     "Queue",
+    "RemapLabels",
+    "RemoveLabels",
+    "Reorient",
     "Representation",
     "Resample",
     "RescaleIntensity",
+    "Resize",
     "ScalarImage",
+    "SequentialLabels",
     "SomeOf",
     "Spatial",
     "Spike",
@@ -144,6 +183,10 @@ __all__ = [
     "Subject",
     "SubjectsBatch",
     "SubjectsLoader",
+    "Swap",
+    "To",
+    "ToReferenceSpace",
+    "Transpose",
     "UniformSampler",
     "WeightedSampler",
     "ZNormalization",
@@ -151,6 +194,7 @@ __all__ = [
     "collate_images",
     "collate_studies",
     "collate_subjects",
+    "compute_histogram_landmarks",
     "default_device",
     "get_inverse_transform",
     "random",

@@ -26,6 +26,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..core.dtypes import cast_like_jax
+
 
 def gaussian_kernel_1d(sigma: float, radius: int) -> np.ndarray:
     x = np.arange(2 * radius + 1, dtype=np.float32) - radius
@@ -103,7 +105,7 @@ def gaussian_blur(data, sigmas, truncate: float = 3.0, radii=None) -> torch.Tens
             kernel = kernel / kernel.sum()
         band = torch.as_tensor(_band_matrix(kernel, data.shape[2 + axis]), device=data.device)
         out = torch.einsum(_AXIS_EINSUM[axis], out, band)
-    out = out.to(data.dtype)
+    out = cast_like_jax(out, data.dtype)
     return out[0] if unbatched else out
 
 
@@ -161,4 +163,4 @@ def gaussian_blur_per_element(data, sigmas, truncate: float = 3.0, radii=None):
         per_element_radii(sig, truncate, radii),
         float(truncate),
     )
-    return out.to(data.dtype)
+    return cast_like_jax(out, data.dtype)

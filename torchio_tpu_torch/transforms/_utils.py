@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..config import as_tensor
+from ..core.dtypes import movable
 
 __all__ = ["as_tensor", "broadcast_param", "restore_gated", "unique_labels"]
 
@@ -30,7 +31,8 @@ def restore_gated(transformed: torch.Tensor, original: torch.Tensor, keep):
         return transformed
     mask = torch.as_tensor(flags, device=transformed.device)
     mask = mask.reshape((-1,) + (1,) * (transformed.ndim - 1))
-    return torch.where(mask, transformed, original.to(transformed.dtype))
+    kept = torch.where(mask, movable(transformed), movable(original.to(transformed.dtype)))
+    return kept.view(transformed.dtype)
 
 
 def unique_labels(data: torch.Tensor) -> list[int]:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import random as tio_random
+from ..core.dtypes import cast_like_jax
 from .transform import DeferredParam, Transform, record_history
 
 
@@ -133,10 +134,12 @@ def bias_apply(
 
 
 def flip_static_apply(names: tuple[str, ...], dims: tuple[int, ...]):
+    from .spatial.flip import flip
+
     def apply(datas, args):
         if not dims:
             return datas, None
-        return {**datas, **{nm: torch.flip(datas[nm], dims) for nm in names}}, None
+        return {**datas, **{nm: flip(datas[nm], dims) for nm in names}}, None
 
     return apply
 
@@ -173,7 +176,7 @@ def blur_apply(names: tuple[str, ...], truncate: float):
                 continue
             data = out[nm]
             sig = torch.as_tensor(sig_vox.astype(np.float32), device=data.device)
-            res = blur_per_element(data, sig, radii, truncate).to(data.dtype)
+            res = cast_like_jax(blur_per_element(data, sig, radii, truncate), data.dtype)
             out[nm] = restore_gated(res, data, row_keep)
         return out, None
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ... import random as tio_random
+from ...core.dtypes import cast_like_jax
 from ...data.batch import SubjectsBatch
 from .._utils import restore_gated
 from ..parameter_range import to_nonneg_range
@@ -160,4 +161,4 @@ def _apply_mask(data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     part of the inverse FFT in ``data``'s dtype."""
     spectrum = torch.fft.fftn(data.to(torch.float32), dim=_SPATIAL)
     spectrum *= mask  # in place: the spectrum is this function's own buffer
-    return torch.fft.ifftn(spectrum, dim=_SPATIAL).real.contiguous().to(data.dtype)
+    return cast_like_jax(torch.fft.ifftn(spectrum, dim=_SPATIAL).real.contiguous(), data.dtype)

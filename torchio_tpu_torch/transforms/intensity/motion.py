@@ -22,6 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ...core.dtypes import cast_like_jax
 from ...data.batch import SubjectsBatch
 from ...ops.resample import build_coords
 from .._utils import restore_gated
@@ -196,4 +197,4 @@ def _apply_motion(data: torch.Tensor, per_element_transforms, num_transforms: in
         # in place: the spectrum is this function's own buffer
         spectrum[:, :, start:end] = moved_spectrum[:, :, start:end]
         del moved_spectrum
-    return torch.fft.ifftn(spectrum, dim=_SPATIAL).real.contiguous().to(data.dtype)
+    return cast_like_jax(torch.fft.ifftn(spectrum, dim=_SPATIAL).real.contiguous(), data.dtype)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ... import random as tio_random
+from ...core.dtypes import cast_like_jax
 from ...data.batch import SubjectsBatch
 from .._utils import restore_gated
 from ..parameter_range import to_nonneg_range, to_range
@@ -127,4 +128,4 @@ def _add_spikes(data: torch.Tensor, per_element) -> torch.Tensor:
         coords_t[:, 2:3],
     )
     spectrum.index_put_(index, impulses, accumulate=True)
-    return torch.fft.ifftn(spectrum, dim=_SPATIAL).real.contiguous().to(data.dtype)
+    return cast_like_jax(torch.fft.ifftn(spectrum, dim=_SPATIAL).real.contiguous(), data.dtype)

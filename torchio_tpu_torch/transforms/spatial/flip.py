@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ... import random as tio_random
+from ...core.dtypes import movable
 from ...data.batch import SubjectsBatch
 from ..transform import SpatialTransform
 
@@ -60,6 +61,12 @@ def _resolve_axes(
     return tuple(sorted(resolved))
 
 
+def flip(data: torch.Tensor, dims) -> torch.Tensor:
+    """``torch.flip`` for every dtype (torch has no flip kernel for its
+    wider unsigned types: their bits move as the signed type's)."""
+    return torch.flip(movable(data), tuple(dims)).view(data.dtype)
+
+
 def flip_flags(axes_per_element: list[list[int]]) -> np.ndarray:
     """(B, 3) booleans: element ``b`` flips spatial axis ``a``."""
     flags = np.zeros((len(axes_per_element), 3), bool)
@@ -73,12 +80,12 @@ def flip_per_element(data: torch.Tensor, flags: np.ndarray) -> torch.Tensor:
     :func:`flip_flags`). Flips along distinct axes commute, so the batch
     is flipped once per axis that any element flips, and a mask picks
     each element's version."""
-    result = data
+    result = movable(data)
     for axis in np.flatnonzero(flags.any(axis=0)):
         select = torch.as_tensor(flags[:, axis], device=data.device)
         select = select.reshape(-1, 1, 1, 1, 1)
         result = torch.where(select, torch.flip(result, (int(axis) - 3,)), result)
-    return result
+    return result.view(data.dtype)
 
 
 class Flip(SpatialTransform):
@@ -149,7 +156,7 @@ class Flip(SpatialTransform):
             return batch
         dims = tuple(a - 3 for a in axes)
         for img_batch in self._get_images(batch).values():
-            img_batch.data = torch.flip(img_batch.data, dims)
+            img_batch.data = flip(img_batch.data, dims)
         return batch
 
     @property
