@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. device: requires CUDA; prints the card's name and power limit, and
    the torch, CUDA, nvcc and Triton versions;
 2. build: compiles every kernel library from ``torchio_tpu_torch/csrc``,
-   one ``nvcc`` per source, all at once;
+   one ``nvcc`` per source, all at once, and beside them the host decode
+   library ``torchio_tpu_torch/native/fastnifti.cpp`` (g++, zlib); fails
+   if either does not build;
 3. kernels against their plain PyTorch versions on the card:
    - resample: linear within 1e-5 max abs on inputs in [0, 1); nearest
      equal away from .5 ties; also on the row tiling's edges (rows of 1,
@@ -79,7 +81,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ties of its Resample); int16, uint16 and uint32 images through Flip,
    Reorient, Swap, RemapLabels (equal), Resize, Anisotropy, Blur, Motion,
    Ghosting and Spike (within 1 + 1e-5 of the largest magnitude), their
-   dtypes kept;
+   dtypes kept; NIfTI files of every dtype ``write_nifti`` writes, as
+   ``.nii`` and ``.nii.gz``, loaded on the card equal to the CPU's load,
+   and a lazy CropOrPad (crop and constant pad as views, and a reflect
+   pad) of subjects read from files equal to the eager one on the card;
    a subject and an array built from numpy go through the headline on the
    card (host data lands there by default) and launch the resample
    kernel;
@@ -126,7 +131,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``sum().item()``; every patch centre labelled, the dense resample
    kernel launched once for each prepared subject that kept Motion and no
    other kernel; then ``SubjectsLoader(queue, batch_size=8)`` the same
-   way (bench_queue);
+   way (bench_queue); then config5-nifti-queue: the same Queue over the
+   same subjects written as uncompressed ``.nii`` (float32 t1, int32 seg)
+   and read by its two workers every epoch (``Subject.unload()`` between
+   epochs), with the same seeds: the patch corners equal the in-memory
+   run's, one dense resample launch a subject that kept Motion, the reads
+   in the worker threads and overlapping, the decode in the native
+   library; it prints patches/s, the reads a subject and an epoch, and
+   the overlap;
 13. config5b-grid-hann-aggregator: bench_aggregator(device_output=True) at
    256^3: ``GridSampler(patch_size=64, patch_overlap=16)`` (125 patches),
    ``SubjectsLoader(batch_size=4)``, an identity model, a hann
@@ -173,7 +185,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``seg`` at 0.9375x0.9375x1.2 mm stored in "PLI", the landmarks from
    ``compute_histogram_landmarks`` over 8 volumes (set-up): two resample
    launches a call (the diagonal map), t1 z-normalised, the one-hot
-   summing to 1, RAS at 1 mm; phases 17-18 print what phases 14-16 print;
+   summing to 1, RAS at 1 mm; then ixi-nifti-preprocess: the same
+   pipeline over the same volumes quantised to int16 and written as
+   ``.nii.gz`` (with the int32 seg), read lazily each call, with
+   ``Resample(target=<a 1 mm RAS reference .nii.gz>)`` and the landmarks
+   from ``compute_histogram_landmarks`` on the 4 t1 paths: 2 resample
+   launches a call, the output equal bit for bit to the same pipeline on
+   the int16 volumes in memory, every file decoded by the native library;
+   it prints the read and the pipeline a call and one subject's decode,
+   native against plain; phases 17-18 print what phases 14-16 print;
 19. one timed call of KeepLargestComponent on the brats cell's seg with a
    stray island a label (its host time and its two copies), and of
    Swap(patch_size=15, num_iterations=100) on B=4 x 256^3 (its device
@@ -220,9 +240,13 @@ import importlib
 import itertools
 import json
 import math
+import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 from importlib import metadata
@@ -585,13 +609,21 @@ def phase_device(torch, config):
     return smi
 
 
-def phase_build(kl):
+def phase_build(kl, native):
+    """Every kernel library (one nvcc each, all at once) and, beside them,
+    the host decode library (g++ and zlib)."""
     t0 = time.perf_counter()
+    host = threading.Thread(target=native.available)
+    host.start()
     libraries = kl.build_all()
+    host.join()
     print(
         f"build: {time.perf_counter() - t0:.2f} s, {len(libraries)} libraries in"
         f" parallel ({', '.join(lib.path().name for lib in libraries)})"
     )
+    if not native.available():
+        fail(f"the native decode library did not build: {native.build_error()}")
+    print(f"build: native decode library {native.LIBRARY.path().name} (g++ -lz)")
     for lib in libraries:
         for line in lib.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -2368,7 +2400,7 @@ def phase_diagonal_timing(torch, np, tio, rs, rk, batch):
 #: (a 1 mm T1), where the bench's 128^3 was sized to feed a TPU
 CONFIG5_SUBJECTS, CONFIG5_SHAPE, CONFIG5_PATCH = 4, (S, S, S), 64
 CONFIG5_RING, CONFIG5_PER_VOLUME, CONFIG5_BATCH, CONFIG5_WORKERS = 64, 8, 8, 2
-CONFIG5_WARMUP, CONFIG5_TIMED = 2, 3
+CONFIG5_WARMUP, CONFIG5_TIMED, CONFIG5_SEED = 2, 3, 0
 CONFIG5B_OVERLAP, CONFIG5B_BATCH, CONFIG5B_TIMED = 16, 4, 3
 #: the JAX package's own hann reassembly tolerance
 #: (tests/test_patch_pipeline.py, TestAggregator.test_hann_roundtrip)
@@ -2428,6 +2460,14 @@ def patch_centres(batch, n, patch, name):
         fail(f"{name}: batch of {tuple(t1.shape)} / {tuple(seg.shape)} on {t1.device}")
     c = patch // 2
     return seg[:, 0, c, c, c]
+
+
+def batch_locations(batch):
+    """Each patch's subject and corner, from a batch's metadata."""
+    return [
+        (sid, tuple(loc.index))
+        for sid, loc in zip(batch.metadata["sid"], batch.metadata["patch_location"], strict=True)
+    ]
 
 
 def check_centres(torch, centres, name):
@@ -2571,7 +2611,7 @@ def phase_config5_queue(torch, tio, kl, profile: str | None):
     subjects = config5_subjects(tio, torch, CONFIG5_SUBJECTS, CONFIG5_SHAPE, dev, 0)
     queue = config5_queue(tio, subjects, CONFIG5_PATCH, CONFIG5_WORKERS)
     recorder = queue.transform
-    centres = []
+    centres, locations = [], []
 
     def epoch(times=None):
         t0 = time.perf_counter()
@@ -2579,13 +2619,15 @@ def phase_config5_queue(torch, tio, kl, profile: str | None):
         for batch in queue.device_batches(batch_size=CONFIG5_BATCH):
             batch.images["t1"].data.sum().item()  # a device-side consumer
             centres.append(patch_centres(batch, CONFIG5_BATCH, CONFIG5_PATCH, name))
+            locations.append(batch_locations(batch))
             n += batch.batch_size
             if times is not None:
                 times.append(time.perf_counter() - t0)
                 t0 = time.perf_counter()
         return n
 
-    tio.seed(0)
+    random.seed(CONFIG5_SEED)  # the Queue's subject shuffle
+    tio.seed(CONFIG5_SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kl.reset_launches()
@@ -2634,9 +2676,10 @@ def phase_config5_queue(torch, tio, kl, profile: str | None):
         f" {loader_patches / loader_wall:.2f} patches/s ({CONFIG5_TIMED} epochs after"
         f" {CONFIG5_WARMUP}); the phase took {time.perf_counter() - started:.1f} s"
     )
+    device_locations = list(locations)
     if profile:
         profile_calls(torch, lambda _: epoch(), None, profile, f"{name} (an epoch a call)")
-    return launches
+    return launches, device_locations
 
 
 def phase_config5_aggregator(torch, np, tio, profile: str | None):
@@ -3007,12 +3050,12 @@ def phase_small_brats_preprocess(torch, tio, kl):
         fail("the small brats preprocess differs from the CPU path or its unfused run")
 
 
-def report_path(name, times, peak, per_call, kernels, smi, unit, count):
+def report_path(name, times, peak, per_call, kernels, smi, unit, count, warmup=WARMUP):
     """One line of a full-width path: rate, median call, launches, peak."""
-    timed = times[WARMUP:]
+    timed = times[warmup:]
     launches = {k: [c[k] for c in per_call] for k in kernels}
     print(
-        f"{name}: {count * TIMED / sum(timed):.2f} {unit}/s over {TIMED} timed calls"
+        f"{name}: {count * len(timed) / sum(timed):.2f} {unit}/s over {len(timed)} timed calls"
         f" (median call {statistics.median(timed) * 1e3:.1f} ms, calls"
         f" {[round(t * 1e3, 1) for t in times]} ms, warm-up first); launches per call"
         f" {launches}; peak allocated {peak / 2**30:.2f} GiB; card {smi}"
@@ -3171,12 +3214,12 @@ def synthseg_pipeline(tio, spatial=None):
     )
 
 
-def ixi_pipeline(tio, landmarks, crop):
+def ixi_pipeline(tio, landmarks, crop, target=1.0):
     """TorchIO's classic preprocessing with histogram standardization."""
     return tio.Compose(
         [
             tio.Reorient("RAS"),
-            tio.Resample(target=1.0),
+            tio.Resample(target=target),
             tio.CropOrPad(crop),
             tio.HistogramStandardization(landmarks, include=["t1"]),
             tio.ZNormalization(include=["t1"]),
@@ -3623,6 +3666,408 @@ def phase_ixi(torch, np, tio, kl, smi, profile: str | None):
     return totals
 
 
+# --- host I/O: subjects stored as files -----------------------------------------
+
+#: the IXI T1s ship as int16 NIfTI: the seeded volumes in [0, 1) times
+#: IXI_INT16_SCALE, rounded
+IXI_INT16_SCALE = 1000.0
+#: the 1 mm RAS reference grid of ixi-nifti-preprocess: the field of view
+#: of IXI_SHAPE at IXI_SPACING (240 x 240 x 180 mm)
+IXI_REFERENCE_SHAPE = (240, 240, 180)
+#: every dtype ``write_nifti`` writes as itself, for the small I/O phase
+IO_DTYPES = ("uint8", "int8", "int16", "uint16", "int32", "uint32", "int64", "uint64", "float32", "float64")
+IO_SHAPE = (20, 24, 18)
+#: ixi-nifti-preprocess's calls: each reads its 4 subjects (about 2 s on
+#: the card's host), so fewer than the other paths'
+IXI_FILE_WARMUP, IXI_FILE_TIMED = 1, 2
+
+
+def ixi_int16(torch, b, shape, device, seed):
+    """The seeded IXI volumes quantised to int16, as IXI ships its T1s."""
+    return torch.round(ixi_volumes(torch, b, shape, device, seed) * IXI_INT16_SCALE).to(torch.int16)
+
+
+def ixi_reference_affine(np):
+    """1 mm RAS, its first voxel at the lowest corner of the IXI subjects'
+    voxel centres (stored_affine's grid)."""
+    stored = stored_affine(np, IXI_SPACING, IXI_CODES)
+    corners = np.array(list(itertools.product(*[(0, n - 1) for n in IXI_SHAPE])), np.float64)
+    world = corners @ stored[:3, :3].T + stored[:3, 3]
+    affine = np.eye(4)
+    affine[:3, 3] = world.min(axis=0)
+    return affine
+
+
+def check_native(native, name):
+    """No fallback: the decode ran the native library (gunzip for a
+    ``.nii.gz``, the layout transform for every 3D read)."""
+    if not native.available():
+        fail(f"{name}: the native decode library did not load: {native.build_error()}")
+    if native.CALLS["f2c_transpose"] < 1:
+        fail(f"{name}: no read went through the native layout transform: {native.CALLS}")
+
+
+def decode_times(np, tio, native, path, reps=2):
+    """A subject file's decode on the host, native (gunzip + layout
+    transform) and plain (zlib through gzip + numpy's copy), in turns:
+    the medians in seconds."""
+    raw = Path(path).read_bytes()
+    header = tio.io.read_header(path)
+    expected = header.vox_offset + int(np.prod(header.shape)) * header.dtype.itemsize
+    count = int(np.prod(header.shape))
+
+    def decode(gunzip, transpose):
+        data = gunzip(raw, expected)
+        disk = np.frombuffer(data, header.dtype, count, header.vox_offset).reshape(header.shape, order="F")
+        return transpose(disk)
+
+    times = {"native": [], "plain": []}
+    results = {}
+    for _ in range(reps):
+        for kind, gunzip, transpose in (
+            ("native", native.gunzip, native.f2c_transpose),
+            ("plain", native.gunzip_plain, native.f2c_transpose_plain),
+        ):
+            t0 = time.perf_counter()
+            results[kind] = decode(gunzip, transpose)
+            times[kind].append(time.perf_counter() - t0)
+    if not np.array_equal(results["native"], results["plain"]):
+        fail(f"native decode of {path} differs from the plain one")
+    return {kind: statistics.median(t) for kind, t in times.items()}
+
+
+def phase_small_io(torch, np, tio, native):
+    """Files of every dtype ``write_nifti`` writes, written on the host and
+    loaded on the card, equal to the CPU's load; a lazy CropOrPad of
+    subjects read from files on the card equal to the eager one of the
+    same subjects loaded first."""
+    from torchio_tpu_torch import config
+
+    rng = np.random.default_rng(0)
+    native.reset_calls()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as tmp:
+        for dtype in IO_DTYPES:
+            if dtype.startswith("float"):
+                data = (rng.standard_normal((2, *IO_SHAPE)) * 1e6).astype(dtype)
+            else:
+                info = np.iinfo(dtype)
+                data = rng.integers(info.min, info.max, (2, *IO_SHAPE), dtype=dtype, endpoint=True)
+            for suffix in (".nii", ".nii.gz"):
+                path = Path(tmp) / f"{dtype}{suffix}"
+                tio.io.write_nifti(path, data, stored_affine(np, IXI_SPACING, "LPS"))
+                card = tio.ScalarImage(path)
+                card.load()
+                previous = config.set_default_device("cpu")
+                try:
+                    host = tio.ScalarImage(path).numpy()
+                finally:
+                    config.set_default_device(previous)
+                if card.data.device.type != DEVICE or str(card.dtype) != f"torch.{dtype}":
+                    fail(f"small io: {path.name} loaded as {card.dtype} on {card.data.device}")
+                if not (np.array_equal(card.numpy(), host) and np.array_equal(host, data)):
+                    fail(f"small io: {path.name} on the card differs from the CPU's load")
+        paths = []
+        seg = np.zeros((1, *IO_SHAPE), np.int32)
+        seg[0, 5:15, 6:18, 4:14] = 2
+        for i in range(2):
+            t1 = Path(tmp) / f"s{i}_t1.nii.gz"
+            label = Path(tmp) / f"s{i}_seg.nii"
+            tio.io.write_nifti(t1, rng.random((1, *IO_SHAPE)).astype(np.float32) * 800, np.eye(4))
+            tio.io.write_nifti(label, seg, np.eye(4))
+            paths.append((t1, label))
+        for target, mode in (((16, 30, 12), "constant"), ((24, 20, 22), "constant"), ((16, 30, 12), "reflect")):
+            outs = []
+            for loaded in (False, True):
+                for i, (t1, label) in enumerate(paths):
+                    subject = tio.Subject(t1=tio.ScalarImage(t1), seg=tio.LabelMap(label))
+                    if loaded:
+                        subject.load()
+                    tio.seed(i)
+                    out = tio.CropOrPad(target, padding_mode=mode, fill=3)(subject)
+                    outs.append(out)
+            half = len(outs) // 2
+            for lazy, eager in zip(outs[:half], outs[half:], strict=True):
+                for key in ("t1", "seg"):
+                    if lazy[key].is_loaded and mode == "constant":
+                        fail("small io: a lazy CropOrPad read its input before the data was used")
+                    got, want = lazy[key].data, eager[key].data
+                    if got.device.type != DEVICE or not torch.equal(got, want):
+                        fail(f"small io: lazy CropOrPad {target} {mode} differs from the eager one ({key})")
+                    if not np.array_equal(lazy[key].affine.data, eager[key].affine.data):
+                        fail(f"small io: lazy CropOrPad {target} {mode} moved the affine differently")
+    check_native(native, "small io")
+    print(
+        f"small io: {len(IO_DTYPES)} dtypes x (.nii, .nii.gz) of 2 x {IO_SHAPE} loaded on the card equal"
+        f" to the CPU's load and the data written; lazy CropOrPad (crop, pad, reflect) of 2 subjects"
+        f" read from files equal to the eager one on the card; native calls {native.CALLS}"
+    )
+
+
+def write_ixi_files(torch, np, tio, directory):
+    """IXI_B subjects as ``.nii.gz`` (an int16 t1, an int32 seg, in
+    IXI_CODES at IXI_SPACING) and the 1 mm RAS reference, written with the
+    port's ``write_nifti``; returns the int16 t1s on the card, the seg, the
+    subjects' paths and the reference's path."""
+    dev = torch.device(DEVICE)
+    affine = stored_affine(np, IXI_SPACING, IXI_CODES)
+    t1 = ixi_int16(torch, IXI_B, IXI_SHAPE, dev, IXI_SEED)
+    seg = brats_labels(torch, IXI_SHAPE, dev)
+    paths = []
+    for i in range(IXI_B):
+        t1_path, seg_path = directory / f"ixi{i}_t1.nii.gz", directory / f"ixi{i}_seg.nii.gz"
+        tio.io.write_nifti(t1_path, t1[i], affine)
+        if i == 0:
+            tio.io.write_nifti(seg_path, seg, affine)
+        else:  # every subject has the same labels: a copy of the first file
+            shutil.copyfile(paths[0][1], seg_path)
+        paths.append((t1_path, seg_path))
+    reference = directory / "reference_1mm_ras.nii.gz"
+    tio.io.write_nifti(reference, np.zeros(IXI_REFERENCE_SHAPE, np.uint8), ixi_reference_affine(np))
+    return t1, seg, paths, reference
+
+
+def phase_ixi_nifti(torch, np, tio, kl, native, smi, profile: str | None):
+    """ixi-nifti-preprocess: ixi-preprocess-histstd over subjects stored as
+    ``.nii.gz`` (int16 t1, int32 seg), read lazily: Resample to a 1 mm RAS
+    reference given as a file, the landmarks from
+    ``compute_histogram_landmarks`` on the t1 paths. Every call builds its
+    subjects from the paths and batches them (the read: decode on the
+    host, copy to the card), then runs the pipeline; the output must equal
+    the same pipeline on the same int16 volumes held in memory, bit for
+    bit."""
+    name = "ixi-nifti-preprocess"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ixi_") as tmp:
+        t0 = time.perf_counter()
+        t1, seg, paths, reference = write_ixi_files(torch, np, tio, Path(tmp))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        landmarks = tio.compute_histogram_landmarks([t1_path for t1_path, _ in paths])
+        landmarks_s = time.perf_counter() - t0
+        pipeline = ixi_pipeline(tio, landmarks, IXI_CROP, target=reference)
+
+        def read_batch():
+            subjects = [
+                tio.Subject(t1=tio.ScalarImage(t1_path), seg=tio.LabelMap(seg_path))
+                for t1_path, seg_path in paths
+            ]
+            if any(image.is_loaded for s in subjects for image in s.images.values()):
+                fail(f"{name}: a subject was read before its batch was built")
+            return tio.SubjectsBatch.from_subjects(subjects)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_calls()
+        kl.reset_launches()
+        read_times, call_times, per_call, out = [], [], [], None
+        for _ in range(IXI_FILE_WARMUP + IXI_FILE_TIMED):
+            before = dict(kl.LAUNCHES)
+            t0 = time.perf_counter()
+            batch = read_batch()
+            torch.cuda.synchronize()
+            t1_read = time.perf_counter()
+            tio.seed(IXI_SEED)
+            out = pipeline(batch)
+            torch.cuda.synchronize()
+            read_times.append(t1_read - t0)
+            call_times.append(time.perf_counter() - t1_read)
+            per_call.append({k: kl.LAUNCHES[k] - before[k] for k in KERNELS})
+        totals = {k: kl.LAUNCHES[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        calls = dict(native.CALLS)
+        check_native(native, name)
+        if calls["gunzip"] != 2 * IXI_B * (IXI_FILE_WARMUP + IXI_FILE_TIMED):
+            fail(f"{name}: {calls['gunzip']} native gunzips, expected one a file read")
+        for launched in per_call:
+            if launched["resample"] != 2 or any(n for k, n in launched.items() if k != "resample"):
+                fail(f"{name}: launches {launched}, expected 2 resample launches a call")
+        if out.t1.data.device.type != DEVICE or tuple(out.t1.data.shape) != (IXI_B, 1, *IXI_CROP):
+            fail(f"{name}: t1 {tuple(out.t1.data.shape)} on {out.t1.data.device}")
+        seg_out = out.seg.data
+        if tuple(seg_out.shape) != (IXI_B, 5, *IXI_CROP):
+            fail(f"{name}: seg {tuple(seg_out.shape)}")
+        if not torch.equal(seg_out.sum(dim=1), torch.ones_like(seg_out[:, 0])):
+            fail(f"{name}: a one-hot voxel does not sum to 1")
+        orientation, spacing = "".join(out.t1.affines[0].orientation), out.t1.affines[0].spacing
+        if orientation != "RAS" or not np.allclose(spacing, 1.0):
+            fail(f"{name}: output {orientation} at {spacing} mm")
+        # the same pipeline on the same int16 volumes in memory
+        header_affine = tio.io.read_header(paths[0][0]).affine
+        memory_landmarks = tio.compute_histogram_landmarks(list(t1))
+        if not np.array_equal(memory_landmarks, landmarks):
+            fail(f"{name}: landmarks from the files differ from the in-memory ones")
+        reference_space = (IXI_REFERENCE_SHAPE, tio.io.read_header(reference).affine)
+        memory_pipeline = ixi_pipeline(tio, memory_landmarks, IXI_CROP, target=reference_space)
+        memory = tio.SubjectsBatch.from_subjects([
+            tio.Subject(
+                t1=tio.ScalarImage(t1[i], affine=header_affine),
+                seg=tio.LabelMap(seg.clone(), affine=header_affine),
+            )
+            for i in range(IXI_B)
+        ])
+        tio.seed(IXI_SEED)
+        want = memory_pipeline(memory)
+        for key in ("t1", "seg"):
+            if not torch.equal(out[key].data, want[key].data):
+                diff = float((out[key].data.double() - want[key].data.double()).abs().max())
+                fail(f"{name}: {key} from the files differs from the in-memory run by {diff}")
+            for a, b in zip(out[key].affines, want[key].affines, strict=True):
+                if not np.array_equal(a.data, b.data):
+                    fail(f"{name}: {key} affine from the files differs from the in-memory run")
+        decode = decode_times(np, tio, native, paths[0][0])
+        seg_decode = decode_times(np, tio, native, paths[0][1])
+        times = [r + c for r, c in zip(read_times, call_times)]
+        report_path(name, times, peak, per_call, ("resample",), smi, "subjects", IXI_B, IXI_FILE_WARMUP)
+        timed_reads, timed_calls = read_times[IXI_FILE_WARMUP:], call_times[IXI_FILE_WARMUP:]
+        print(
+            f"{name}: read (decode + copy to the card, {IXI_B} subjects of an int16 t1 and an int32"
+            f" seg, .nii.gz) median {statistics.median(timed_reads) * 1e3:.1f} ms a call, pipeline"
+            f" median {statistics.median(timed_calls) * 1e3:.1f} ms a call (reads"
+            f" {[round(t * 1e3, 1) for t in read_times]} ms, pipelines"
+            f" {[round(t * 1e3, 1) for t in call_times]} ms); decode of one subject's files on the"
+            f" host: t1 native {decode['native'] * 1e3:.1f} ms, plain {decode['plain'] * 1e3:.1f} ms;"
+            f" seg native {seg_decode['native'] * 1e3:.1f} ms, plain {seg_decode['plain'] * 1e3:.1f}"
+            f" ms; native calls {calls}; output equal to the in-memory run bit for bit; files written in"
+            f" {write_s:.2f} s, landmarks from {IXI_B} paths in {landmarks_s:.2f} s (set-up); card {smi}"
+        )
+        if profile:
+
+            def call(_):
+                return pipeline(read_batch())
+
+            profile_same_draws(torch, tio, IXI_SEED, call, None, profile, f"{name} (read + pipeline)")
+            profile_same_draws(torch, tio, IXI_SEED, pipeline, read_batch(), profile, f"{name} (pipeline)")
+    return totals
+
+
+class TimedSubject:
+    """A Subject whose ``load`` records its thread and its interval (the
+    Queue's reads), as a mixin on the port's Subject class."""
+
+    log: list = []
+    lock = threading.Lock()
+
+    def load(self):
+        loaded = all(image.is_loaded for image in self.images.values())
+        t0 = time.perf_counter()
+        super().load()
+        if not loaded:
+            with TimedSubject.lock:
+                TimedSubject.log.append((threading.current_thread().name, t0, time.perf_counter()))
+
+
+def overlapped_seconds(log):
+    """Seconds during which two loads of different threads ran at once."""
+    total = 0.0
+    for (thread_a, a0, a1), (thread_b, b0, b1) in itertools.combinations(log, 2):
+        if thread_a != thread_b:
+            total += max(0.0, min(a1, b1) - max(a0, b0))
+    return total
+
+
+def write_config5_files(torch, tio, directory):
+    """config5_subjects' volumes as uncompressed ``.nii`` (float32 t1,
+    int32 seg): a list of (t1 path, seg path)."""
+    subjects = config5_subjects(tio, torch, CONFIG5_SUBJECTS, CONFIG5_SHAPE, torch.device(DEVICE), 0)
+    paths = []
+    for i, subject in enumerate(subjects):
+        t1, seg = directory / f"c5_{i}_t1.nii", directory / f"c5_{i}_seg.nii"
+        tio.io.write_nifti(t1, subject.t1.data, subject.t1.affine.data)
+        if i == 0:
+            tio.io.write_nifti(seg, subject.seg.data, subject.seg.affine.data)
+        else:  # the same block labels in every subject: a copy of the first file
+            shutil.copyfile(paths[0][1], seg)
+        paths.append((t1, seg))
+    return paths
+
+
+def phase_config5_nifti_queue(torch, tio, kl, native, smi, in_memory_locations, profile: str | None):
+    """config5-nifti-queue: config5-queue-labelsampler over subjects stored
+    as uncompressed ``.nii`` and read by the Queue's workers; every epoch
+    reads from disk (``Subject.unload()`` between epochs). The patch
+    corners must equal the in-memory run's on the same seeds, and the
+    dense resample kernel must launch once for each subject that kept
+    Motion."""
+    name = "config5-nifti-queue"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c5_") as tmp:
+        t0 = time.perf_counter()
+        paths = write_config5_files(torch, tio, Path(tmp))
+        write_s = time.perf_counter() - t0
+        subject_class = type("TimedPortSubject", (TimedSubject, tio.Subject), {})
+        subjects = [
+            subject_class(t1=tio.ScalarImage(t1), seg=tio.LabelMap(seg), sid=sid)
+            for sid, (t1, seg) in enumerate(paths)
+        ]
+        queue = config5_queue(tio, subjects, CONFIG5_PATCH, CONFIG5_WORKERS)
+        recorder = queue.transform
+        centres, locations, epoch_times, read_seconds = [], [], [], []
+
+        def epoch():
+            for subject in subjects:
+                subject.unload()
+            before = len(TimedSubject.log)
+            t0 = time.perf_counter()
+            for batch in queue.device_batches(batch_size=CONFIG5_BATCH):
+                batch.images["t1"].data.sum().item()
+                centres.append(patch_centres(batch, CONFIG5_BATCH, CONFIG5_PATCH, name))
+                locations.append(batch_locations(batch))
+            epoch_times.append(time.perf_counter() - t0)
+            read_seconds.append(sum(b - a for _, a, b in TimedSubject.log[before:]))
+
+        TimedSubject.log.clear()
+        random.seed(CONFIG5_SEED)
+        tio.seed(CONFIG5_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_calls()
+        kl.reset_launches()
+        for _ in range(CONFIG5_WARMUP + CONFIG5_TIMED):
+            epoch()
+        launches = {k: kl.LAUNCHES[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        calls = dict(native.CALLS)
+        log = list(TimedSubject.log)
+        check_native(native, name)
+        check_centres(torch, centres, name)
+        if locations != in_memory_locations:
+            fail(f"{name}: patch corners differ from config5-queue-labelsampler's on the same seeds")
+        prepared = (CONFIG5_WARMUP + CONFIG5_TIMED) * CONFIG5_SUBJECTS
+        kept = recorder.motion_kept()
+        if len(recorder.histories) != prepared or not kept or launches["resample_coords"] != kept:
+            fail(f"{name}: {launches['resample_coords']} dense resample launches, Motion kept {kept}"
+                 f" times in {len(recorder.histories)} subjects (expected {prepared})")
+        others = {k: v for k, v in launches.items() if v and k != "resample_coords"}
+        if others:
+            fail(f"{name}: launched kernels off its path: {others}")
+        if len(log) != prepared:
+            fail(f"{name}: {len(log)} subject reads, expected {prepared} (one a subject an epoch)")
+        main = threading.main_thread().name
+        in_workers = sum(thread != main for thread, _, _ in log)
+        if in_workers < prepared - (CONFIG5_WARMUP + CONFIG5_TIMED):
+            fail(f"{name}: {in_workers} of {prepared} reads in worker threads")
+        overlap = overlapped_seconds(log)
+        if overlap <= 0:
+            fail(f"{name}: the worker threads' reads never overlapped")
+        if any(subject.t1.data.device.type != DEVICE for subject in subjects):
+            fail(f"{name}: a subject's data did not end on the card")
+        timed = epoch_times[CONFIG5_WARMUP:]
+        patches = CONFIG5_SUBJECTS * CONFIG5_PER_VOLUME * CONFIG5_TIMED
+        print(
+            f"{name}: {patches / sum(timed):.2f} patches/s over {CONFIG5_TIMED} timed epochs"
+            f" ({CONFIG5_SUBJECTS} subjects of a float32 t1 and an int32 seg of {CONFIG5_SHAPE[0]}^3 as"
+            f" .nii, read from disk every epoch by {CONFIG5_WORKERS} workers; after {CONFIG5_WARMUP}"
+            f" warm-up epochs); epochs {[round(t * 1e3, 1) for t in epoch_times]} ms; reads a"
+            f" subject median {statistics.median(b - a for _, a, b in log) * 1e3:.1f} ms, summed per"
+            f" epoch {[round(t * 1e3, 1) for t in read_seconds]} ms, {in_workers} of {len(log)} in"
+            f" worker threads, overlapping for {overlap * 1e3:.1f} ms in all; dense resample launches"
+            f" {launches['resample_coords']} = subjects that kept Motion ({kept} of {prepared}); patch"
+            f" corners equal to config5-queue-labelsampler's; native calls {calls}; peak allocated"
+            f" {peak / 2**30:.2f} GiB; files written in {write_s:.2f} s (set-up); card {smi}"
+        )
+        if profile:
+            profile_calls(torch, lambda _: epoch(), None, profile, f"{name} (an epoch a call, reads included)")
+    return launches
+
+
 def device_kernels(torch, fn):
     """The number of kernels the card ran in one ``fn()``, under the
     profiler."""
@@ -3702,6 +4147,7 @@ def main() -> int:
         "--profile", metavar="PATH", help="write a torch.profiler table to PATH"
     )
     args = parser.parse_args()
+    started = time.perf_counter()
 
     import torch
 
@@ -3711,7 +4157,7 @@ def main() -> int:
     import numpy as np
 
     import torchio_tpu_torch as tio
-    from torchio_tpu_torch import config
+    from torchio_tpu_torch import config, native
     from torchio_tpu_torch import random as tr
     from torchio_tpu_torch.ops import bspline as bs
     from torchio_tpu_torch.ops import bspline_kernel as bk
@@ -3727,7 +4173,7 @@ def main() -> int:
     if args.profile:
         Path(args.profile).unlink(missing_ok=True)
     smi = phase_device(torch, config)
-    phase_build(kl)
+    phase_build(kl, native)
     phase_kernel(torch, np, rs, rk, kl)
     phase_label_kernel(torch, np, rs, rk, kl)
     phase_prefilter_kernel(torch, np, bs, bk, kl)
@@ -3749,6 +4195,7 @@ def main() -> int:
     phase_small_zoo(torch, np, tio)
     phase_small_integers(torch, np, tio)
     phase_small_zoo_paths(torch, np, tio, rs)
+    phase_small_io(torch, np, tio, native)
     phase_host_subject(torch, np, tio, kl)
     headline_launches = phase_slice(torch, tio, kl, args.profile)
     brats_launches, brats_batch = phase_brats(torch, tio, kl, args.profile)
@@ -3757,13 +4204,17 @@ def main() -> int:
     config2_launches = phase_config(torch, tio, kl, 2, args.profile)
     config3_launches, config3_batch = phase_config3(torch, tio, kl, args.profile)
     config4_launches = phase_config4(torch, tio, kl, args.profile)
-    config5_launches = phase_config5_queue(torch, tio, kl, args.profile)
+    config5_launches, config5_locations = phase_config5_queue(torch, tio, kl, args.profile)
+    config5_nifti_launches = phase_config5_nifti_queue(
+        torch, tio, kl, native, smi, config5_locations, args.profile
+    )
     phase_config5_aggregator(torch, np, tio, args.profile)
     policy_launches_total = phase_policy(torch, tio, kl, smi, args.profile)
     oneof_launches = phase_kspace_oneof(torch, tio, kl, smi, args.profile)
     phase_brats_preprocess(torch, tio, kl, smi, args.profile)
     synthseg_launches = phase_synthseg(torch, tio, kl, smi, args.profile)
     ixi_launches = phase_ixi(torch, np, tio, kl, smi, args.profile)
+    ixi_nifti_launches = phase_ixi_nifti(torch, np, tio, kl, native, smi, args.profile)
     phase_zoo_timing(torch, tio, smi)
     timings = {"resample": phase_kernel_timing(torch, np, tio, rs, rk)}
     timings.update(phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch))
@@ -3793,6 +4244,7 @@ def main() -> int:
         "policy-someof": policy_launches_total["resample"],
         "synthseg-labels-to-image": synthseg_launches["resample"],
         "ixi-preprocess-histstd": ixi_launches["resample"],
+        "ixi-nifti-preprocess": ixi_nifti_launches["resample"],
     }
     threefry_paths = {
         "headline": headline_launches["threefry_normal"],
@@ -3845,7 +4297,9 @@ def main() -> int:
             "note": "launches on kspace-motion-ghosting; config5-queue-labelsampler"
             f" (Motion in the Queue's transform, {CONFIG5_WARMUP + CONFIG5_TIMED} epochs of"
             f" {CONFIG5_SUBJECTS} subjects): {config5_launches['resample_coords']}, one a"
-            " subject that kept Motion; kspace-oneof (per element, B=4, 7 calls):"
+            " subject that kept Motion; config5-nifti-queue (the same over subjects read from"
+            f" .nii files): {config5_nifti_launches['resample_coords']}; kspace-oneof (per element,"
+            " B=4, 7 calls):"
             f" {oneof_launches['resample_coords']}, one a move of an element that drew"
             " Motion (2 moves each)",
             "path": "kspace-motion-ghosting",
@@ -3886,7 +4340,9 @@ def main() -> int:
             " matmuls (_resample_element_separable), no Pallas kernel; launches: every"
             " resample launch of the config 3 path, 4 a call (Affine and Resample, ch"
             " and seg); ixi-preprocess-histstd (t1 linear and seg nearest from 0.9375 x"
-            f" 0.9375 x 1.2 mm to 1 mm, 7 calls): {ixi_launches['resample']}; library:"
+            f" 0.9375 x 1.2 mm to 1 mm, 7 calls): {ixi_launches['resample']};"
+            " ixi-nifti-preprocess (the same from int16 .nii.gz files to a 1 mm reference file,"
+            f" {IXI_FILE_WARMUP + IXI_FILE_TIMED} calls): {ixi_nifti_launches['resample']}; library:"
             " F.interpolate(trilinear, align_corners=False)",
             "path": "config3-affine-resample",
         },
@@ -3917,6 +4373,7 @@ def main() -> int:
         )
         if "pass_ms" in t:
             entry["pass_ms"] = t["pass_ms"]
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build included")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(

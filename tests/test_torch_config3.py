@@ -278,11 +278,12 @@ def test_new_shape_affine_and_spacing_parse_equal_the_jax_packages(spacing):
 def test_bad_targets_raise_as_in_the_jax_package(tmp_path):
     path = tmp_path / "reference.nii.gz"
     path.write_bytes(b"not read")
-    _, port_batch = make_batches(b=1)
+    jax_batch, port_batch = make_batches(b=1)
     affine = port_batch.ch.affines[0]
-    for target in (str(path), path):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_spatial._resolve_target_space(target, port_batch, SHAPE, affine)
+    for target in (str(path), path):  # a file that is not an image: the reader's error
+        for module, batch in ((jax_spatial, jax_batch), (port_spatial, port_batch)):
+            with pytest.raises(ValueError, match="too small to hold a NIfTI header"):
+                module._resolve_target_space(target, batch, SHAPE, affine)
     with pytest.raises(ValueError, match="Unknown target"):
         port_spatial._resolve_target_space("t2", port_batch, SHAPE, affine)
     with pytest.raises(ValueError, match="positive"):

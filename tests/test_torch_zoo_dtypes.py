@@ -69,6 +69,22 @@ def test_cast_like_jax():
         np.testing.assert_array_equal(got.numpy(), want, err_msg=np.dtype(dtype).name)
 
 
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8, np.int16, np.uint16, np.int32, np.uint32])
+@pytest.mark.parametrize("source", [np.float16, np.float32])  # JAX has no float64 here
+def test_cast_like_jax_in_range(dtype, source):
+    """Values inside the type's range (torch's own cast after one
+    ``aminmax``): equal to XLA's conversion, truncating toward zero."""
+    info = np.iinfo(dtype)
+    top = min(float(info.max), float(np.finfo(source).max))
+    bottom = max(float(info.min), -top)
+    edges = np.array([bottom, top, 0.0, -0.9, 0.9], np.float64).astype(source)
+    values = np.random.default_rng(0).uniform(bottom, top, 200).astype(source)
+    values = np.concatenate([values, edges[(edges >= info.min) & (edges <= info.max)]])
+    want = np.asarray(jnp.asarray(values).astype(dtype))
+    got = cast_like_jax(torch.as_tensor(values), getattr(torch, np.dtype(dtype).name))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def float_reference(make, images, seed, name):
     """The JAX package's float32 result: the same transform, params and
     draws on the float32 image (it computes in float32 before casting)."""
@@ -147,3 +163,49 @@ def test_integer_zoo(name, dtype):
         np.testing.assert_array_equal(got.numpy(), want)
     for name_, image in jax_out.images.items():
         assert np.asarray(image.data).dtype == port_out.images[name_].data.numpy().dtype
+
+
+def step_edge(dtype, b=2, shape=SHAPE):
+    """(B, 1, *shape) blocks at the two ends of ``dtype``'s range: a
+    B-spline overshoots and undershoots at every edge between them."""
+    info = np.iinfo(dtype)
+    blocks = ((np.indices(shape) // 3).sum(axis=0) % 2).astype(bool)
+    data = np.where(blocks, info.max, info.min).astype(dtype)
+    return np.repeat(data[None, None], b, axis=0)
+
+
+def near_top(dtype, b=2, shape=SHAPE, seed=0):
+    """(B, 1, *shape) values within 10 % of the range's top, and of its
+    bottom for a signed type: a bias field above 1.1 leaves the range."""
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(seed)
+    magnitude = float(info.max) * (0.9 + 0.1 * rng.random((b, 1, *shape)))
+    if info.min < 0:
+        blocks = ((np.indices(shape) // 4).sum(axis=0) % 2).astype(bool)
+        magnitude = np.where(blocks, -magnitude, magnitude)
+    return np.clip(magnitude, info.min, info.max).astype(dtype)
+
+
+SATURATING = {
+    "BiasField": (lambda pkg: pkg.BiasField(std=1.0, scale=0.5), near_top),
+    "Spatial": (
+        lambda pkg: pkg.Spatial(scales=(0.9, 1.1), degrees=10, image_interpolation="cubic"),
+        step_edge,
+    ),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("name", list(SATURATING))
+def test_integer_cast_back_saturates(name, dtype):
+    """BiasField and Spatial convert their float32 result back to the
+    image's integer type as XLA does: beyond the range to its ends."""
+    make, volume = SATURATING[name]
+    images = {"t1": ("scalar", volume(dtype))}
+    jax_out, port_out = both(make, images, seed=4)
+    reference = float_reference(make, images, 4, "t1")
+    info = np.iinfo(dtype)
+    assert reference.max() > info.max + 1  # the result leaves the range
+    if info.min < 0 or name == "Spatial":
+        assert reference.min() < info.min - 1
+    assert_integer_close(port_out.t1.data, jax_out.t1.data, reference)

@@ -39,10 +39,19 @@ Motion and Ghosting as the third k-space artifact.
 Host data (numpy arrays) given to an image, a subject, or a transform's
 ndarray or dict entry lands on the card; :func:`set_default_device`
 (``"cpu"``) asks for the CPU instead.
+
+Host I/O (:mod:`.io`): ``ScalarImage("t1.nii.gz")`` reads NIfTI-1/2,
+NRRD and MetaImage files lazily (header-only metadata, region reads, a
+lazy CropOrPad, file targets for Spatial and Resample, paths for
+``compute_histogram_landmarks``, the Queue's loads in its workers), with
+the gunzip and layout transform in a native library (:mod:`.native`)
+built by ``g++`` at first use; ``read_matrix``/``write_matrix`` read and
+write transform files.
 """
 
 __version__ = "0.1.0"
 
+from . import external, io, native, types
 from . import random  # noqa: A004  (named like the stdlib on purpose)
 from .config import default_device, set_default_device
 from .core.affine import AffineMatrix
@@ -50,6 +59,7 @@ from .data import (
     BoundingBoxes,
     BoundingBoxFormat,
     GridSampler,
+    Image,
     ImagesBatch,
     ImagesLoader,
     LabelMap,
@@ -61,7 +71,9 @@ from .data import (
     Queue,
     Representation,
     ScalarImage,
+    StudiesBatch,
     StudiesLoader,
+    Study,
     Subject,
     SubjectsBatch,
     SubjectsLoader,
@@ -71,6 +83,8 @@ from .data import (
     collate_studies,
     collate_subjects,
 )
+from .io import read_header, read_matrix, read_nifti, write_matrix, write_nifti
+from .logging import disable_logging, enable_logging
 from .random import seed
 from .transforms import (
     Affine,
@@ -91,6 +105,7 @@ from .transforms import (
     Gamma,
     Ghosting,
     HistogramStandardization,
+    IntensityTransform,
     KeepLargestComponent,
     LabelsToImage,
     Lambda,
@@ -111,16 +126,30 @@ from .transforms import (
     SequentialLabels,
     SomeOf,
     Spatial,
+    SpatialTransform,
     Spike,
     Standardize,
     Swap,
     To,
     ToReferenceSpace,
+    Transform,
     Transpose,
     ZNormalization,
     apply_inverse_transform,
     compute_histogram_landmarks,
     get_inverse_transform,
+)
+from .types import (
+    TypeAffineMatrix,
+    TypeDirection,
+    TypeImageData,
+    TypeOrientationCodes,
+    TypeOrigin,
+    TypePath,
+    TypeSpacing,
+    TypeSpatialShape,
+    TypeTensorShape,
+    TypeWorldPoints,
 )
 
 __all__ = [
@@ -146,8 +175,10 @@ __all__ = [
     "Ghosting",
     "GridSampler",
     "HistogramStandardization",
+    "Image",
     "ImagesBatch",
     "ImagesLoader",
+    "IntensityTransform",
     "KeepLargestComponent",
     "LabelMap",
     "LabelSampler",
@@ -177,16 +208,30 @@ __all__ = [
     "SequentialLabels",
     "SomeOf",
     "Spatial",
+    "SpatialTransform",
     "Spike",
     "Standardize",
+    "StudiesBatch",
     "StudiesLoader",
+    "Study",
     "Subject",
     "SubjectsBatch",
     "SubjectsLoader",
     "Swap",
     "To",
     "ToReferenceSpace",
+    "Transform",
     "Transpose",
+    "TypeAffineMatrix",
+    "TypeDirection",
+    "TypeImageData",
+    "TypeOrientationCodes",
+    "TypeOrigin",
+    "TypePath",
+    "TypeSpacing",
+    "TypeSpatialShape",
+    "TypeTensorShape",
+    "TypeWorldPoints",
     "UniformSampler",
     "WeightedSampler",
     "ZNormalization",
@@ -196,8 +241,15 @@ __all__ = [
     "collate_subjects",
     "compute_histogram_landmarks",
     "default_device",
+    "disable_logging",
+    "enable_logging",
     "get_inverse_transform",
     "random",
+    "read_header",
+    "read_matrix",
+    "read_nifti",
     "seed",
     "set_default_device",
+    "write_matrix",
+    "write_nifti",
 ]

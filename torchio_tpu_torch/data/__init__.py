@@ -1,5 +1,5 @@
 from .aggregator import PatchAggregator
-from .batch import ImagesBatch, SubjectsBatch
+from .batch import ImagesBatch, StudiesBatch, SubjectsBatch
 from .bboxes import BoundingBoxes, BoundingBoxFormat, Representation
 from .image import Image, LabelMap, ScalarImage
 from .loader import (
@@ -20,7 +20,7 @@ from .sampler import (
     UniformSampler,
     WeightedSampler,
 )
-from .subject import Subject
+from .subject import Study, Subject
 
 __all__ = [
     "BoundingBoxFormat",
@@ -38,7 +38,9 @@ __all__ = [
     "Queue",
     "Representation",
     "ScalarImage",
+    "StudiesBatch",
     "StudiesLoader",
+    "Study",
     "Subject",
     "SubjectsBatch",
     "SubjectsLoader",

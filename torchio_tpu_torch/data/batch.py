@@ -3,7 +3,9 @@
 Counterpart of ``torchio_tpu/data/batch.py``: ``ImagesBatch`` and
 ``SubjectsBatch`` with per-element history slicing at :meth:`unbatch`,
 and the per-element histories that a per-instance OneOf or SomeOf
-freezes when it re-stacks its elements.
+freezes when it re-stacks its elements (``StudiesBatch`` is another
+name of ``SubjectsBatch``). Building a batch from subjects loads any
+image still on disk, through its ``data``.
 Data is one ``(B, C, I, J, K)`` torch tensor; a batch runs where that
 tensor lives. Affines stay float64 on the host, one per sample.
 
@@ -299,3 +301,6 @@ def _slice_history(history: list[Any], index: int) -> list[Any]:
     """Per-subject history for batch element ``index``."""
     views = (_trace_for_element(trace, index) for trace in history)
     return [view for view in views if view is not None]
+
+
+StudiesBatch = SubjectsBatch

@@ -7,6 +7,14 @@ and transforms subjects ahead (the first one in the calling thread), a
 buffer flushed and shuffled at ``max_length``, ``patches_per_volume``
 patches a subject, and a memory estimate.
 
+A subject of files is read where the JAX Queue reads it: ``subject.load()``
+in :meth:`Queue._prepare` (a worker thread) and in the grouped path of
+``device_batches``, nowhere else. As there, the dataset's own subjects
+are loaded in place and never unloaded: a caller who wants each epoch to
+read from disk calls ``Subject.unload()`` between epochs. The decode
+runs in native code that releases the interpreter lock, so the workers'
+reads overlap.
+
 Every port image is a tensor, so a subject's patches are always sliced
 by one gather an image (:func:`..ops.patches.extract_patches_multi`).
 :meth:`Queue.device_batches` keeps the patches on the device end to end:

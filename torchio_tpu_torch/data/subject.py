@@ -1,9 +1,11 @@
 """Subject: a dict-like collection of images, annotations and metadata.
 
-Counterpart of ``torchio_tpu/data/subject.py`` for in-memory images:
-keyword arguments are split into images, point sets, bounding boxes and
-metadata, with attribute and key access and consistency checks. Spatial
-slicing of a whole subject comes later.
+Counterpart of ``torchio_tpu/data/subject.py``: keyword arguments are
+split into images, point sets, bounding boxes and metadata, with
+attribute and key access and consistency checks. :meth:`Subject.load`
+and :meth:`Subject.unload` load and drop every image's voxels (an image
+read from a file stays lazy until then). ``Study`` is another name of
+``Subject``. Spatial slicing of a whole subject comes later.
 """
 
 from __future__ import annotations
@@ -244,3 +246,6 @@ class Subject(Invertible):
         if self._metadata:
             parts.append(f"metadata: {tuple(self._metadata)}")
         return f"Subject({'; '.join(parts)})"
+
+
+Study = Subject

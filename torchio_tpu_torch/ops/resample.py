@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..core.dtypes import cast_like_jax
 
 MODES = ("linear", "nearest")
 
@@ -498,4 +499,4 @@ def resample_label_fused(
         out = resample_label_plain(vol, maps, fields, out_spatial, pad_label)
     else:
         raise ValueError(f"resample_label_fused runs on cuda or cpu, got {data.device}")
-    return out.to(data.dtype)
+    return cast_like_jax(out, data.dtype)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ... import random as tio_random
+from ...core.dtypes import cast_like_jax
 from ...data.batch import SubjectsBatch
 from ...ops.resample import upsample_volume
 from .._utils import restore_gated
@@ -36,7 +37,7 @@ def _coarse_shape(spatial, scale: float) -> tuple[int, int, int]:
 def _apply_field(data: torch.Tensor, coarse: torch.Tensor, divide: bool) -> torch.Tensor:
     field = torch.exp(upsample_volume(coarse, tuple(data.shape[2:])))
     out = data / field if divide else data * field
-    return out.to(data.dtype)
+    return cast_like_jax(out, data.dtype)
 
 
 def bias_per_element(data, stds: np.ndarray, seeds, scale: float, divide: bool):

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ...data.batch import SubjectsBatch
-from ...data.image import Image
+from ...data.image import Image, ScalarImage
 from .._statistics import quantiles_on_device
 from ..transform import IntensityTransform
 
@@ -38,9 +38,13 @@ def _build_quantiles(cutoff: tuple[float, float]) -> tuple[float, ...]:
 
 
 def _host_volume(source: Any) -> np.ndarray:
-    """(C, I, J, K) float32 host copy of an image, a tensor or an array."""
+    """(C, I, J, K) float32 host copy of an image, a path, a tensor or an
+    array; a file (or an image not loaded yet) is read on the host and not
+    sent to a device."""
+    if isinstance(source, (str, Path)):
+        source = ScalarImage(source)
     if isinstance(source, Image):
-        source = source.data
+        source = source.data if source.is_loaded else source.dataobj.to_array()
     if isinstance(source, torch.Tensor):
         source = source.detach().cpu().numpy()
     volume = np.asarray(source, np.float32)
@@ -55,8 +59,8 @@ def compute_histogram_landmarks(
     masking_method: Callable | None = None,
 ) -> np.ndarray:
     """Average percentile landmarks over a training corpus of images,
-    tensors or arrays; ``masking_method`` gets each (C, I, J, K) host
-    array.
+    paths (read as :class:`ScalarImage`), tensors or arrays;
+    ``masking_method`` gets each (C, I, J, K) host array.
 
     Returns a 1D float32 array usable with
     :class:`HistogramStandardization`.

@@ -4,12 +4,16 @@ crop and/or pad.
 Counterpart of ``torchio_tpu/transforms/spatial/crop_or_pad.py``: the
 target in voxels, mm or cm (through the spacing), ``None`` keeping an
 axis; a center or random crop location; ``only_crop``/``only_pad``; the
-batch path composes Pad and Crop. The JAX package's lazy path for a
-Subject or an Image installs deferred crop and pad views of its I/O
-backends, which are not ported. Here a Subject or an Image goes through
-an eager path that does the same: one draw for ``p``, the same crop and
-pad of every selected image, the same ``Pad`` and ``Crop`` history
-records, and each image's points and bounding boxes carried unmoved.
+batch path composes Pad and Crop. A Subject or an Image takes the
+subject path: one draw for ``p``, the same crop and pad of every
+selected image, the ``Pad`` and ``Crop`` history records, and each
+image's points and bounding boxes carried unmoved. There an image not
+loaded yet (read from a file) gets deferred views instead
+(:class:`..io.backends.PaddedBackend` for a constant pad,
+:class:`..io.backends.CroppedBackend`), so no voxel is read until the
+data is used, and then only the region the views select; a loaded image
+(or a pad mode that needs the data) is cropped and padded eagerly, with
+the same result.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ... import random as tio_random
 from ...data.batch import SubjectsBatch
 from ...data.image import Image
 from ...data.subject import Subject
+from ...io.backends import CroppedBackend, PaddedBackend, normalize_index
 from ..compose import Compose
 from ..transform import AppliedTransform, SpatialTransform
 from ._padding import pad_tensor, parse_padding_mode
@@ -79,10 +84,10 @@ def _compute_crop_and_pad(
 
 
 def _replaced_image(image: Image, data, corner) -> Image:
-    """A new image of the same class holding ``data``, its origin moved
-    by ``corner`` voxels; metadata and annotations copied (the points and
-    boxes unmoved, as the JAX package's lazy views carry them), history
-    kept."""
+    """A new image of the same class holding ``data`` (a tensor, or a
+    lazy backend view), its origin moved by ``corner`` voxels; metadata
+    and annotations copied (the points and boxes unmoved, as the JAX
+    package's lazy views carry them), history kept."""
     affine = image.affine.clone()
     shift_origin(affine, corner)
     new = type(image)(
@@ -174,9 +179,12 @@ class CropOrPad(SpatialTransform):
         include = None if self.include is None else list(self.include)
         exclude = None if self.exclude is None else list(self.exclude)
         if padding is not None:
-            i0, _, j0, _, k0, _ = padding
+            i0, i1, j0, j1, k0, k1 = padding
             for name, image in self._select_images(subject).items():
-                padded = pad_tensor(image.data, padding, self.padding_mode, self.fill)
+                if image.is_loaded or self.padding_mode != "constant":
+                    padded = pad_tensor(image.data, padding, self.padding_mode, self.fill)
+                else:
+                    padded = PaddedBackend(image.dataobj, (i0, j0, k0), (i1, j1, k1), self.fill)
                 subject._images[name] = _replaced_image(
                     image, padded, (-float(i0), -float(j0), -float(k0))
                 )
@@ -193,9 +201,14 @@ class CropOrPad(SpatialTransform):
                 )
             )
         if cropping is not None:
-            i0, _, j0, _, k0, _ = cropping
+            i0, i1, j0, j1, k0, k1 = cropping
             for name, image in self._select_images(subject).items():
-                cropped = crop_tensor(image.data, cropping)
+                if image.is_loaded:
+                    cropped = crop_tensor(image.data, cropping)
+                else:
+                    _, si, sj, sk = image.shape
+                    window = (slice(None), slice(i0, si - i1), slice(j0, sj - j1), slice(k0, sk - k1))
+                    cropped = CroppedBackend(image.dataobj, normalize_index(window, image.shape))
                 subject._images[name] = _replaced_image(
                     image, cropped, (float(i0), float(j0), float(k0))
                 )

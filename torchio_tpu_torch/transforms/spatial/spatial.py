@@ -45,8 +45,8 @@ the resample, and label maps in "label" mode take the one-hot path. The
 computed on the host per element and channel as the JAX package computes
 them. The inverse (:class:`_SpatialInverse`) inverts the matrices in
 float64, negates the control points, flips ``affine_first`` and resamples
-to the recorded original space. A target given as a file path needs
-file I/O, which is not ported.
+to the recorded original space. A target given as a file path gives the
+file's shape and affine, read from its header alone.
 """
 
 from __future__ import annotations
@@ -61,8 +61,9 @@ import torch
 
 from ... import random as tio_random
 from ...core.affine import AffineMatrix
+from ...core.dtypes import cast_like_jax
 from ...data.batch import ImagesBatch, SubjectsBatch
-from ...data.image import Image, LabelMap
+from ...data.image import Image, LabelMap, ScalarImage
 from ...ops.bspline import bspline_resample, bspline_resample_fused
 from ...ops.gaussian import gaussian_blur
 from ...ops.resample import resample, resample_fused, resample_label_fused
@@ -203,11 +204,8 @@ def _resolve_target_space(target, batch, first_shape, first_affine):
         return target.spatial_shape, target.affine.clone()
     if isinstance(target, (str, Path)):
         if Path(target).is_file():
-            raise NotImplementedError(
-                f'Target "{target}" is a file: reading images from files is not'
-                " ported yet (ROADMAP.md, Queue 1, item 10); pass an Image, an"
-                " image name, a (shape, affine) pair or a spacing"
-            )
+            image = ScalarImage(target)  # the header alone: no voxel is read
+            return image.spatial_shape, image.affine.clone()
         if isinstance(target, str) and batch is not None and target in batch.images:
             ref = batch.images[target]
             return tuple(ref.data.shape[-3:]), ref.affines[0].clone()
@@ -332,7 +330,10 @@ def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_
             f"default_pad_value must be a string or number, got {type(default_pad_value)}"
         )
     if default_pad_value == "minimum":
-        return torch.amin(img_batch.data, dim=(-3, -2, -1))
+        data = img_batch.data
+        if data.dtype in (torch.uint16, torch.uint32):  # torch has no amin for them
+            data = data.to(torch.int64)
+        return torch.amin(data, dim=(-3, -2, -1))
     if default_pad_value not in ("mean", "otsu"):
         raise ValueError(f'Unknown default_pad_value "{default_pad_value}"')
     borders = _border_values(img_batch.data)
@@ -445,8 +446,8 @@ class Spatial(SpatialTransform):
         target: output space: None (the input's), an Image, the name of
             an image in the batch, a ``(shape, affine)`` pair, or a
             spacing spec in mm (a number, an array, a 3-tuple, a range, a
-            ``Choice`` or a distribution). A file path raises
-            ``NotImplementedError`` (file I/O is not ported).
+            ``Choice`` or a distribution). A file path gives the file's
+            shape and affine (its header alone is read).
         scales, degrees, translation: affine parameter specs (see
             :mod:`..parameter_range`).
         isotropic: one scale for all axes.
@@ -915,8 +916,8 @@ def _run_spatial_pipeline(
                 source, maps, fields, output_shape, mode=interpolation, fill=fill
             )
             # the input dtype comes back after sampling (integer labels
-            # stay integer)
-            sampled = sampled.to(data.dtype)
+            # stay integer), saturating as XLA converts
+            sampled = cast_like_jax(sampled, data.dtype)
         if keep_original is not None:
             sampled = torch.where(keep_original, data.to(sampled.dtype), sampled)
         img_batch.data = sampled
@@ -997,7 +998,7 @@ def _resample_label_partial_volume(
         sampled = _dispatch_resample(
             smoothed, maps, fields, out_shape, mode=one_hot_label_interpolation, fill=0.0,
         )
-        return sampled.to(data.dtype) if data.dtype.is_floating_point else sampled
+        return cast_like_jax(sampled, data.dtype) if data.dtype.is_floating_point else sampled
     labels = unique_labels(data)
     values = torch.as_tensor(labels, dtype=data.dtype, device=data.device)
     one_hot = (data[:, 0:1] == values.reshape(1, -1, 1, 1, 1)).to(torch.float32)
@@ -1011,7 +1012,7 @@ def _resample_label_partial_volume(
     # as in the JAX package, the vote goes through float32 with the pad
     in_bounds = torch.sum(sampled, dim=1) > 0.5
     resampled = torch.where(in_bounds, resampled.to(torch.float32), float(default_pad_label))
-    return resampled[:, None].to(data.dtype)
+    return cast_like_jax(resampled[:, None], data.dtype)
 
 
 class _SpatialInverse(SpatialTransform):
