@@ -36,7 +36,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      per-element grids, every fill form, points outside the volume, a
      size-1 axis, and the grid-spec resample's tiling edges and 1,291^3
      volume;
-   - dense-coordinate spline: within 1e-5 max abs for orders 2-7;
+   - dense-coordinate spline: within 1e-5 max abs for orders 2-7, on 1, 2
+     and 4 channels, shared and per-element grids, the row tiling's edges
+     and a 1,291^3 volume (offsets past 2^31);
    - threefry (jax.random's draws): the kernel's 32-bit words equal to
      the plain version's on draws that do not fill the last block, a
      4 x 256^3 draw, keys from split, and a draw past 2^32 words (the
@@ -205,7 +207,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    axis passes also timed one by one; the dense entry points
    ``ops.resample`` (B=4 x 256^3, per-element Motion grids) and
    ``ops.bspline.bspline_resample`` (cubic, B=1 of it) are called as a
-   user calls them, with the launch counts zeroed around the calls; the
+   user calls them, with the launch counts zeroed around the calls, and
+   the dense spline kernel also on all four elements of those grids
+   (B=4 x 1 x 256^3); the
    threefry kernel at the headline's noise (B=4 x 1 x 256^3 normals),
    beside ``torch.randn`` of the same shape (Philox, another function:
    printed for scale, not as the library equivalent), with its main
@@ -1558,35 +1562,61 @@ def phase_coords_kernel(torch, np, rs, rk, kl):
 
 def phase_coords_spline_kernel(torch, np, rs, bs, bk, kl):
     """The dense-coordinate spline kernel against its plain version,
-    orders 2-7, within KERNEL_ATOL."""
+    orders 2-7, within KERNEL_ATOL: 1, 2 and 4 channels on the kernel
+    shapes and the row tiling's edges, per-element and shared grids, and
+    a 1,291^3 volume taken as the coefficients (offsets past 2^31)."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(6)
     b = 2
     before = kl.LAUNCHES["bspline_coords"]
     worst, cases = 0.0, 0
-    for c, (in_shape, out_shapes) in itertools.product((2, 4), KERNEL_SHAPES):
+
+    def check(kind, coeffs, grids, fill_bc, order):
+        nonlocal worst, cases
+        b, c = coeffs.shape[:2]
+        out_shape = tuple(grids.shape[1:4])
+        pairs = (("per-element", grids), ("shared", grids[:1].contiguous()))
+        for grid_kind, coords in pairs[: 2 if b > 1 else 1]:
+            got = bk.bspline_coords_cuda(coeffs, coords, fill_bc, order)
+            want = bs.bspline_coords_plain(coeffs, coords, fill_bc, order)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            if got.shape != (b, c, *out_shape) or not err <= KERNEL_ATOL:
+                fail(
+                    f"dense spline {kind}order {order} C={c} {grid_kind}"
+                    f" {tuple(coeffs.shape[2:])}->{out_shape}: shape {tuple(got.shape)},"
+                    f" max abs {err}"
+                )
+            cases += 1
+
+    shapes = [("", in_shape, out_shapes) for in_shape, out_shapes in KERNEL_SHAPES]
+    shapes += [("edge ", in_shape, out_shapes) for in_shape, out_shapes in EDGE_SHAPES]
+    for c, (kind, in_shape, out_shapes) in itertools.product((1, 2, 4), shapes):
         fill_bc = torch.as_tensor(rng.uniform(-1.0, 2.0, (b, c)).astype(np.float32), device=dev)
         vol = torch.as_tensor(rng.random((b, c, *in_shape), np.float32), device=dev)
         for order in ORDERS:
             coeffs = bs.prefilter_plain(vol, order)
             for out_shape in out_shapes:
-                grids = dense_grids(torch, rs, dev, in_shape, out_shape, b)
-                for kind, coords in (("per-element", grids), ("shared", grids[:1].contiguous())):
-                    got = bk.bspline_coords_cuda(coeffs, coords, fill_bc, order)
-                    want = bs.bspline_coords_plain(coeffs, coords, fill_bc, order)
-                    torch.cuda.synchronize()
-                    err = float((got - want).abs().max())
-                    worst = max(worst, err)
-                    if got.shape != (b, c, *out_shape) or not err <= KERNEL_ATOL:
-                        fail(
-                            f"dense spline order {order} C={c} {kind} {in_shape}->{out_shape}:"
-                            f" shape {tuple(got.shape)}, max abs {err}"
-                        )
-                    cases += 1
+                matrices = edge_matrices(in_shape, out_shape) if kind else None
+                grids = dense_grids(torch, rs, dev, in_shape, out_shape, b, matrices)
+                check(kind, coeffs, grids, fill_bc, order)
+    # the wide volume's samples stand in for its coefficients: the kernel
+    # and its plain version both take coefficients
+    vol, corner = wide_volume(torch, dev)
+    grids = dense_grids(
+        torch, rs, dev, WIDE_SHAPE, WIDE_OUT, 1, edge_matrices(WIDE_OUT, WIDE_OUT, corner)
+    )
+    fill_bc = torch.as_tensor([[0.75]], device=dev)
+    for order in ORDERS:
+        check("wide ", vol, grids, fill_bc, order)
+    del vol
+    torch.cuda.empty_cache()
     check_launches(kl, "bspline_coords", before, cases)
     print(
-        f"dense spline kernel vs plain: {cases} cases, orders 2-7, 2 and 4 channels,"
-        f" per-element and shared grids; max abs {worst:.3g} (limit {KERNEL_ATOL})"
+        f"dense spline kernel vs plain: {cases} cases, orders 2-7, 1, 2 and 4 channels,"
+        f" per-element and shared grids, the tiling's edges, a"
+        f" {'x'.join(map(str, WIDE_SHAPE))} volume; max abs {worst:.3g} (limit {KERNEL_ATOL})"
     )
     return worst
 
@@ -1659,7 +1689,9 @@ def phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl):
     just after: ``ops.resample`` on B=4 x 256^3 at the per-element grids
     of one Motion draw, and ``ops.bspline.bspline_resample`` (cubic,
     "minimum" fill) on B=1 of it. Then each kernel against its plain
-    version on the same inputs, and timed."""
+    version on the same inputs, and timed; the spline kernel also on all
+    B elements of the Motion grids (its plain version checked, not
+    timed)."""
     from torchio_tpu_torch.transforms.intensity.motion import _rigid_voxel_matrix
 
     dev = torch.device(DEVICE)
@@ -1746,14 +1778,37 @@ def phase_dense_entry(torch, np, tio, rs, rk, bs, bk, kl):
         nbytes(coeffs, coords1, fill_b) + coeffs.numel() * 4,
         spline_flops(3, voxels, C, None) - voxels * point_flops(None),
     )
-    results["bspline_coords"] = {
-        "max_abs_err": err_b, "ms": ms, "plain_ms": plain_ms, "bound": work,
-    }
     print(
         f"dense spline order 3 B=1 x {S}^3, a Motion grid: kernel {ms:.3f} ms, plain"
         f" {plain_ms:.3f} ms (k, p, k, p: {', '.join(f'{t:.3f}' for t in order)});"
         f" max abs {err_b:.3g}; dense-entry launches {launches};"
-        f" bound {work[0]:.3f} ms ({work[1]})"
+        f" bound {work[0]:.3f} ms ({work[1]}), roofline {work[0] / ms:.3f}"
+    )
+    del coeffs, args_b
+    # B=4 on the per-element Motion grids the dense resample is timed on
+    # (the plain version is held to it once, not timed)
+    coeffs = bk.prefilter_cuda(vol, 3)
+    fill_4, _ = rs._fill_bc(torch.amin(vol, dim=(-3, -2, -1)), B, C, dev)
+    args_4 = (coeffs, coords, fill_4, 3)
+    err_4 = float((bk.bspline_coords_cuda(*args_4) - bs.bspline_coords_plain(*args_4)).abs().max())
+    if not err_4 <= KERNEL_ATOL:
+        fail(f"dense spline B={B} vs plain: max abs {err_4}")
+    ms_4 = min(cuda_time_ms(torch, lambda: bk.bspline_coords_cuda(*args_4), 20) for _ in range(2))
+    work_4 = bound(
+        nbytes(coeffs, coords, fill_4) + coeffs.numel() * 4,
+        spline_flops(3, B * voxels, C, None) - B * voxels * point_flops(None),
+    )
+    results["bspline_coords"] = {
+        "max_abs_err": max(err_b, err_4), "ms": ms, "plain_ms": plain_ms, "bound": work,
+        "b4": {
+            "ms": ms_4, "max_abs_err": err_4, "bound_ms": work_4[0], "bound_by": work_4[1],
+            "roofline": work_4[0] / ms_4,
+        },
+    }
+    print(
+        f"dense spline order 3 B={B} x {S}^3, per-element Motion grids: kernel {ms_4:.3f} ms"
+        f" (the better of two runs of 20); max abs {err_4:.3g};"
+        f" bound {work_4[0]:.3f} ms ({work_4[1]}), roofline {work_4[0] / ms_4:.3f}"
     )
     return results, launches
 
@@ -4371,8 +4426,9 @@ def main() -> int:
             roofline=bound_ms / t["ms"],
             library_ms=t.get("library_ms"),
         )
-        if "pass_ms" in t:
-            entry["pass_ms"] = t["pass_ms"]
+        for key in ("pass_ms", "b4"):
+            if key in t:
+                entry[key] = t[key]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build included")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -199,15 +199,21 @@ def test_resample_matches_jax_pallas_interpret(mode, fill, max_tiles, monkeypatc
     np.testing.assert_allclose(got.numpy(), want, rtol=PALLAS_ATOL, atol=PALLAS_ATOL)
 
 
-@pytest.mark.parametrize("grid", ["shared", "per-element"])
+#: rows of brats' Ko = 155 (two k tiles of the dense spline kernel, the
+#: second cut short)
+KO155_SHAPE = (3, 4, 155)
+
+
+@pytest.mark.parametrize("grid", ["shared", "per-element", "per-element Ko=155"])
 @pytest.mark.parametrize("order", range(2, 8))
 def test_bspline_resample_matches_jax(order, grid):
     vol = _volume(seed=4)
-    coords = _coords(IN_SHAPE, OUT_SHAPE, grid == "per-element")
+    out_shape = KO155_SHAPE if grid.endswith("155") else OUT_SHAPE
+    coords = _coords(IN_SHAPE, out_shape, grid.startswith("per-element"))
     for fill in (0.5, FILLS["per-element"]):
         want = np.asarray(jax_bspline_resample(vol, coords, order=order, fill=fill))
         got = bs.bspline_resample(torch.as_tensor(vol), coords, order=order, fill=fill)
-        assert got.dtype == torch.float32 and got.shape == (2, 2, *OUT_SHAPE)
+        assert got.dtype == torch.float32 and got.shape == (2, 2, *out_shape)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=SPLINE_ATOL[order])
 
 

@@ -47,12 +47,10 @@
 // tio_bspline_coords: the same evaluation at the points of a dense
 //   (B or 1, Io, Jo, Ko, 3) coordinate tensor: the JAX package's
 //   bspline_resample on dense grids (an XLA gather there, no Pallas).
-//   The coordinate is read from memory; everything after it is shared.
 // Both read channels-last (B, I, J, K, C) coefficients (the wrappers
-// copy other layouts), one thread per output voxel (b, io, jo, ko), ko
-// fastest:
-//     1. the sample point (sample_point.cuh: built from the grid spec,
-//        or read from the coordinate tensor);
+// copy other layouts) and compute, for each output voxel (b, io, jo, ko):
+//     1. the sample point (built from the grid spec, or read from the
+//        coordinate tensor);
 //     2. the fill mask from the raw coordinate: the product over axes of
 //        the two in-bounds linear weights, as bspline_resample computes
 //        it (size-1 axes are not forced to 0 here);
@@ -61,11 +59,13 @@
 //        volume and their basis weights: closed forms for orders 2 and
 //        3, the Cox-de Boor recursion for orders 4-7;
 //     4. for each group of V channels (V = 4 when C is a multiple of 4,
-//        else 1), sum over i and j taps of (wi wj) times the k-tap sum,
-//        each tap one V-wide load; the fill replaces the value wherever
-//        the mask is <= 0.5 (always applied: the mirror-folded spline
-//        would leak past the volume otherwise). Each channel's sums run
-//        in the plain version's order, so the result is the same bits.
+//        else 1), sum over i and j taps of (wi wj) times the k-tap sum;
+//        the fill replaces the value wherever the mask is <= 0.5 (always
+//        applied: the mirror-folded spline would leak past the volume
+//        otherwise). Each channel's sums run in the plain version's
+//        order, so the result is the same bits.
+// The grid-spec kernel (spline_kernel) takes one thread per output
+// voxel over the flat (B, Io, Jo, Ko) index, each tap one V-wide load.
 //   What bounds it: not device bytes but the taps' loads: at order 3,
 //   64 taps per voxel and channel, read through L1/L2; a warp's taps of
 //   one (a, b, d) fall on the several rows its rotated voxels straddle,
@@ -77,7 +77,37 @@
 //   memory lost to the planar direct kernel at the brats shape: its
 //   setup, box loads and barriers cost more than the wavefronts it saved
 //   (PERF.md, PR 4).
-//
+// The dense kernel (SplineCoords) first ran that body on dense points:
+// 1.05 ms for a cubic B=1 x 256^3 resample on a Motion grid against
+// 0.100 ms of bytes (NVIDIA H100 80GB HBM3, 700 W), with four 64-bit
+// divisions a voxel to split the flat index and 64-bit arithmetic in
+// each of the 64 tap addresses. It now runs on the row tiles of
+// row_tiles.cuh, as resample.cu's dense mode does (each step measured by
+// probes/spline_coords_layout.py at B=1, the steps before the last
+// without its interior path; the numbers are in PERF.md):
+//   - a warp on one output row (b, io, jo) from a 3-D launch grid with
+//     32-bit arithmetic (ops/bspline_kernel.py::coords_launch_plan), the
+//     row's coordinates read through Row; a warp's lanes on consecutive
+//     ko (a lane's voxels a warp-width apart), so each tap load of the
+//     warp reads about one run of 32 floats (0.61 ms; a lane's voxels on
+//     consecutive ko, 0.96 ms);
+//   - offsets inside one element's I J K C coefficients 32-bit below 2^31
+//     (a template parameter, 64-bit otherwise: 0.78 ms), each load one
+//     offset scaled onto the element's base;
+//   - a lane's voxels one at a time at 4 blocks an SM (64 registers; 3
+//     and 2 blocks 0.64 and 0.70 ms);
+//   - spline_taps (shared with the grid-spec kernel, whose instance
+//     keeps its general path) with its interior path: a coordinate inside
+//     the volume is not folded (fmodf) and a run of taps inside it not
+//     reflected (an integer modulo a tap), which leaves 0.48 ms; orders
+//     4-7 call it out of line (dense_taps), which keeps the build short.
+//   What bounds it now is not the L1 lines its taps touch: on a shifted
+//   grid without rotation, whose warp loads touch the fewest lines, it
+//   takes about as long. Reading a row's k taps as float4 windows (two
+//   loads at order 3), reusing a lane's window for its next voxel, and
+//   staging a block's tap box in shared memory all lost, the box by
+//   2.6 times.
+
 // Built with -fmad=false (see sample_point.cuh). A division by a
 // constant is a product with its float32 reciprocal, as in the plain
 // versions (torchio_tpu_torch/ops/bspline.py). Launches go on the
@@ -85,13 +115,17 @@
 
 #include <cuda_pipeline.h>
 
-
-#include "sample_point.cuh"
+#include "row_tiles.cuh"
 
 namespace {
 
 using tio::Grid;
 using tio::kThreads;
+using tio::kVec;
+using tio::ko_of;
+using tio::Launch;
+using tio::opaque;
+using tio::Row;
 using tio::Source;
 
 constexpr int kMaxPoles = 3;
@@ -291,11 +325,16 @@ __device__ __forceinline__ int reflect_index(int idx, int n) {
 // The order+1 reflected tap indices and basis weights of coordinate c
 // on an axis of n samples (torchio_tpu/ops/window_resample.py
 // _spline_taps): even orders center on floor(x + 0.5), odd orders on
-// floor(x); the taps start order/2 below.
-template <int kOrder>
+// floor(x); the taps start order/2 below. kInterior: a coordinate in
+// [0, n-1] skips the fold (fmodf: it would return the coordinate, or +0
+// for -0, which floors and subtracts alike) and a run of taps inside the
+// volume skips the reflection (an integer modulo a tap: each would
+// return its index), with the same results.
+template <int kOrder, bool kInterior = false>
 __device__ __forceinline__ void spline_taps(float c, int n, int idx[kOrder + 1],
                                             float w[kOrder + 1]) {
-  const float cf = fold_mirror(c, n);
+  const float cf =
+      kInterior && c >= 0.0f && c <= (float)(n - 1) ? c : fold_mirror(c, n);
   const float base = (kOrder % 2 == 0) ? floorf(cf + 0.5f) : floorf(cf);
   const float start_f = base - (float)(kOrder / 2);
   const float t = cf - start_f;
@@ -319,8 +358,34 @@ __device__ __forceinline__ void spline_taps(float c, int n, int idx[kOrder + 1],
 #pragma unroll
     for (int o = 0; o <= kOrder; ++o) w[o] = Basis<kOrder>::at(t - (float)o);
   }
+  if (kInterior && start >= 0 && start + kOrder <= n - 1) {
 #pragma unroll
-  for (int d = 0; d <= kOrder; ++d) idx[d] = reflect_index(start + d, n);
+    for (int d = 0; d <= kOrder; ++d) idx[d] = start + d;
+  } else {
+#pragma unroll
+    for (int d = 0; d <= kOrder; ++d) idx[d] = reflect_index(start + d, n);
+  }
+}
+
+// spline_taps for the dense kernel: orders 4-7 evaluate the Cox-de Boor
+// recursion (2^order leaves a weight), so they run out of line, compiled
+// once an order instead of inlined into each of the kernel's four
+// instances and three axes; that keeps the library's build short (they
+// are on no timed path). The arithmetic is spline_taps' own.
+template <int kOrder, bool kInterior>
+__device__ __noinline__ void spline_taps_call(float c, int n, int idx[kOrder + 1],
+                                              float w[kOrder + 1]) {
+  spline_taps<kOrder, kInterior>(c, n, idx, w);
+}
+
+template <int kOrder, bool kInterior>
+__device__ __forceinline__ void dense_taps(float c, int n, int idx[kOrder + 1],
+                                           float w[kOrder + 1]) {
+  if constexpr (kOrder <= 3) {
+    spline_taps<kOrder, kInterior>(c, n, idx, w);
+  } else {
+    spline_taps_call<kOrder, kInterior>(c, n, idx, w);
+  }
 }
 
 // One axis's contribution to the fill mask: the two in-bounds linear
@@ -468,6 +533,181 @@ int launch_spline(const float* coeffs, const tio::Points& pts, const float* fill
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// Dense coordinates: the spline on row_tiles.cuh's row tiles.
+
+// One voxel's taps: per axis the order+1 basis weights, and the offsets
+// in floats inside one element's coefficients: i taps times the plane's
+// floats, j taps times the row's, k taps times C.
+template <int T, typename Index>
+struct Taps {
+  float wi[T], wj[T], wk[T];
+  Index i[T];
+  int j[T], k[T];
+};
+
+// acc[u] += (wi wj) times the k-tap sum of each (i, j) row, for V channels
+// from c0, each tap one V-wide load, in the plain version's order. Orders
+// 4-7 run one i plane's code in a loop (no timed path takes them).
+template <int kOrder, int V, typename Index>
+__device__ __forceinline__ void sum_rows(const float* src, const Taps<kOrder + 1, Index>& t,
+                                         int c0, float acc[V]) {
+  constexpr int T = kOrder + 1;
+#pragma unroll(kOrder <= 3 ? T : 1)
+  for (int a = 0; a < T; ++a) {
+#pragma unroll
+    for (int b = 0; b < T; ++b) {
+      const Index row = t.i[a] + (Index)(t.j[b] + c0);
+      float x[V], kv[V];
+      load_vec<V>(src + (row + t.k[0]), x);
+#pragma unroll
+      for (int u = 0; u < V; ++u) kv[u] = t.wk[0] * x[u];
+#pragma unroll
+      for (int d = 1; d < T; ++d) {
+        load_vec<V>(src + (row + t.k[d]), x);
+#pragma unroll
+        for (int u = 0; u < V; ++u) kv[u] = kv[u] + t.wk[d] * x[u];
+      }
+      const float wij = t.wi[a] * t.wj[b];
+#pragma unroll
+      for (int u = 0; u < V; ++u) acc[u] = acc[u] + wij * kv[u];
+    }
+  }
+}
+
+// How a lane takes its kVec voxels of a k tile, one at a time: on kVec
+// consecutive ko or a warp-width apart (kConsecutive, see tio::ko_of);
+// kMinBlocks blocks an SM for __launch_bounds__ (at 4, 64 registers a
+// thread); kInterior: spline_taps' fast path for coordinates and taps
+// inside the volume. SplineCoords takes a voxel's row sums from L::sum,
+// so a layout may bring another way to read the taps
+// (probes/spline_coords_layout.cu does).
+template <bool kConsecutive_, int kMinBlocks_, bool kInterior_>
+struct CoordsLayout {
+  static constexpr bool kConsecutive = kConsecutive_;
+  static constexpr int kMinBlocks = kMinBlocks_;
+  static constexpr bool kInterior = kInterior_;
+
+  template <int kOrder, int V, typename Index>
+  __device__ __forceinline__ static void sum(const float* src,
+                                             const Taps<kOrder + 1, Index>& t, int c0,
+                                             float acc[V]) {
+    sum_rows<kOrder, V>(src, t, c0, acc);
+  }
+};
+
+struct CoordsArgs {
+  const float* __restrict__ coeffs;  // channels-last (B, I, J, K, C)
+  const float* __restrict__ fill;    // (B, C)
+  float* __restrict__ out;           // (B, C, Io, Jo, Ko)
+};
+
+// The dense spline as row_tiles.cuh's Body: a lane's voxels of a k tile,
+// one at a time: its point from the row's coordinates, its mask and taps,
+// and per group of V channels its sum and store. Index: the offsets'
+// type inside one element's coefficients. Orders 4-7 keep their weights
+// in more registers: at most 2 blocks an SM (128 registers a thread).
+template <int kOrder, int V, typename Index, class L>
+struct SplineCoords {
+  using Args = CoordsArgs;
+  static constexpr int kMinBlocks =
+      kOrder <= 3 || L::kMinBlocks < 2 ? L::kMinBlocks : 2;
+
+  template <Source kSource, bool kStaged>
+  __device__ __forceinline__ static void tile(const Args& args, const tio::Points& pts,
+                                              const Grid& s,
+                                              const Row<kSource, kStaged>& row,
+                                              unsigned k_first, unsigned lane) {
+    constexpr int T = kOrder + 1;
+    const int64_t out_spatial = tio::out_spatial(s);
+    const int64_t row_out = ((int64_t)row.io * s.Jo + row.jo) * s.Ko;
+    const int row_floats = s.K * s.C;  // J K C < 2^31 (the wrapper checks)
+    const Index plane_floats = (Index)s.J * row_floats;
+    const float* src = opaque(args.coeffs + (int64_t)row.b * s.I * s.J * s.K * s.C);
+#pragma unroll 1
+    for (int v = 0; v < kVec; ++v) {
+      const unsigned ko = ko_of<L>(k_first, lane, v);
+      if (ko >= (unsigned)s.Ko) break;  // the later voxels lie further on
+      float c[3];
+      row.point(pts, s, ko, c);
+      const float mask = inbounds(c[0], s.I) * inbounds(c[1], s.J) * inbounds(c[2], s.K);
+      const bool use_fill = !(mask > 0.5f);
+      Taps<T, Index> t;
+      if (!use_fill) {
+        int ti[T];
+        dense_taps<kOrder, L::kInterior>(c[0], s.I, ti, t.wi);
+        dense_taps<kOrder, L::kInterior>(c[1], s.J, t.j, t.wj);
+        dense_taps<kOrder, L::kInterior>(c[2], s.K, t.k, t.wk);
+#pragma unroll
+        for (int d = 0; d < T; ++d) {
+          t.i[d] = ti[d] * plane_floats;
+          t.j[d] *= row_floats;
+          t.k[d] *= s.C;
+        }
+      }
+      for (int c0 = 0; c0 < s.C; c0 += V) {
+        float acc[V];
+        if (use_fill) {
+#pragma unroll
+          for (int u = 0; u < V; ++u) acc[u] = __ldg(args.fill + (int64_t)row.b * s.C + c0 + u);
+        } else {
+#pragma unroll
+          for (int u = 0; u < V; ++u) acc[u] = 0.0f;
+          L::template sum<kOrder, V>(src, t, c0, acc);
+        }
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          opaque(args.out + ((int64_t)row.b * s.C + c0 + u) * out_spatial + row_out)[ko] = acc[u];
+        }
+      }
+    }
+  }
+};
+
+// The package's layout of the dense spline (see CoordsLayout).
+using DenseSplineLayout = CoordsLayout<false, 4, true>;
+
+template <int kOrder, int V, class L>
+void launch_coords_as(const CoordsArgs& args, const tio::Points& pts, const Grid& s,
+                      const Launch& l, cudaStream_t st) {
+  if (l.wide) {
+    tio::launch_rows<SplineCoords<kOrder, V, int64_t, L>, Source::kDense>(args, pts, s, l, st);
+  } else {
+    tio::launch_rows<SplineCoords<kOrder, V, int, L>, Source::kDense>(args, pts, s, l, st);
+  }
+}
+
+template <int V, class L>
+void launch_coords_vec(const CoordsArgs& args, const tio::Points& pts, const Grid& s,
+                       const Launch& l, int order, cudaStream_t st) {
+  switch (order) {
+    case 2: launch_coords_as<2, V, L>(args, pts, s, l, st); break;
+    case 3: launch_coords_as<3, V, L>(args, pts, s, l, st); break;
+    case 4: launch_coords_as<4, V, L>(args, pts, s, l, st); break;
+    case 5: launch_coords_as<5, V, L>(args, pts, s, l, st); break;
+    case 6: launch_coords_as<6, V, L>(args, pts, s, l, st); break;
+    case 7: launch_coords_as<7, V, L>(args, pts, s, l, st); break;
+  }
+}
+
+// vec: 4 when C is a multiple of 4 and coeffs is 16-byte aligned, else 1
+template <class L>
+int launch_coords(const CoordsArgs& args, const tio::Points& pts, const Grid& s,
+                  const Launch& l, int order, int vec, cudaStream_t st) {
+  if (order < 2 || order > 7) return (int)cudaErrorInvalidValue;
+  if (vec == 4) {
+    if (s.C % 4 != 0 || reinterpret_cast<uintptr_t>(args.coeffs) % 16 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    launch_coords_vec<4, L>(args, pts, s, l, order, st);
+  } else if (vec == 1) {
+    launch_coords_vec<1, L>(args, pts, s, l, order, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // One axis pass of the prefilter over a volume viewed as (outer, n,
@@ -558,15 +798,19 @@ extern "C" int tio_bspline_resample(const float* coeffs, const float* maps,
 
 // coeffs as above; coords: (B or 1, Io, Jo, Ko, 3) float32;
 // coord_batch_stride is Io*Jo*Ko*3 for per-element grids and 0 for one
-// shared grid.
+// shared grid; vec: see launch_coords; gx, gy, gz, z_rows and wide: the
+// launch plan (ops/bspline_kernel.py::coords_launch_plan, wide for
+// I*J*K*C >= 2^31).
 extern "C" int tio_bspline_coords(const float* coeffs, const float* coords,
                                   const float* fill, float* out, int B, int C,
                                   int I, int J, int K, int Io, int Jo, int Ko,
                                   long long coord_batch_stride, int order, int vec,
+                                  int gx, int gy, int gz, int z_rows, int wide,
                                   void* stream) {
   const Grid s{B, C, I, J, K, Io, Jo, Ko, 0, 0, 0, 0.0f, 0.0f, 0.0f};
   if ((int64_t)B * Io * Jo * Ko == 0) return 0;
+  const Launch l{(unsigned)gx, (unsigned)gy, (unsigned)gz, (unsigned)z_rows, wide, 0};
   const tio::Points pts{nullptr, nullptr, coords, (int64_t)coord_batch_stride};
-  return launch_spline<Source::kDense>(coeffs, pts, fill, out, s, order, vec,
-                                       static_cast<cudaStream_t>(stream));
+  return launch_coords<DenseSplineLayout>({coeffs, fill, out}, pts, s, l, order, vec,
+                                          static_cast<cudaStream_t>(stream));
 }

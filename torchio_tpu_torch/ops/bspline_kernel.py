@@ -15,7 +15,8 @@
   coefficients; its plain version is
   :func:`..bspline.bspline_resample_plain`.
 - :func:`bspline_coords_cuda`: the same evaluation at dense coordinates
-  (``LAUNCHES["bspline_coords"]``), the JAX package's ``bspline_resample``;
+  (``LAUNCHES["bspline_coords"]``), the JAX package's ``bspline_resample``,
+  on the row tiles of the resample kernels (:func:`coords_launch_plan`);
   its plain version is :func:`..bspline.bspline_coords_plain`.
 
 The source file's head says what each kernel computes and what bounds
@@ -32,7 +33,9 @@ import torch
 
 from .bspline import _check_order, pole_constants
 from .kernel_lib import F32, I32, I64, P, KernelLibrary, check_tensor, stream
-from .resample_kernel import _check_grid, _ptr, check_dense, grid_args
+from .resample_kernel import (
+    ResamplePlan, _check_grid, _ptr, check_dense, grid_args, resample_launch_plan,
+)
 
 _FLOATS, _INTS = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
 
@@ -42,7 +45,7 @@ BSPLINE = KernelLibrary(
         "tio_prefilter_axis": [P, P, I64, I32, I64] + [I32] * 6
         + [_FLOATS, _INTS, _FLOATS, _FLOATS, F32, P],
         "tio_bspline_resample": [P] * 5 + [I32] * 11 + [F32] * 3 + [I32, I32, P],
-        "tio_bspline_coords": [P] * 4 + [I32] * 8 + [I64, I32, I32, P],
+        "tio_bspline_coords": [P] * 4 + [I32] * 8 + [I64] + [I32] * 7 + [P],
     },
     kernels=(
         "bspline_prefilter", "bspline_prefilter_global", "bspline_resample",
@@ -231,6 +234,16 @@ def bspline_resample_cuda(
     return out
 
 
+def coords_launch_plan(coeffs_shape, out_shape) -> ResamplePlan:
+    """The row-tiled launch of the dense spline (``csrc/row_tiles.cuh``,
+    as :func:`.resample_launch_plan` lays it out) for (B, C, I, J, K)
+    coefficients and a (Io, Jo, Ko) output: its offsets run over one
+    element's I J K C channels-last floats, so it asks for 64-bit offsets
+    when those reach 2^31."""
+    b, c, si, sj, sk = (int(n) for n in coeffs_shape)
+    return resample_launch_plan(b, *out_shape, (si, sj, sk * c))
+
+
 def bspline_coords_cuda(
     coeffs: torch.Tensor, coords: torch.Tensor, fill: torch.Tensor, order: int
 ) -> torch.Tensor:
@@ -246,10 +259,12 @@ def bspline_coords_cuda(
     out = torch.empty((b, c, *out_shape), dtype=torch.float32, device=coeffs.device)
     if out.numel() == 0:
         return out
+    plan = coords_launch_plan(coeffs.shape, out_shape)
     with torch.cuda.device(coeffs.device):
         BSPLINE.launch(
             "bspline_coords", "tio_bspline_coords",
             coeffs.data_ptr(), coords.data_ptr(), fill.data_ptr(), out.data_ptr(),
-            b, c, si, sj, sk, *out_shape, stride, order, vec, stream(coeffs.device),
+            b, c, si, sj, sk, *out_shape, stride, order, vec, *plan.grid, plan.z_rows,
+            int(plan.wide), stream(coeffs.device),
         )
     return out
