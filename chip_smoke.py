@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the torch, CUDA, nvcc and Triton versions;
 2. build: compiles every kernel library from ``torchio_tpu_torch/csrc``,
    one ``nvcc`` per source, all at once, and beside them the host decode
-   library ``torchio_tpu_torch/native/fastnifti.cpp`` (g++, zlib); fails
+   library ``torchio_tpu_torch/native/fastnifti.cpp`` (g++, zlib: gunzip,
+   the layout transform, the JPEG Lossless and JPEG-LS decoders); fails
    if either does not build;
 3. kernels against their plain PyTorch versions on the card:
    - resample: linear within 1e-5 max abs on inputs in [0, 1); nearest
@@ -195,7 +196,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launches a call, the output equal bit for bit to the same pipeline on
    the int16 volumes in memory, every file decoded by the native library;
    it prints the read and the pipeline a call and one subject's decode,
-   native against plain; phases 17-18 print what phases 14-16 print;
+   native against plain; then ct-dicom-preprocess: 2 thoracic CT series
+   in LIDC-IDRI's layout (512 x 512 x 240 int16 HU at 0.703 x 0.703 x
+   1.25 mm, the image plane tilted 3 and 2 degrees), made on the host
+   from a seed and written by the port's ``write_dicom_series`` (explicit
+   VR little endian, 240 files of 512 KiB a series, renamed out of slice
+   order), read lazily each call (``Subject(ct=ScalarImage(dir))``, the
+   read in ``SubjectsBatch.from_subjects``) and sent through
+   ``Compose([Reorient("RAS"), Resample(target=1.5), Clamp(-1000, 1000),
+   RescaleIntensity(-1, 1), CropOrPad((224, 224, 192)), Spatial(degrees=
+   10, scales=0.1, max_displacement=7.5), Noise(std=0.05)])``: the read
+   equal to the volumes written bit for bit, the affine within 1e-6 mm,
+   the output (2, 1, 224, 224, 192) on the card, RAS at 1.5 mm, equal bit
+   for bit to the same pipeline on the int16 volumes in memory with the
+   header's affine, 2 resample launches and 1 threefry launch a call and
+   nothing else; it prints the read and the pipeline a call, one
+   series' host read, the device time of a call (profiler) and the peak;
+   then its first 4 slices in RLE, JPEG Lossless SV1 and JPEG-LS lossless,
+   each as a series and as one multi-frame file, read back onto the card
+   bit-equal, each JPEG frame decoded once by the native library (none
+   declined) and equal to the Python decoder's, with the host times of a
+   read and of a frame's decode; phases 17-18 print what phases 14-16
+   print;
 19. one timed call of KeepLargestComponent on the brats cell's seg with a
    stray island a label (its host time and its two copies), and of
    Swap(patch_size=15, num_iterations=100) on B=4 x 256^3 (its device
@@ -247,6 +269,7 @@ import math
 import random
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3994,6 +4017,292 @@ def phase_ixi_nifti(torch, np, tio, kl, native, smi, profile: str | None):
     return totals
 
 
+# --- DICOM: a CT series stored as files ----------------------------------------
+
+#: ct-dicom-preprocess: LIDC-IDRI's thoracic CT layout (512 x 512 slices of
+#: 0.703125 mm pixels, 1.25 mm apart), CT_B series of CT_SHAPE int16
+#: Hounsfield units, the image plane tilted CT_TILT degrees about x and y
+CT_B, CT_SHAPE, CT_SPACING = 2, (512, 512, 240), (0.703125, 0.703125, 1.25)
+CT_TILT, CT_SPACING_OUT, CT_CROP, CT_SEED = (3.0, 2.0), 1.5, (224, 224, 192), 15
+#: each call reads its CT_B series (about 1 s a series on a host), so
+#: fewer calls than the in-memory paths'
+CT_WARMUP, CT_TIMED = 1, 2
+#: the DICOM writer keeps 10 significant digits of every decimal string
+#: (positions of a few hundred mm): the affine read back agrees with the
+#: one written within this many mm
+CT_AFFINE_ATOL = 1e-6
+#: the compressed syntaxes' short series (the Python encoders take about a
+#: second a 512 x 512 slice): the first slices of the first CT series
+CT_CODEC_SLICES = 4
+CT_CODECS = {"rle": None, "jpeg-lossless": "jpegll", "jpeg-ls": "jls"}
+#: ct-dicom-preprocess's launches a call: Resample(1.5) and Spatial
+#: resample the batch once each, Noise draws its field in one launch
+CT_LAUNCHES = {"resample": 2, "threefry_normal": 1}
+
+
+def ct_pipeline(tio):
+    """A CT preprocessing and augmentation chain: canonical orientation,
+    1.5 mm isotropic, the HU window of soft tissue and lung scaled to
+    [-1, 1], a fixed field of view, then a random affine and elastic move
+    and noise."""
+    return tio.Compose(
+        [
+            tio.Reorient("RAS"),
+            tio.Resample(target=CT_SPACING_OUT),
+            tio.Clamp(out_min=-1000, out_max=1000),
+            tio.RescaleIntensity(out_min=-1, out_max=1),
+            tio.CropOrPad(CT_CROP),
+            tio.Spatial(degrees=10, scales=0.1, max_displacement=7.5),
+            tio.Noise(std=0.05),
+        ]
+    )
+
+
+def ct_volumes(np, b, shape, seed):
+    """(B, 1, *shape) int16 Hounsfield units made on the host from
+    ``seed``: air (-1024) around an elliptic body of soft tissue (40 HU)
+    whose section changes slowly along k, two lungs (-850 HU) and a spine
+    whose bone peaks near 3000 HU, with 20 HU of noise."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-1, 1, shape[0], dtype=np.float32)[:, None, None]
+    y = np.linspace(-1, 1, shape[1], dtype=np.float32)[None, :, None]
+    z = np.linspace(0, 1, shape[2], dtype=np.float32)[None, None, :]
+    out = np.empty((b, 1, *shape), np.int16)
+    for n in range(b):
+        half = 0.8 + 0.05 * np.sin(2 * np.pi * (z + 0.3 * n))
+        body = (x / half) ** 2 + (y / (0.65 * half)) ** 2 < 1
+        lungs = ((np.abs(x) - 0.33) / (0.26 * half)) ** 2 + ((y + 0.05) / (0.38 * half)) ** 2 < 1
+        spine = x**2 + (y - 0.38) ** 2
+        hu = np.where(body, np.float32(40), np.float32(-1024))
+        hu = np.where(body & lungs, np.float32(-850), hu)
+        hu = np.where(spine < 0.006, np.float32(3000) - spine * np.float32(4e5), hu)
+        hu = hu + rng.standard_normal(hu.shape, dtype=np.float32) * np.float32(20)
+        out[n, 0] = np.clip(np.round(hu), -1024, 3071).astype(np.int16)
+    return out
+
+
+def ct_affine(np):
+    """The series' RAS affine: voxel axes L, P, S (DICOM's image plane, in
+    LPS), CT_SPACING, tilted CT_TILT degrees about x and then y, the first
+    voxel at (179.6, 179.6, -320) mm."""
+    ax, ay = np.radians(CT_TILT)
+    rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)], [0, np.sin(ax), np.cos(ax)]])
+    ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0], [-np.sin(ay), 0, np.cos(ay)]])
+    affine = np.eye(4)
+    affine[:3, :3] = rx @ ry @ np.diag([-CT_SPACING[0], -CT_SPACING[1], CT_SPACING[2]])
+    affine[:3, 3] = (179.6484375, 179.6484375, -320.0)
+    return affine
+
+
+def write_ct_series(np, volumes, affine, directory, seed):
+    """Each volume as a one-file-a-slice series (explicit VR little
+    endian) by the port's writer, its files then renamed in a seeded
+    order, as an archive's UID-named files are: the reader must sort the
+    slices along their normal."""
+    dicom = importlib.import_module("torchio_tpu_torch.io.dicom")
+    rng = np.random.default_rng(seed)
+    series = []
+    for n, volume in enumerate(volumes):
+        path = directory / f"ct{n}"
+        dicom.write_dicom_series(path, volume, affine)
+        files = sorted(path.iterdir())
+        for file, rank in zip(files, rng.permutation(len(files)), strict=True):
+            file.rename(path / f"1.2.826.0.{rank:06d}.dcm")
+        series.append(path)
+    return series
+
+
+def phase_ct_dicom(torch, np, tio, kl, native, smi, profile: str | None):
+    """ct-dicom-preprocess: CT_B thoracic CT series stored as DICOM files
+    (CT_SHAPE int16, explicit VR little endian, file names out of slice
+    order), read lazily each call: ``Subject(ct=ScalarImage(series_dir))``
+    for each, ``SubjectsBatch.from_subjects`` (the read: parse and sort on
+    the host, copy to the card), then ``ct_pipeline``. The volume read
+    must equal the one written, bit for bit, its affine the one written
+    within CT_AFFINE_ATOL mm, and the output the same pipeline's on the
+    same int16 volumes held in memory with the header's affine, bit for
+    bit."""
+    name = "ct-dicom-preprocess"
+    dicom = importlib.import_module("torchio_tpu_torch.io.dicom")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ct_") as tmp:
+        t0 = time.perf_counter()
+        volumes = ct_volumes(np, CT_B, CT_SHAPE, CT_SEED)
+        written = ct_affine(np)
+        series = write_ct_series(np, volumes, written, Path(tmp), CT_SEED)
+        setup_s = time.perf_counter() - t0
+        pipeline = ct_pipeline(tio)
+
+        def read_batch():
+            subjects = [tio.Subject(ct=tio.ScalarImage(path)) for path in series]
+            if any(s.ct.is_loaded for s in subjects):
+                fail(f"{name}: a series was read before its batch was built")
+            return tio.SubjectsBatch.from_subjects(subjects)
+
+        # the read against what was written
+        first = read_batch()
+        stored = torch.from_numpy(volumes).to(DEVICE)
+        if first.ct.data.device.type != DEVICE or not torch.equal(first.ct.data, stored):
+            fail(f"{name}: the series read differ from the int16 volumes written")
+        header = [a.data.copy() for a in first.ct.affines]
+        affine_err = max(float(np.abs(a - written).max()) for a in header)
+        if not affine_err <= CT_AFFINE_ATOL:
+            fail(f"{name}: the affine read is {affine_err} mm from the one written")
+        del first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kl.reset_launches()
+        read_times, call_times, per_call, out = [], [], [], None
+        for _ in range(CT_WARMUP + CT_TIMED):
+            before = dict(kl.LAUNCHES)
+            t0 = time.perf_counter()
+            batch = read_batch()
+            torch.cuda.synchronize()
+            t_read = time.perf_counter()
+            tio.seed(CT_SEED)
+            out = pipeline(batch)
+            torch.cuda.synchronize()
+            read_times.append(t_read - t0)
+            call_times.append(time.perf_counter() - t_read)
+            per_call.append({k: kl.LAUNCHES[k] - before[k] for k in KERNELS})
+        totals = {k: kl.LAUNCHES[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        expected = {k: CT_LAUNCHES.get(k, 0) for k in KERNELS}
+        for launched in per_call:
+            if launched != expected:
+                fail(f"{name}: launches {launched}, expected {expected} a call")
+        data = out.ct.data
+        if data.device.type != DEVICE or tuple(data.shape) != (CT_B, 1, *CT_CROP):
+            fail(f"{name}: output {tuple(data.shape)} on {data.device}")
+        if not bool(torch.isfinite(data).all()):
+            fail(f"{name}: non-finite output")
+        orientation, spacing = "".join(out.ct.affines[0].orientation), out.ct.affines[0].spacing
+        if orientation != "RAS" or not np.allclose(spacing, CT_SPACING_OUT):
+            fail(f"{name}: output {orientation} at {spacing} mm")
+        # the same pipeline on the same int16 volumes in memory
+        memory = tio.SubjectsBatch.from_subjects(
+            [tio.Subject(ct=tio.ScalarImage(stored[n], affine=header[n])) for n in range(CT_B)]
+        )
+        tio.seed(CT_SEED)
+        want = pipeline(memory)
+        if not torch.equal(data, want.ct.data):
+            diff = float((data.double() - want.ct.data.double()).abs().max())
+            fail(f"{name}: the output from the files differs from the in-memory run by {diff}")
+        for a, b in zip(out.ct.affines, want.ct.affines, strict=True):
+            if not np.array_equal(a.data, b.data):
+                fail(f"{name}: the output affine from the files differs from the in-memory run")
+        del memory, want
+        # the host read of one series, alone
+        series_reads = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            dicom.read_dicom_dir(series[0])
+            series_reads.append(time.perf_counter() - t0)
+        tio.seed(CT_SEED)
+        events = device_events(torch, lambda: pipeline(read_batch()))
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+        top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}" for e in top)
+        times = [r + c for r, c in zip(read_times, call_times)]
+        report_path(name, times, peak, per_call, ("resample",), smi, "series", CT_B, CT_WARMUP)
+        timed_reads, timed_calls = read_times[CT_WARMUP:], call_times[CT_WARMUP:]
+        print(
+            f"{name}: {CT_B} series of {CT_SHAPE} int16 ({CT_SHAPE[2]} files of"
+            f" {CT_SHAPE[0] * CT_SHAPE[1] * 2 // 1024} KiB each) read equal to the volumes written,"
+            f" affine within {affine_err:.3g} mm (limit {CT_AFFINE_ATOL}); read (parse and sort on the"
+            f" host, copy to the card) median {statistics.median(timed_reads) * 1e3:.1f} ms a call,"
+            f" pipeline median {statistics.median(timed_calls) * 1e3:.1f} ms a call (reads"
+            f" {[round(t * 1e3, 1) for t in read_times]} ms, pipelines"
+            f" {[round(t * 1e3, 1) for t in call_times]} ms); host read of one series (read_dicom_dir,"
+            f" this machine's host CPU) {[round(t * 1e3, 1) for t in series_reads]} ms; device time a"
+            f" call (read + pipeline, profiler) {device_ms:.3f} ms (largest, ms: {top}); launches a call {expected};"
+            f" output equal to the in-memory run bit for bit; series made and written in"
+            f" {setup_s:.2f} s (set-up); card {smi}"
+        )
+        if profile:
+            profile_same_draws(torch, tio, CT_SEED, pipeline, read_batch(), profile, f"{name} (pipeline)")
+    return totals, volumes[0], written
+
+
+def pixel_fragments(raw):
+    """The encapsulated PixelData's frames of one DICOM file's bytes (the
+    basic offset table dropped)."""
+    at = raw.index(b"\xe0\x7f\x10\x00OB\x00\x00\xff\xff\xff\xff") + 12
+    frames = []
+    while True:
+        group, element, length = struct.unpack_from("<HHI", raw, at)
+        at += 8
+        if (group, element) == (0xFFFE, 0xE0DD):
+            return frames[1:]
+        frames.append(raw[at : at + length])
+        at += length
+
+
+def phase_ct_codecs(torch, np, tio, native, smi, volume, affine):
+    """The compressed syntaxes on CT_CODEC_SLICES slices of the CT volume:
+    RLE, JPEG Lossless SV1 and JPEG-LS lossless, each written by the
+    port's writer as a series and as one multi-frame file and read lazily
+    onto the card, bit-equal to the slices; each JPEG frame decoded once
+    by the native library, nothing declined, equal to the Python
+    decoder's."""
+    name = "ct-dicom-codecs"
+    dicom = importlib.import_module("torchio_tpu_torch.io.dicom")
+    stack = np.ascontiguousarray(volume[..., :CT_CODEC_SLICES])
+    want = torch.from_numpy(stack).to(DEVICE)
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codecs_") as tmp:
+        for compression, codec in CT_CODECS.items():
+            series, single = Path(tmp) / compression, Path(tmp) / f"{compression}.dcm"
+            t0 = time.perf_counter()
+            dicom.write_dicom_series(series, stack, affine, compression=compression)
+            dicom.write_dicom(single, stack, affine, compression=compression)
+            encode_s = time.perf_counter() - t0
+            reads = {}
+            for label, path in (("series", series), ("file", single)):
+                native.reset_calls()
+                t0 = time.perf_counter()
+                image = tio.ScalarImage(path)
+                image.load()
+                reads[label] = time.perf_counter() - t0
+                if image.data.device.type != DEVICE or not torch.equal(image.data, want):
+                    fail(f"{name}: {compression} {label} read back differs from the slices written")
+                if codec and (native.CALLS[f"{codec}_decode"], native.CALLS[f"{codec}_declined"]) != (
+                    CT_CODEC_SLICES, 0
+                ):
+                    fail(f"{name}: {compression} {label}: native calls {native.CALLS}, expected one a frame")
+            frames = pixel_fragments(single.read_bytes())
+            series_frames = [f for p in sorted(series.iterdir()) for f in pixel_fragments(p.read_bytes())]
+            if frames != series_frames or len(frames) != CT_CODEC_SLICES:
+                fail(f"{name}: {compression}: the file's frames differ from the series'")
+            line = (
+                f"{compression}: {sum(len(f) for f in frames) / stack.nbytes:.3f} of the raw bytes,"
+                f" encoded (series and file) in {encode_s:.2f} s (set-up); host read of the series"
+                f" {reads['series'] * 1e3:.1f} ms, of the file {reads['file'] * 1e3:.1f} ms"
+            )
+            if codec:
+                decode = getattr(native, f"{codec}_decode")
+                plain = getattr(native, f"{codec}_decode_plain")
+                native_s, plain_s = [], []
+                for frame in frames:
+                    t0 = time.perf_counter()
+                    got = decode(frame)
+                    native_s.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    reference = plain(frame)
+                    plain_s.append(time.perf_counter() - t0)
+                    if not np.array_equal(got, reference):
+                        fail(f"{name}: {compression}: a native frame differs from the Python decoder's")
+                line += (
+                    f"; a frame: native {statistics.median(native_s) * 1e3:.2f} ms, Python"
+                    f" {statistics.median(plain_s) * 1e3:.1f} ms, equal"
+                )
+            lines.append(line)
+    print(
+        f"{name}: {CT_CODEC_SLICES} slices of {CT_SHAPE[0]}x{CT_SHAPE[1]} int16 as a series and as one"
+        f" multi-frame file in each syntax, read onto the card equal to the slices, one native decode a"
+        f" JPEG frame, none declined (host times, this machine's host CPU): {'; '.join(lines)}; card {smi}"
+    )
+
+
 class TimedSubject:
     """A Subject whose ``load`` records its thread and its interval (the
     Queue's reads), as a mixin on the port's Subject class."""
@@ -4123,16 +4432,20 @@ def phase_config5_nifti_queue(torch, tio, kl, native, smi, in_memory_locations, 
     return launches
 
 
-def device_kernels(torch, fn):
-    """The number of kernels the card ran in one ``fn()``, under the
-    profiler."""
+def device_events(torch, fn):
+    """The profiler's device events (summed by name) of one ``fn()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in p.key_averages() if e.device_type == DeviceType.CUDA)
+    return [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_kernels(torch, fn):
+    """The number of kernels the card ran in one ``fn()``."""
+    return sum(e.count for e in device_events(torch, fn))
 
 
 def phase_zoo_timing(torch, tio, smi):
@@ -4270,6 +4583,9 @@ def main() -> int:
     synthseg_launches = phase_synthseg(torch, tio, kl, smi, args.profile)
     ixi_launches = phase_ixi(torch, np, tio, kl, smi, args.profile)
     ixi_nifti_launches = phase_ixi_nifti(torch, np, tio, kl, native, smi, args.profile)
+    ct_launches, ct_volume, ct_written = phase_ct_dicom(torch, np, tio, kl, native, smi, args.profile)
+    phase_ct_codecs(torch, np, tio, native, smi, ct_volume, ct_written)
+    del ct_volume
     phase_zoo_timing(torch, tio, smi)
     timings = {"resample": phase_kernel_timing(torch, np, tio, rs, rk)}
     timings.update(phase_brats_timing(torch, np, tio, rs, rk, bs, bk, brats_batch))
@@ -4300,6 +4616,7 @@ def main() -> int:
         "synthseg-labels-to-image": synthseg_launches["resample"],
         "ixi-preprocess-histstd": ixi_launches["resample"],
         "ixi-nifti-preprocess": ixi_nifti_launches["resample"],
+        "ct-dicom-preprocess": ct_launches["resample"],
     }
     threefry_paths = {
         "headline": headline_launches["threefry_normal"],
@@ -4310,6 +4627,7 @@ def main() -> int:
         "config4-elastic-inverse": config4_launches["threefry_normal"],
         "policy-someof": policy_launches_total["threefry_normal"],
         "synthseg-labels-to-image": synthseg_launches["threefry_normal"],
+        "ct-dicom-preprocess": ct_launches["threefry_normal"],
     }
     kernels = [
         {

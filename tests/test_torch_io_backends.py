@@ -8,8 +8,9 @@
 - the registry: the same matcher names in the same order, a custom
   reader (a callable and a ``LazyReader``), a user-registered backend and
   an incomplete one, the NIfTI sniff of an unusual suffix, and the
-  DICOM, remote and zarr sources, which the port does not read yet
-  (``NotImplementedError``).
+  DICOM (a series directory, a file by suffix and by its magic bytes, a
+  broken file), remote (fsspec ``memory://``) and ``.nii.zarr`` sources,
+  each read through the backend the JAX package picks.
 """
 
 from __future__ import annotations
@@ -218,16 +219,48 @@ def test_sniff_and_unreadable(tmp_path):
 
 
 def test_deferred_sources_raise(tmp_path):
-    """DICOM, remote and zarr sources are the next slice's: recognised and
-    refused with the ROADMAP item, never read as something else."""
-    dicom = tmp_path / "slice.dcm"
-    dicom.write_bytes(b"\x00" * 128 + b"DICM" + b"\x00" * 64)
-    series = tmp_path / "series"
-    series.mkdir()
-    (series / "001").write_bytes(b"\x00" * 128 + b"DICM" + b"\x00" * 64)
-    for source in (dicom, series, "https://example.org/t1.nii.gz", str(tmp_path / "a.nii.zarr")):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
-            pb.resolve_backend(pb.BackendRequest(source=source))
+    """DICOM, remote and zarr sources (the slice that once refused them)
+    resolve to the backend the JAX package picks and read as it does."""
+    from torchio_tpu.io import dicom as jax_dicom
+    from torchio_tpu_torch.io import dicom as port_dicom
+    from torchio_tpu_torch.io import remote as port_remote
+
+    data = volume(7, np.int16)[:1]
+    series, single = tmp_path / "series", tmp_path / "slice.dcm"
+    jax_dicom.write_dicom_series(series, data, affine())
+    jax_dicom.write_dicom(single, data, affine())
+    unsuffixed = tmp_path / "unsuffixed"
+    unsuffixed.write_bytes(single.read_bytes())
+    for source in (series, single, unsuffixed):
+        got = pb.resolve_backend(pb.BackendRequest(source=source))
+        assert isinstance(got, port_dicom.DicomBackend)
+        assert_same_backend(jb.resolve_backend(jb.BackendRequest(source=source)), got)
+    broken = tmp_path / "broken.dcm"
+    broken.write_bytes(b"\x00" * 128 + b"DICM" + b"\x00" * 64)
+    for module in (jb, pb):
+        with pytest.raises(KeyError, match="rows"):
+            module.resolve_backend(module.BackendRequest(source=broken))
+    fsspec = pytest.importorskip("fsspec")
+    nifti = tmp_path / "t1.nii.gz"
+    jax_nifti.write_nifti(nifti, volume(8), affine())
+    fs = fsspec.filesystem("memory")
+    fs.pipe_file("/backends_t1.nii.gz", nifti.read_bytes())
+    try:
+        uri = "memory://backends_t1.nii.gz"
+        got = pb.resolve_backend(pb.BackendRequest(source=uri))
+        assert isinstance(got, pb.NiftiBackend)
+        assert_same_backend(jb.resolve_backend(jb.BackendRequest(source=uri)), got)
+    finally:
+        fs.rm("/backends_t1.nii.gz")
+    # a missing store: without zarr both refuse with its ImportError
+    store = str(tmp_path / "a.nii.zarr")
+    errors = []
+    for module in (jb, pb):
+        with pytest.raises(Exception) as error:  # the refusal is what is compared
+            module.resolve_backend(module.BackendRequest(source=store))
+        errors.append((type(error.value), str(error.value)))
+    assert errors[0] == errors[1]
+    assert port_remote.is_nifti_zarr(store)
     plain_dir = tmp_path / "plain"
     plain_dir.mkdir()
     (plain_dir / "notes.txt").write_text("no images here")

@@ -8,9 +8,9 @@ Each file is written by one package and read by the other, both ways:
   affine equal to what the writing package's reader gets;
 - ``read_matrix``/``write_matrix`` on ``.tfm``, ``.txt``, ``.trsf`` and
   ``.h5`` (h5py), equal in float64;
-- ``write_image`` picks the writer by suffix as the JAX package does; the
-  DICOM and ``.nii.zarr`` writers are the next slice's
-  (``NotImplementedError``).
+- ``write_image`` picks the writer by suffix as the JAX package does,
+  the same suffixes; ``.dcm`` and a directory write DICOM (the JAX
+  package's bytes, UIDs aside), ``.nii.zarr`` needs ``zarr``.
 """
 
 from __future__ import annotations
@@ -163,12 +163,31 @@ def test_write_image_by_suffix(tmp_path, suffix):
 
 
 def test_write_image_suffixes_and_deferred(tmp_path):
-    assert set(port_write.supported_write_suffixes()) == set(jax_write.supported_write_suffixes()) - {
-        ".dcm", ".nii.zarr"}
-    for target in ("x.dcm", "x.nii.zarr", "series/"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
-            port_write.write_image(tmp_path / target if not target.endswith("/") else f"{tmp_path}/{target}",
-                                   np.zeros((1, 2, 2, 2), np.float32))
+    """Every suffix the JAX package writes, the port writes: ``.dcm`` and a
+    directory (existing, or a path ending in a separator) as DICOM that
+    the JAX reader reads back; ``.nii.zarr`` as the JAX package does
+    (an ``ImportError`` without zarr)."""
+    from torchio_tpu.io import dicom as jax_dicom
+
+    assert port_write.supported_write_suffixes() == jax_write.supported_write_suffixes()
+    volume = data(np.int16, 1, seed=6)
+    (tmp_path / "existing").mkdir()
+    for target in ("x.dcm", "existing", f"{tmp_path}/series/"):
+        path = tmp_path / target if not target.endswith("/") else target
+        port_write.write_image(path, torch.from_numpy(volume), oblique_affine())
+        read = jax_dicom.read_dicom_file if target.endswith(".dcm") else jax_dicom.read_dicom_dir
+        got, affine = read(tmp_path / target.rstrip("/").split("/")[-1])
+        np.testing.assert_array_equal(got, volume)
+        np.testing.assert_allclose(affine, oblique_affine(), atol=1e-6)
+    errors = []
+    for module in (jax_write, port_write):
+        try:
+            module.write_image(tmp_path / f"{module.__name__}.nii.zarr", volume)
+        except ImportError as error:  # zarr is not installed
+            errors.append(str(error))
+        else:
+            errors.append(None)
+    assert errors[0] == errors[1]
     for module in (jax_write, port_write):
         with pytest.raises(ValueError, match="Unsupported output format"):
             module.write_image(tmp_path / "x.png", np.zeros((1, 2, 2, 2), np.float32))

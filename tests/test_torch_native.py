@@ -7,10 +7,13 @@ streams of several levels and sizes (an empty one, one past a 64-byte
 block, a corrupt one, which gets the standard library's error),
 ``f2c_transpose`` on 1, 2, 4 and 8-byte items and shapes that do not
 fill the 64 x 64 blocks, from Fortran and C order and from a read-only
-memmap, and ``byteswap_inplace`` on 2, 4 and 8-byte items. A library
+memmap, ``byteswap_inplace`` on 2, 4 and 8-byte items, and the JPEG
+decoders ``jpegll_decode``/``jls_decode`` on the Python encoders'
+streams (their codec parity is in ``test_torch_io_jpeg.py``). A library
 that cannot be built is reported (``available``/``build_error``, a
-``RuntimeWarning``) and its plain versions run. ``CALLS`` counts the
-calls into the library, from several threads at once too.
+``RuntimeWarning``) and its plain versions run, the Python JPEG decoders
+included. ``CALLS`` counts the calls into the library, from several
+threads at once too, and the JPEG streams it declines apart.
 """
 
 from __future__ import annotations
@@ -121,4 +124,59 @@ def test_package_library_and_calls():
         assert not t.is_alive()
     assert native.CALLS["gunzip"] == 8
     native.reset_calls()
-    assert native.CALLS == {"gunzip": 0, "f2c_transpose": 0, "byteswap": 0}
+    assert native.CALLS == {
+        "gunzip": 0,
+        "f2c_transpose": 0,
+        "byteswap": 0,
+        "jpegll_decode": 0,
+        "jpegll_declined": 0,
+        "jls_decode": 0,
+        "jls_declined": 0,
+    }
+
+
+def jpeg_streams():
+    from torchio_tpu_torch.io.jpeg_lossless import encode_lossless_jpeg
+    from torchio_tpu_torch.io.jpeg_ls import encode_jpeg_ls
+
+    image = np.random.default_rng(3).integers(0, 3000, (11, 13)).astype(np.uint16)
+    return image, {
+        "jpegll": (native.jpegll_decode, encode_lossless_jpeg(image), encode_lossless_jpeg(image, restart_interval=20)),
+        "jls": (native.jls_decode, encode_jpeg_ls(image), encode_jpeg_ls(image, restart_interval=3)),
+    }
+
+
+@pytest.mark.parametrize("codec", ["jpegll", "jls"])
+def test_jpeg_entry_points(library, codec):
+    """Each JPEG decoder decodes in the library, once a call, from threads
+    at once too; a restart-interval stream is declined, counted apart, and
+    read by the Python decoder."""
+    image, streams = jpeg_streams()
+    decode, plain, restart = streams[codec]
+    assert all(hasattr(library.get(), f"fn_{codec}_{part}") for part in ("info", "decode"))
+    native.reset_calls()
+    results = []
+    threads = [threading.Thread(target=lambda: results.append(decode(plain, library))) for _ in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert len(results) == 6
+    for got in results:
+        np.testing.assert_array_equal(got, image)
+    np.testing.assert_array_equal(decode(restart, library), image)
+    assert native.CALLS[f"{codec}_decode"] == 6 and native.CALLS[f"{codec}_declined"] == 1
+
+
+def test_jpeg_without_the_library(tmp_path, monkeypatch):
+    """A missing library is warned about; the Python decoders still read."""
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    lib = native.FastNifti(tmp_path / "nowhere")
+    image, streams = jpeg_streams()
+    native.reset_calls()
+    for codec, (decode, plain, restart) in streams.items():
+        for stream in (plain, restart):
+            with pytest.warns(RuntimeWarning, match=f"native {codec}_decode unavailable, running its Python decoder"):
+                np.testing.assert_array_equal(decode(stream, lib), image)
+    assert not any(native.CALLS.values())

@@ -41,17 +41,23 @@ ndarray or dict entry lands on the card; :func:`set_default_device`
 (``"cpu"``) asks for the CPU instead.
 
 Host I/O (:mod:`.io`): ``ScalarImage("t1.nii.gz")`` reads NIfTI-1/2,
-NRRD and MetaImage files lazily (header-only metadata, region reads, a
-lazy CropOrPad, file targets for Spatial and Resample, paths for
+NRRD, MetaImage and DICOM (a series directory or a file; uncompressed,
+RLE, JPEG Lossless, JPEG-LS, and JPEG/JPEG 2000 through Pillow), remote
+URIs (fsspec) and ``.nii.zarr`` stores (zarr); the NIfTI files lazily
+(header-only metadata, region reads, a lazy CropOrPad, file targets for Spatial and Resample, paths for
 ``compute_histogram_landmarks``, the Queue's loads in its workers), with
 the gunzip and layout transform in a native library (:mod:`.native`)
-built by ``g++`` at first use; ``read_matrix``/``write_matrix`` read and
-write transform files.
+built by ``g++`` at first use, which also decodes JPEG Lossless and
+JPEG-LS frames; ``read_matrix``/``write_matrix`` read and write transform
+files; ``Image.save`` writes every format it reads but the remote ones
+and Pillow's (a ``.dcm`` file or a directory for DICOM). :mod:`.datasets`
+holds the download-and-cache subjects (MNI, FPG, ITK-SNAP, Slicer, IXI,
+MedMNIST) and the offline ZonePlate.
 """
 
 __version__ = "0.1.0"
 
-from . import external, io, native, types
+from . import datasets, external, io, native, types
 from . import random  # noqa: A004  (named like the stdlib on purpose)
 from .config import default_device, set_default_device
 from .core.affine import AffineMatrix
@@ -139,6 +145,7 @@ from .transforms import (
     compute_histogram_landmarks,
     get_inverse_transform,
 )
+from .utils import download
 from .types import (
     TypeAffineMatrix,
     TypeDirection,
@@ -240,6 +247,7 @@ __all__ = [
     "collate_studies",
     "collate_subjects",
     "compute_histogram_landmarks",
+    "datasets",
     "default_device",
     "disable_logging",
     "enable_logging",

@@ -127,7 +127,7 @@ class Image(Invertible):
             raw = source.getvalue() if isinstance(source, _stdio.BytesIO) else bytes(source)
             self._backend = self._resolve(raw)
         elif isinstance(source, str) and "://" in source and not source.startswith("file://"):
-            self._uri = source  # resolved (and refused) by the registry on first use
+            self._uri = source  # fetched by the registry's remote matcher on first use
         elif isinstance(source, (str, Path)):
             self._path = Path(str(source).removeprefix("file://"))
         elif hasattr(source, "read"):

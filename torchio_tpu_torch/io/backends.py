@@ -7,10 +7,11 @@ voxels, reads 4D regions through ``__getitem__`` and materializes with
 moves it to its device when it loads. ``CroppedBackend`` and
 ``PaddedBackend`` are the deferred views of a lazy CropOrPad.
 
-The registry holds the custom-reader, NIfTI (by suffix, then by magic
-bytes) and NRRD/MetaImage matchers. The DICOM, remote and ``.nii.zarr``
-sources are not ported yet (ROADMAP.md, Queue 1, item 3b): their
-matchers raise ``NotImplementedError`` for a source they recognise.
+The registry holds, in the JAX package's order, the custom-reader,
+``.nii.zarr`` (:class:`.remote.ZarrBackend`), remote URI (fetched through
+fsspec), NIfTI (by suffix), DICOM (a series directory or a file,
+:class:`.dicom.DicomBackend`), NRRD/MetaImage and NIfTI-by-magic-bytes
+matchers.
 """
 
 from __future__ import annotations
@@ -394,46 +395,43 @@ def _match_nifti_sniff(request: BackendRequest) -> ImageDataBackend | None:
         return None
 
 
-_DEFERRED = "is not ported yet (ROADMAP.md, Queue 1, item 3b)"
-
-
 def _match_zarr(request: BackendRequest) -> ImageDataBackend | None:
+    from .remote import ZarrBackend, is_nifti_zarr, is_remote_nifti_zarr
+
     source = request.source
-    if isinstance(source, (str, Path)) and str(source).rstrip("/").lower().endswith(".nii.zarr"):
-        raise NotImplementedError(f"Reading .nii.zarr stores {_DEFERRED}: {source}")
+    if isinstance(source, (str, Path)) and (is_nifti_zarr(source) or is_remote_nifti_zarr(source)):
+        return ZarrBackend(str(source))
+    # duck-typed zarr store objects
     if type(source).__module__.startswith("zarr"):
-        raise NotImplementedError(f"Reading zarr stores {_DEFERRED}")
+        return ZarrBackend(source)
     return None
 
 
 def _match_remote(request: BackendRequest) -> ImageDataBackend | None:
+    """A remote NIfTI URI, fetched through fsspec into a local file
+    (``file://`` paths are local: :attr:`BackendRequest.path`)."""
+    from .remote import is_nifti_zarr, is_remote, resolve_source
+
     source = request.source
-    if isinstance(source, str) and "://" in source and not source.startswith("file://"):
-        raise NotImplementedError(f"Reading remote sources {_DEFERRED}: {source}")
-    return None
-
-
-def _is_dicom(path: Path) -> bool:
-    """Whether ``path`` holds the DICM magic at byte 128."""
-    try:
-        with open(path, "rb") as f:
-            f.seek(128)
-            return f.read(4) == b"DICM"
-    except OSError:
-        return False
+    if not isinstance(source, str) or not is_remote(source):
+        return None
+    if source.startswith("file://") or is_nifti_zarr(source):
+        return None
+    return NiftiBackend(resolve_source(source, suffix=request.suffix))
 
 
 def _match_dicom(request: BackendRequest) -> ImageDataBackend | None:
+    from .dicom import DicomBackend, is_dicom
+
     path = request.path
     if path is None:
         return None
     if path.is_dir():
-        files = [p for p in list(path.iterdir())[:5] if p.is_file()]
-        found = any(_is_dicom(p) for p in files)
-    else:
-        found = path.suffix.lower() in (".dcm", ".ima") or (path.is_file() and _is_dicom(path))
-    if found:
-        raise NotImplementedError(f"Reading DICOM {_DEFERRED}: {path}")
+        if any(is_dicom(p) for p in list(path.iterdir())[:5] if p.is_file()):
+            return DicomBackend(path)
+        return None
+    if path.suffix.lower() in (".dcm", ".ima") or (path.is_file() and is_dicom(path)):
+        return DicomBackend(path)
     return None
 
 

@@ -4,15 +4,22 @@ The library is compiled by ``g++`` at first use, from the source beside
 this file, into the package's ``_build/`` directory, as
 ``libfastnifti-<hash>.so``: the hash covers the compiler flags, the
 source and the compiler's version, so a stale build is never loaded.
-Three entry points are bound: ``gunzip`` (zlib inflate into a buffer of
+Five entry points are bound: ``gunzip`` (zlib inflate into a buffer of
 the size the header gives),
-``f2c_transpose`` (Fortran-order volume to C order, cache-blocked) and
-``byteswap_inplace``. ctypes releases the interpreter lock while each
-runs, so the Queue's worker threads decode in parallel.
+``f2c_transpose`` (Fortran-order volume to C order, cache-blocked),
+``byteswap_inplace``, and the DICOM frame decoders ``jpegll_decode``
+(JPEG Lossless) and ``jls_decode`` (JPEG-LS). ctypes releases the
+interpreter lock while each runs, so the Queue's worker threads decode in
+parallel.
 
-Each entry point has a plain numpy version (``*_plain``), the reference
-the tests hold the library to. When the library cannot be built or
-loaded, :func:`available` is False, :func:`build_error` says why, and
+Each entry point has a plain version (``*_plain``: numpy, or the Python
+JPEG decoders of :mod:`..io.jpeg_lossless` and :mod:`..io.jpeg_ls`), the
+reference the tests hold the library to. A JPEG stream that the library
+refuses (restart intervals, which it declines by design, or a malformed
+stream) goes to the plain decoder, which reads it or raises; such a call
+counts under ``jpegll_declined``/``jls_declined``, not as a decode.
+When the library cannot be built or loaded, :func:`available` is
+False, :func:`build_error` says why, and
 each entry point warns (``RuntimeWarning``, with that error) before it
 runs its plain version: a reader without a toolchain still reads, and
 the loss is visible. :data:`CALLS` counts the calls each entry point
@@ -41,7 +48,15 @@ FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 #: Calls into the library per entry point since import
 #: (:func:`reset_calls` zeroes them to count a run).
-CALLS: dict[str, int] = {"gunzip": 0, "f2c_transpose": 0, "byteswap": 0}
+CALLS: dict[str, int] = {
+    "gunzip": 0,
+    "f2c_transpose": 0,
+    "byteswap": 0,
+    "jpegll_decode": 0,
+    "jpegll_declined": 0,
+    "jls_decode": 0,
+    "jls_declined": 0,
+}
 _calls_lock = threading.Lock()
 
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -121,6 +136,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fn_f2c_transpose.argtypes = [P, P, I64, I64, I64, I32]
     lib.fn_byteswap.restype = I32
     lib.fn_byteswap.argtypes = [P, I64, I32]
+    out_int = ctypes.POINTER(I32)
+    lib.fn_jpegll_info.restype = I32
+    lib.fn_jpegll_info.argtypes = [ctypes.c_char_p, I64, out_int, out_int, out_int]
+    lib.fn_jpegll_decode.restype = I32
+    lib.fn_jpegll_decode.argtypes = [ctypes.c_char_p, I64, P, I64]
+    lib.fn_jls_info.restype = I32
+    lib.fn_jls_info.argtypes = [ctypes.c_char_p, I64, out_int, out_int, out_int, out_int]
+    lib.fn_jls_decode.restype = I32
+    lib.fn_jls_decode.argtypes = [ctypes.c_char_p, I64, P, I64]
     return lib
 
 
@@ -139,12 +163,14 @@ def build_error() -> str | None:
     return LIBRARY.error
 
 
-def _library(library: FastNifti | None, entry: str) -> ctypes.CDLL | None:
+def _library(
+    library: FastNifti | None, entry: str, plain: str = "numpy version"
+) -> ctypes.CDLL | None:
     library = LIBRARY if library is None else library
     lib = library.get()
     if lib is None:
         warnings.warn(
-            f"native {entry} unavailable, running its numpy version: {library.error}",
+            f"native {entry} unavailable, running its {plain}: {library.error}",
             RuntimeWarning,
             stacklevel=3,
         )
@@ -168,6 +194,20 @@ def f2c_transpose_plain(arr_f: np.ndarray) -> np.ndarray:
 def byteswap_plain(arr: np.ndarray) -> np.ndarray:
     """A byte-swapped copy of ``arr`` (same dtype object)."""
     return arr.byteswap()
+
+
+def jpegll_decode_plain(stream: bytes) -> np.ndarray:
+    """The Python JPEG Lossless decoder."""
+    from ..io.jpeg_lossless import decode_lossless_jpeg_python
+
+    return decode_lossless_jpeg_python(stream)
+
+
+def jls_decode_plain(stream: bytes) -> np.ndarray:
+    """The Python JPEG-LS decoder."""
+    from ..io.jpeg_ls import decode_jpeg_ls_python
+
+    return decode_jpeg_ls_python(stream)
 
 
 # --- entry points -------------------------------------------------------
@@ -219,3 +259,53 @@ def byteswap_inplace(arr: np.ndarray, library: FastNifti | None = None) -> np.nd
         raise RuntimeError(f"fn_byteswap refused itemsize {arr.itemsize}")
     _count("byteswap")
     return arr
+
+
+def _precision_dtype(out: np.ndarray, precision: int) -> np.ndarray:
+    """The decoders' result dtype: uint8 up to 8 bits, else uint16."""
+    return out.astype(np.uint8) if precision <= 8 else out
+
+
+def jpegll_decode(stream: bytes, library: FastNifti | None = None) -> np.ndarray:
+    """A JPEG Lossless (SOF3) stream to a (height, width) uint8/uint16
+    array; a stream the library refuses goes to the plain decoder."""
+    stream = bytes(stream)
+    lib = _library(library, "jpegll_decode", "Python decoder")
+    if lib is None:
+        return jpegll_decode_plain(stream)
+    height, width, precision = I32(), I32(), I32()
+    if lib.fn_jpegll_info(
+        stream, len(stream), ctypes.byref(height), ctypes.byref(width), ctypes.byref(precision)
+    ) == 0:
+        out = np.empty((height.value, width.value), np.uint16)
+        if lib.fn_jpegll_decode(stream, len(stream), out.ctypes.data, out.size) == 0:
+            _count("jpegll_decode")
+            return _precision_dtype(out, precision.value)
+    _count("jpegll_declined")
+    return jpegll_decode_plain(stream)
+
+
+def jls_decode(stream: bytes, library: FastNifti | None = None) -> np.ndarray:
+    """A JPEG-LS stream to (height, width) or, for several components in
+    interleave mode 0, (height, width, components) uint8/uint16; a stream
+    the library refuses goes to the plain decoder."""
+    stream = bytes(stream)
+    lib = _library(library, "jls_decode", "Python decoder")
+    if lib is None:
+        return jls_decode_plain(stream)
+    height, width, ncomp, precision = I32(), I32(), I32(), I32()
+    if lib.fn_jls_info(
+        stream,
+        len(stream),
+        ctypes.byref(height),
+        ctypes.byref(width),
+        ctypes.byref(ncomp),
+        ctypes.byref(precision),
+    ) == 0:
+        shape = (height.value, width.value) + ((ncomp.value,) if ncomp.value != 1 else ())
+        out = np.empty(shape, np.uint16)
+        if lib.fn_jls_decode(stream, len(stream), out.ctypes.data, out.size) == 0:
+            _count("jls_decode")
+            return _precision_dtype(out, precision.value)
+    _count("jls_declined")
+    return jls_decode_plain(stream)
