@@ -218,11 +218,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    declined) and equal to the Python decoder's, with the host times of a
    read and of a frame's decode; phases 17-18 print what phases 14-16
    print;
-19. one timed call of KeepLargestComponent on the brats cell's seg with a
+19. ux: the tools around a pipeline, on the card: ``warmup`` of the
+   headline at B=4 x 256^3 (the host RNG state restored, one resample and
+   two threefry launches, a seeded call after it bit-equal to one without
+   it; its seconds and the first call's after it); ``profiling.profile``
+   around 3 headline calls (Spatial timed 3 times, as the CPU test pins
+   for the fused Compose, within the calls' wall time, ``forward``
+   restored) and ``profiling.trace`` around one, whose trace names the
+   resample and threefry kernels; the command line in subprocesses on an
+   IXI t1 (.nii.gz): ``transform Affine degrees=10 --seed 0`` bit-equal to
+   the same call in this process, ``info --load``, ``convert`` to .nrrd
+   (reads back equal), the three at once, with each subprocess's seconds;
+   the figures of a 1 x 256^3 t1 and an int32 seg on the card against the
+   same subject on the CPU: the planes of the RAS view, the display
+   window, the label range and the 256 frames of a sweep (axis 2) equal,
+   a figure's host ms and the bytes it copies to the host, and where
+   matplotlib is installed ``plot_subject``'s RGBA equal, where Pillow is
+   ``make_gif``'s file equal; the subject's ``_repr_html_`` (no error row,
+   64.0 MiB); and
+   CornucopiaAdapter and MonaiAdapter (a stand-in monai module) equal to
+   ``torch.flip`` on the card, handed tensors on the card;
+20. one timed call of KeepLargestComponent on the brats cell's seg with a
    stray island a label (its host time and its two copies), and of
    Swap(patch_size=15, num_iterations=100) on B=4 x 256^3 (its device
    kernels a call, under the profiler);
-20. each kernel against its plain version at its path's shape, timed
+21. each kernel against its plain version at its path's shape, timed
    kernel, plain, kernel, plain with CUDA events (the dense resample
    also against ``F.grid_sample``, its one-call library equivalent at a
    zero fill: kernel, library, kernel, library); the prefilter's three
@@ -263,6 +283,7 @@ from __future__ import annotations
 import argparse
 import copy
 import importlib
+import importlib.util
 import itertools
 import json
 import math
@@ -4509,6 +4530,323 @@ def phase_zoo_timing(torch, tio, smi):
     )
 
 
+# --- ux: warm-up, profiling, the command line, figures and adapters -----------
+
+UX_SEED = 0
+#: what warmup of the headline launches (one call at p=1): the resample,
+#: and BiasField's and Noise's draws
+UX_WARMUP_LAUNCHES = {"resample": 1, "threefry_normal": 2}
+UX_PROFILE_CALLS = 3
+
+
+def monai_stand_in(torch):
+    """A ``monai`` module of the two symbols MonaiAdapter touches
+    (``MetaTensor``, ``MapTransform``), as tests/test_adapters.py builds
+    it; neither MONAI nor Cornucopia is installed on the card's machine."""
+    import types
+
+    class MetaTensor(torch.Tensor):
+        affine = None
+
+        @staticmethod
+        def __new__(cls, data, affine=None):
+            obj = torch.as_tensor(data).as_subclass(cls)
+            obj.affine = affine
+            return obj
+
+    class MapTransform:
+        pass
+
+    monai = types.ModuleType("monai")
+    monai.data = types.ModuleType("monai.data")
+    monai.data.MetaTensor = MetaTensor
+    monai.transforms = types.ModuleType("monai.transforms")
+    monai.transforms.MapTransform = MapTransform
+    return {"monai": monai, "monai.data": monai.data, "monai.transforms": monai.transforms}
+
+
+def ux_warmup(torch, tio, tr, kl, batch):
+    """warmup of the headline at B=4 x 256^3: the host RNG state restored,
+    its launches, and a seeded call after it bit-equal to one without it."""
+    pipeline = headline(tio)
+    tio.seed(UX_SEED)
+    state = copy.deepcopy(tr.get_rng().bit_generator.state)
+    torch.cuda.synchronize()
+    kl.reset_launches()
+    t0 = time.perf_counter()
+    tio.warmup(pipeline, (S, S, S), batch_size=B)
+    warm_s = time.perf_counter() - t0
+    launched = {k: n for k, n in kl.LAUNCHES.items() if n}
+    if launched != UX_WARMUP_LAUNCHES:
+        fail(f"ux: warmup launched {launched}, expected {UX_WARMUP_LAUNCHES}")
+    if tr.get_rng().bit_generator.state != state:
+        fail("ux: warmup changed the host RNG state")
+    t0 = time.perf_counter()
+    warm = pipeline(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    tio.seed(UX_SEED)
+    cold = pipeline(batch)
+    if not torch.equal(warm.t1.data, cold.t1.data):
+        fail("ux: a seeded headline call after warmup differs from one without it")
+    print(
+        f"ux warmup: tio.warmup(headline, {S}^3, batch_size={B}) {warm_s:.3f} s (the kernels"
+        f" already built by this process), launches {launched}; the first call after it"
+        f" {first_s * 1e3:.1f} ms; host RNG state restored; the seeded call after it bit-equal to"
+        " one without it"
+    )
+    return launched
+
+
+def ux_profile(torch, tio, kl, batch, directory):
+    """profiling.profile around UX_PROFILE_CALLS headline calls, then
+    profiling.trace around one: the trace names the resample and threefry
+    kernels."""
+    pipeline = headline(tio)
+    original = tio.Transform.forward
+    torch.cuda.synchronize()
+    kl.reset_launches()
+    t0 = time.perf_counter()
+    with tio.profiling.profile() as prof:
+        for _ in range(UX_PROFILE_CALLS):
+            pipeline(batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: n for k, n in kl.LAUNCHES.items() if n}
+    if tio.Transform.forward is not original:
+        fail("ux: profile() did not restore Transform.forward")
+    # the fused Compose times Spatial (BiasField + Noise run in its fused
+    # stage), as tests/test_torch_profiling.py pins for the same Compose
+    counts = {name: len(times) for name, times in prof.records.items()}
+    if counts != {"Spatial": UX_PROFILE_CALLS}:
+        fail(f"ux: profile recorded {counts}")
+    timed = sum(prof.total(name) for name in prof.records)
+    if not 0 < timed <= wall:
+        fail(f"ux: profiled {timed:.4f} s of transforms in {wall:.4f} s of calls")
+    if launched != {k: UX_PROFILE_CALLS * n for k, n in UX_WARMUP_LAUNCHES.items()}:
+        fail(f"ux: the profiled calls launched {launched}")
+    trace_dir = directory / "trace"
+    with tio.profiling.trace(str(trace_dir)):
+        pipeline(batch)
+    (path,) = trace_dir.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    resample = [k for k in kernels if "row_kernel" in k and "Resample" in k]
+    threefry = [k for k in kernels if "threefry::segments_kernel" in k]
+    if not resample or not threefry:
+        fail(f"ux: the trace names no resample or threefry kernel: {kernels}")
+    print(
+        f"ux profile: {UX_PROFILE_CALLS} headline calls in {wall * 1e3:.1f} ms, transforms timed"
+        f" {timed * 1e3:.1f} ms; report:\n{prof.report()}\nux profile: launches {launched};"
+        f" trace {path.stat().st_size} bytes, {len(kernels)} kernel names, among them"
+        f" {resample[0]!r} and {threefry[0]!r}"
+    )
+    return launched
+
+
+def ux_cli(torch, np, tio, kl, directory):
+    """The command line in subprocesses on one IXI t1 (.nii.gz): transform
+    Affine (bit-equal to the same transform in this process from the same
+    seed), info --load, convert to .nrrd (reads back equal)."""
+    dev = torch.device(DEVICE)
+    source = directory / "ixi_t1.nii.gz"
+    t1 = ixi_int16(torch, 1, IXI_SHAPE, dev, IXI_SEED)[0]
+    tio.io.write_nifti(source, t1, stored_affine(np, IXI_SPACING, IXI_CODES))
+    out, nrrd = directory / "affine.nii.gz", directory / "t1.nrrd"
+    commands = {
+        "transform": ["transform", "Affine", str(source), str(out), "degrees=10", "--seed", "0"],
+        "info": ["info", str(source), "--load"],
+        "convert": ["convert", str(source), str(nrrd)],
+    }
+    seconds, procs = {}, {}
+
+    def run(name):  # the three commands at once: each process takes seconds to start
+        t0 = time.perf_counter()
+        procs[name] = subprocess.run(
+            [sys.executable, "-m", "torchio_tpu_torch.cli", *commands[name]],
+            capture_output=True, text=True, timeout=300,
+        )
+        seconds[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run, args=(name,)) for name in commands]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            fail(f"ux: cli {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    stdout = {name: proc.stdout for name, proc in procs.items()}
+    if f"shape:       (1, {', '.join(map(str, IXI_SHAPE))})" not in stdout["info"]:
+        fail(f"ux: cli info printed {stdout['info']!r}")
+    kl.reset_launches()
+    tio.seed(0)
+    want = tio.Affine(degrees=10)(tio.ScalarImage(source))
+    launched = {k: n for k, n in kl.LAUNCHES.items() if n}
+    got = tio.ScalarImage(out)
+    if want.data.device.type != DEVICE or not torch.equal(got.data, want.data):
+        fail("ux: cli transform Affine differs from the same transform run in this process")
+    if not np.allclose(got.affine.data, want.affine.data, rtol=0, atol=1e-6):
+        fail("ux: cli transform Affine wrote another affine")
+    if not torch.equal(tio.ScalarImage(nrrd).data, t1):
+        fail("ux: cli convert to .nrrd reads back different data")
+    if launched != {"resample": 1}:
+        fail(f"ux: Affine launched {launched}")
+    print(
+        "ux cli: subprocess seconds (python -m torchio_tpu_torch.cli, the three at once, the interpreter"
+        f" and the card included) {', '.join(f'{k} {v:.2f}' for k, v in seconds.items())}; transform Affine"
+        f" bit-equal to the same call in this process (launches {launched}); info:"
+        f" {stdout['info'].strip().splitlines()[-1]!r}; convert reads back equal"
+    )
+    return launched
+
+
+def ux_figures(torch, np, tio, directory):
+    """Figures of a 256^3 t1 and an int32 seg on the card against the same
+    subject on the CPU. The device side of a figure needs no drawing
+    library and always runs: the three planes of the RAS view, the
+    display window's percentiles, a label map's range, a sweep's uint8
+    frames, and what each copies to the host. The drawing runs where its
+    library is installed: plot_subject's RGBA with matplotlib, make_gif's
+    file with Pillow. The subject's notebook card runs either way (without a
+    drawing library it has no preview)."""
+    from torchio_tpu_torch import visualization as viz
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(UX_SEED)
+    t1 = torch.rand((1, S, S, S), generator=gen, device=dev)
+    seg = suite_labels(torch, (S, S, S), dev)
+    card = tio.Subject(t1=tio.ScalarImage(t1), seg=tio.LabelMap(seg))
+    host = tio.Subject(t1=tio.ScalarImage(t1.cpu()), seg=tio.LabelMap(seg.cpu()))
+    for name in ("t1", "seg"):
+        got, want = (viz._RasView(s[name]) for s in (card, host))
+        indices = tuple(n // 2 for n in got.shape_ras)
+        for a, b in zip(got.planes(indices, 0), want.planes(indices, 0), strict=True):
+            if a.shape != b.shape or not (a == b).all():
+                fail(f"ux: a plane of {name} on the card differs from the CPU's")
+    got, want = (viz._percentiles(s.t1.data, (0.5, 99.5)) for s in (card, host))
+    if not np.array_equal(got, want):
+        fail(f"ux: the display window on the card {got} differs from the CPU's {want}")
+    if int(viz._scalars(card.seg.data.max())[0]) != int(seg.max()):
+        fail("ux: the label range read from the card is wrong")
+    viz.HOST_COPIES.update(copies=0, bytes=0)
+    t0 = time.perf_counter()
+    view = viz._RasView(card.t1)
+    view.planes(tuple(n // 2 for n in view.shape_ras), 0)
+    viz._percentiles(view.source, (0.5, 99.5))
+    data_ms = (time.perf_counter() - t0) * 1e3
+    figure_copies = dict(viz.HOST_COPIES)
+    viz.HOST_COPIES.update(copies=0, bytes=0)
+    t0 = time.perf_counter()
+    frames = viz._sweep_frames(card.t1, 2, None, False)
+    frames_ms = (time.perf_counter() - t0) * 1e3
+    frame_copies = dict(viz.HOST_COPIES)
+    cpu_frames = viz._sweep_frames(host.t1, 2, None, False)
+    if len(frames) != S or any(not np.array_equal(a, b) for a, b in zip(frames, cpu_frames, strict=True)):
+        fail("ux: the sweep's frames on the card differ from the CPU's")
+    found = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "PIL")}
+    drawn = "the drawing not run: " + ", ".join(m for m, ok in found.items() if not ok) + " not installed"
+    if found["matplotlib"]:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        buffers = []
+        for subject, name in ((card, "card"), (host, "cpu")):
+            fig = viz.plot_subject(subject, show=False, output_path=directory / f"{name}.png")
+            fig.canvas.draw()
+            buffers.append(np.asarray(fig.canvas.buffer_rgba()).copy())
+            plt.close(fig)
+        if buffers[0].shape != buffers[1].shape or not (buffers[0] == buffers[1]).all():
+            fail("ux: plot_subject on the card differs from the CPU's")
+        t0 = time.perf_counter()
+        plt.close(viz.plot_image(card.t1, show=False, output_path=directory / "t1.png"))
+        drawn = f"plot_subject RGBA equal to the CPU's; plot_image {(time.perf_counter() - t0) * 1e3:.1f} ms"
+    if found["PIL"]:
+        files = [
+            viz.make_gif(s.t1, directory / f"{name}.gif", axis=2).read_bytes()
+            for s, name in ((card, "card"), (host, "cpu"))
+        ]
+        if files[0] != files[1]:
+            fail("ux: make_gif on the card differs from the CPU's")
+        drawn += "; make_gif(axis=2) file equal to the CPU's"
+    html = card._repr_html_()
+    memory = f"{4 * S**3 / 2**20:.1f} MiB"  # 64.0 MiB at 256^3, as _human_bytes formats it
+    if "<td>error</td>" in html or f"<td>memory</td><td><code>{memory}</code></td>" not in html:
+        fail(f"ux: the subject's notebook card has an error row or a memory row other than {memory}")
+    print(
+        f"ux figures (t1 1 x {S}^3 float32 + int32 seg): the planes, window and label range on the"
+        f" card equal to the CPU's; a figure's data {data_ms:.1f} ms on the host, {figure_copies['copies']}"
+        f" copies of {figure_copies['bytes']} bytes to the host (of a {4 * S**3}-byte volume); the"
+        f" sweep's {len(frames)} frames (axis 2) equal to the CPU's, {frames_ms:.1f} ms on the card,"
+        f" copies {frame_copies}; {drawn}; _repr_html_ {len(html)} characters, memory row {memory},"
+        f" preview {'embedded' if 'data:image/png' in html else 'left out'}"
+    )
+    return card
+
+
+def ux_adapters(torch, tio, subject):
+    """CornucopiaAdapter with a callable that asserts its tensors are on the
+    card, MonaiAdapter with the test's stand-in monai module: both flip k,
+    equal to torch.flip on the card."""
+    def flip_on_card(*tensors):
+        for t in tensors:
+            if t.device.type != DEVICE:
+                fail(f"ux: CornucopiaAdapter handed over a tensor on {t.device}")
+        return tuple(torch.flip(t, (-1,)) for t in tensors)
+
+    saved = {name: sys.modules.get(name) for name in ("monai", "monai.data", "monai.transforms")}
+    stand_in = monai_stand_in(torch)
+    sys.modules.update(stand_in)
+    try:
+        map_transform = stand_in["monai.transforms"].MapTransform
+
+        class FlipK(map_transform):
+            def __call__(self, data):
+                return {
+                    k: torch.flip(v, (-1,)) for k, v in data.items() if isinstance(v, torch.Tensor)
+                }
+
+        outs = {
+            "cornucopia": tio.CornucopiaAdapter(flip_on_card)(subject),
+            "monai": tio.MonaiAdapter(FlipK())(subject),
+        }
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+    for adapter, out in outs.items():
+        for name in ("t1", "seg"):
+            data = out[name].data
+            if data.device.type != DEVICE or not torch.equal(data, torch.flip(subject[name].data, (-1,))):
+                fail(f"ux: {adapter} adapter's {name} is not torch.flip on the card")
+    print("ux adapters: CornucopiaAdapter and MonaiAdapter (stand-in monai) equal to torch.flip on the card")
+
+
+def phase_ux(torch, np, tio, tr, kl):
+    """The tools around a pipeline on the card, each held to what the CPU
+    tests pin: warmup, profiling, the command line, figures and notebook
+    cards, the adapters."""
+    dev = torch.device(DEVICE)
+    batch = make_batch(tio, torch, B, (S, S, S), dev, 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ux_") as tmp:
+        directory = Path(tmp)
+        launches = {
+            "warmup": ux_warmup(torch, tio, tr, kl, batch),
+            "profile": ux_profile(torch, tio, kl, batch, directory),
+            "cli transform Affine (in process)": ux_cli(torch, np, tio, kl, directory),
+        }
+        del batch
+        subject = ux_figures(torch, np, tio, directory)
+        ux_adapters(torch, tio, subject)
+    print(f"ux: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -4583,6 +4921,7 @@ def main() -> int:
     synthseg_launches = phase_synthseg(torch, tio, kl, smi, args.profile)
     ixi_launches = phase_ixi(torch, np, tio, kl, smi, args.profile)
     ixi_nifti_launches = phase_ixi_nifti(torch, np, tio, kl, native, smi, args.profile)
+    phase_ux(torch, np, tio, tr, kl)
     ct_launches, ct_volume, ct_written = phase_ct_dicom(torch, np, tio, kl, native, smi, args.profile)
     phase_ct_codecs(torch, np, tio, native, smi, ct_volume, ct_written)
     del ct_volume

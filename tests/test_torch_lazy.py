@@ -46,9 +46,8 @@ from torchio_tpu_torch.io import nifti as port_nifti
 
 SHAPE = (14, 12, 16)
 LINEAR_ATOL = 1e-5
-#: names of ``torchio_tpu.__all__`` that later slices port (ROADMAP.md,
-#: Queue 1, items 3b and 3c)
-DEFERRED = {"profiling", "warmup", "MonaiAdapter", "CornucopiaAdapter"}
+#: names of ``torchio_tpu.__all__`` that the port does not have yet: none
+DEFERRED: set[str] = set()
 
 
 @pytest.fixture(autouse=True)
@@ -456,7 +455,8 @@ def test_queue_over_paths(tmp_path, monkeypatch, workers):
 
 
 def test_public_names():
-    assert set(tj.__all__) - DEFERRED == set(tt.__all__) - {"default_device", "set_default_device"}
+    assert not DEFERRED
+    assert set(tj.__all__) == set(tt.__all__) - {"default_device", "set_default_device"}
     for name in tt.__all__:
         assert getattr(tt, name) is not None
     tt.enable_logging("DEBUG", rich=False)

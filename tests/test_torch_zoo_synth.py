@@ -449,14 +449,14 @@ def test_ixi_preprocess_path():
 
 
 def test_exports():
-    """Every public transform of the JAX package has its port, but the
-    adapters to other libraries (MONAI, Cornucopia), which are not ported;
-    the package exports the transforms' names too."""
+    """Every public transform of the JAX package has its port, the
+    adapters to other libraries (MONAI, Cornucopia) included; the package
+    exports the transforms' names too."""
     import torchio_tpu.transforms as jax_transforms
     import torchio_tpu_torch.transforms as port_transforms
 
     missing = set(jax_transforms.__all__) - set(port_transforms.__all__)
-    assert missing == {"MonaiAdapter", "CornucopiaAdapter"}
+    assert missing == set()
     for name in port_transforms.__all__:
         assert getattr(port_transforms, name) is getattr(tt, name, None) or name in (
             "IntensityTransform", "SpatialTransform", "Transform",

@@ -53,6 +53,15 @@ files; ``Image.save`` writes every format it reads but the remote ones
 and Pillow's (a ``.dcm`` file or a directory for DICOM). :mod:`.datasets`
 holds the download-and-cache subjects (MNI, FPG, ITK-SNAP, Slicer, IXI,
 MedMNIST) and the offline ZonePlate.
+
+The tools around a pipeline: :func:`warmup` (build every kernel library,
+then run a transform once at the shapes to come), :mod:`.profiling`
+(per-transform times synchronised with the card, ``torch.profiler``
+traces), ``Image.plot``/``to_gif``/``to_video``/``Subject.plot``
+(:mod:`.visualization`, copying to the host only what a figure draws),
+the notebook cards (``_repr_html_``), the command line
+(``python -m torchio_tpu_torch.cli``) and the MONAI and Cornucopia
+adapters (:class:`MonaiAdapter`, :class:`CornucopiaAdapter`).
 """
 
 __version__ = "0.1.0"
@@ -103,6 +112,7 @@ from .transforms import (
     Compose,
     Contour,
     CopyAffine,
+    CornucopiaAdapter,
     Crop,
     CropOrPad,
     ElasticDeformation,
@@ -116,6 +126,7 @@ from .transforms import (
     LabelsToImage,
     Lambda,
     Mask,
+    MonaiAdapter,
     Motion,
     Noise,
     Normalize,
@@ -146,6 +157,8 @@ from .transforms import (
     get_inverse_transform,
 )
 from .utils import download
+from . import profiling
+from .warmup import warmup
 from .types import (
     TypeAffineMatrix,
     TypeDirection,
@@ -173,6 +186,7 @@ __all__ = [
     "Compose",
     "Contour",
     "CopyAffine",
+    "CornucopiaAdapter",
     "Crop",
     "CropOrPad",
     "ElasticDeformation",
@@ -192,6 +206,7 @@ __all__ = [
     "LabelsToImage",
     "Lambda",
     "Mask",
+    "MonaiAdapter",
     "Motion",
     "Noise",
     "Normalize",
@@ -252,12 +267,14 @@ __all__ = [
     "disable_logging",
     "enable_logging",
     "get_inverse_transform",
+    "profiling",
     "random",
     "read_header",
     "read_matrix",
     "read_nifti",
     "seed",
     "set_default_device",
+    "warmup",
     "write_matrix",
     "write_nifti",
 ]

@@ -1,5 +1,5 @@
-"""Dtype helpers: casts that follow the JAX package's conversions, and
-signed views for moving unsigned data."""
+"""Dtype helpers: casts that follow the JAX package's conversions, signed
+views for moving unsigned data, and numpy's names of torch dtypes."""
 
 from __future__ import annotations
 
@@ -39,3 +39,9 @@ def movable(data: torch.Tensor) -> torch.Tensor:
     same width where torch cannot move the unsigned type; ``.view(dtype)``
     of the result gives the original type back."""
     return data.view(_SIGNED_OF_WIDTH.get(data.dtype, data.dtype))
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype ("float32" for ``torch.float32``), as
+    the JAX package prints its arrays' dtypes."""
+    return str(dtype).removeprefix("torch.")

@@ -20,6 +20,7 @@ from __future__ import annotations
 import copy as _copy
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..config import as_tensor
@@ -101,15 +102,25 @@ class ImagesBatch(Invertible):
     def device(self) -> torch.device:
         return self._data.device
 
+    def affines_array(self, dtype=np.float32) -> np.ndarray:
+        """(B, 4, 4) stacked affines, on the host, in ``dtype``."""
+        return np.stack([a.data for a in self._affines]).astype(dtype)
+
     def to(self, device: Any = None, dtype: Any = None) -> "ImagesBatch":
         self._data = self._data.to(device=device, dtype=dtype)
         return self
 
     def __getitem__(self, index: int) -> Image:
+        """Element ``index`` as an Image: a view of the batch's tensor on
+        its device, with a cloned affine."""
         return self._image_class(self._data[index], affine=self._affines[index].clone())
 
     def __len__(self) -> int:
         return self.batch_size
+
+    def unbatch(self) -> list[Image]:
+        """One Image per element (see ``__getitem__``)."""
+        return [self[i] for i in range(self.batch_size)]
 
     def __repr__(self) -> str:
         b, c, i, j, k = self._data.shape

@@ -78,6 +78,10 @@ class Image(Invertible):
         **kwargs: arbitrary metadata (attribute- and key-accessible).
     """
 
+    #: Source types accepted by the constructor (the documented alias of
+    #: the reference's ``Image.ImageInput``; dispatch is duck-typed).
+    ImageInput = object
+
     def __init__(
         self,
         source: Any = None,
@@ -255,6 +259,18 @@ class Image(Invertible):
         return self.affine.orientation
 
     @property
+    def memory(self) -> int:
+        """Bytes of the data once loaded: the elements of ``shape`` times
+        the element size (from the header's dtype while the image is
+        lazy, without reading the voxels)."""
+        n = 1
+        for d in self.shape:
+            n *= d
+        if self._data is not None:
+            return n * self._data.element_size()
+        return n * np.dtype(self._ensure_backend().dtype).itemsize
+
+    @property
     def dtype(self) -> torch.dtype:
         if self._data is not None:
             return self._data.dtype
@@ -311,6 +327,45 @@ class Image(Invertible):
         from ..io.write import write_image
 
         write_image(path, self.numpy(), self.affine.data)
+
+    # --- Visualization hooks ---
+
+    def plot(self, **kwargs: Any) -> Any:
+        """Three-plane slice plot (see :mod:`torchio_tpu_torch.visualization`)."""
+        from ..visualization import plot_image
+
+        return plot_image(self, **kwargs)
+
+    def to_gif(self, output_path: str | Path, **kwargs: Any) -> Path:
+        """Save a slice-sweep animated GIF."""
+        from ..visualization import make_gif
+
+        return make_gif(self, output_path, **kwargs)
+
+    def to_video(self, output_path: str | Path, **kwargs: Any) -> Path:
+        """Save a slice-sweep MP4 (needs the ffmpeg binary)."""
+        from ..visualization import make_video
+
+        return make_video(self, output_path, **kwargs)
+
+    def plot_interactive(self, *, height: int = 300) -> Any:
+        """Interactive NiiVue viewer in Jupyter (requires ipyniivue)."""
+        import tempfile
+
+        from ..external.imports import get_ipyniivue
+
+        ipyniivue = get_ipyniivue()
+        tmp = tempfile.NamedTemporaryFile(suffix=".nii.gz", delete=False)  # noqa: SIM115
+        tmp.close()
+        self.save(tmp.name)
+        viewer = ipyniivue.NiiVue(height=height)
+        viewer.load_volumes([{"path": tmp.name}])
+        return viewer
+
+    def _repr_html_(self) -> str:
+        from ..repr_html import image_repr_html
+
+        return image_repr_html(self)
 
     # --- Metadata access and region reads ---
 

@@ -16,7 +16,7 @@ from typing import Any, Iterator
 import numpy as np
 
 from .bboxes import BoundingBoxes
-from .image import Image
+from .image import Image, ScalarImage
 from .invertible import Invertible
 from .points import Points
 
@@ -168,6 +168,27 @@ class Subject(Invertible):
             raise RuntimeError("Subject contains no images")
         return next(iter(self._images.values()))
 
+    def get_images(self, intensity_only: bool = True, include=None, exclude=None) -> list[Image]:
+        """Images filtered by type and name (transform scoping helper)."""
+        return list(self.get_images_dict(intensity_only, include, exclude).values())
+
+    def get_images_dict(
+        self, intensity_only: bool = True, include=None, exclude=None
+    ) -> dict[str, Image]:
+        """``{name: image}`` of the images kept by :meth:`get_images`'s
+        filters: ``include`` and ``exclude`` name lists, and ScalarImages
+        only when ``intensity_only``."""
+        out = {}
+        for name, image in self._images.items():
+            if include is not None and name not in include:
+                continue
+            if exclude is not None and name in exclude:
+                continue
+            if intensity_only and not isinstance(image, ScalarImage):
+                continue
+            out[name] = image
+        return out
+
     # --- Annotations ---
 
     def all_points(self) -> dict[Any, Points]:
@@ -199,6 +220,13 @@ class Subject(Invertible):
         for image in self._images.values():
             image.to(device, dtype)
         return self
+
+    def check_consistent_spatial_shape(self) -> None:
+        self._check_consistent_attribute("spatial_shape")
+
+    def check_consistent_space(self) -> None:
+        self._check_consistent_attribute("spatial_shape")
+        self._check_consistent_attribute("spacing")
 
     def _check_consistent_attribute(self, attribute: str, rel_tol: float = 1e-6) -> None:
         if len(self._images) <= 1:
@@ -234,6 +262,17 @@ class Subject(Invertible):
         new._metadata = _copy.deepcopy(self._metadata, memo)
         new.applied_transforms = list(self.applied_transforms)
         return new
+
+    def plot(self, **kwargs: Any) -> Any:
+        """Plot all images, one row of three planes each."""
+        from ..visualization import plot_subject
+
+        return plot_subject(self, **kwargs)
+
+    def _repr_html_(self) -> str:
+        from ..repr_html import subject_repr_html
+
+        return subject_repr_html(self)
 
     def __repr__(self) -> str:
         parts = []

@@ -119,3 +119,8 @@ class FPG(Subject):
     GIF_COLORS: ClassVar[dict[int, tuple[int, int, int]]] = (
         _parse_color_table(_GIF_COLOR_TABLE)
     )
+
+    def plot(self, **kwargs: Any) -> Any:
+        """Plot with GIF parcellation colors for the seg image."""
+        kwargs.setdefault("cmap_dict", {"seg": self.GIF_COLORS})
+        return super().plot(**kwargs)

@@ -1,0 +1,137 @@
+"""Profiling hooks: per-transform wall timing and ``torch.profiler`` traces.
+
+Counterpart of ``torchio_tpu/profiling.py``. Usage::
+
+    with torchio_tpu_torch.profiling.profile() as prof:
+        augmented = pipeline(subject)
+    print(prof.report())
+
+    with torchio_tpu_torch.profiling.trace("traces/run1"):
+        pipeline(subject)          # a Chrome/TensorBoard trace under the directory
+
+:func:`profile` times each transform's ``forward`` up to the end of the
+card's work on its result: it synchronises every CUDA device that holds
+one of the result's tensors. A failed synchronisation (a kernel fault
+surfaces there) raises; it is never timed as a success.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from .data.batch import ImagesBatch
+from .data.image import Image
+from .transforms.transform import Transform
+
+_active: list["_Profile"] = []
+_trace: list[Any] = []
+
+
+class _Profile:
+    def __init__(self) -> None:
+        self.records: dict[str, list[float]] = defaultdict(list)
+
+    def add(self, name: str, seconds: float) -> None:
+        self.records[name].append(seconds)
+
+    def report(self) -> str:
+        lines = ["transform            calls   total(s)   mean(ms)"]
+        for name, times in sorted(self.records.items(), key=lambda kv: -sum(kv[1])):
+            total = sum(times)
+            lines.append(
+                f"{name:<20} {len(times):>5}   {total:>8.3f}   "
+                f"{1000 * total / len(times):>8.1f}"
+            )
+        return "\n".join(lines)
+
+    def total(self, name: str) -> float:
+        return sum(self.records.get(name, []))
+
+
+def _devices(result: Any) -> set[torch.device]:
+    """The devices of the tensors a transform returned (an unloaded image
+    holds none and is not loaded)."""
+    if hasattr(result, "images"):  # Subject (Images) or SubjectsBatch (ImagesBatches)
+        found = {image.device for image in result.images.values()}
+    elif isinstance(result, (torch.Tensor, Image, ImagesBatch)):
+        found = {result.device}
+    elif isinstance(result, dict):
+        found = {v.device for v in result.values() if isinstance(v, torch.Tensor)}
+    else:  # numpy: on the host already
+        found = set()
+    return {d for d in found if d is not None}
+
+
+def synchronize(result: Any) -> None:
+    """Wait for the card's work on ``result``: ``torch.cuda.synchronize``
+    for each CUDA device among its tensors. Errors propagate."""
+    for device in _devices(result):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def profile():
+    """Record synchronised wall time of every transform application."""
+    prof = _Profile()
+    original = Transform.forward
+
+    def timed_forward(self: Transform, data: Any) -> Any:
+        t0 = time.perf_counter()
+        result = original(self, data)
+        synchronize(result)  # time the card's work, not its queueing
+        prof.add(type(self).__name__, time.perf_counter() - t0)
+        return result
+
+    Transform.forward = timed_forward  # type: ignore[method-assign]
+    _active.append(prof)
+    try:
+        yield prof
+    finally:
+        _active.remove(prof)
+        Transform.forward = original  # type: ignore[method-assign]
+
+
+def start_trace(log_dir: str) -> None:
+    """Start a ``torch.profiler`` trace of the host and, where a card is
+    present, its kernels; :func:`stop_trace` writes it under ``log_dir``
+    (a ``*.pt.trace.json`` file for TensorBoard or Perfetto). One trace
+    at a time."""
+    if _trace:
+        raise RuntimeError("A trace is already active: stop it first")
+    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    tracer = torch.profiler.profile(
+        activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))
+    )
+    tracer.start()
+    _trace.append(tracer)
+
+
+def stop_trace() -> None:
+    if not _trace:
+        raise RuntimeError("No trace is active")
+    tracer = _trace.pop()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    tracer.stop()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Context-managed ``torch.profiler`` trace written under ``log_dir``."""
+    start_trace(log_dir)
+    try:
+        yield
+    finally:
+        stop_trace()

@@ -23,6 +23,7 @@ from .label.one_hot import OneHot
 from .label.remap_labels import RemapLabels, RemoveLabels
 from .label.sequential_labels import SequentialLabels
 from .lambda_transform import Lambda
+from .monai_adapter import CornucopiaAdapter, MonaiAdapter
 from .parameter_range import Choice
 from .inverse import apply_inverse_transform, get_inverse_transform
 from .spatial.anisotropy import Anisotropy
@@ -49,6 +50,7 @@ __all__ = [
     "Compose",
     "Contour",
     "CopyAffine",
+    "CornucopiaAdapter",
     "Crop",
     "CropOrPad",
     "ElasticDeformation",
@@ -62,6 +64,7 @@ __all__ = [
     "LabelsToImage",
     "Lambda",
     "Mask",
+    "MonaiAdapter",
     "Motion",
     "Noise",
     "Normalize",

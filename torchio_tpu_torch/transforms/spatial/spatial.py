@@ -1120,6 +1120,7 @@ class Affine(Spatial):
         default_pad_label: float = 0,
         image_interpolation="linear",
         label_interpolation="nearest",
+        one_hot_label_interpolation="linear",
         **kwargs: Any,
     ) -> None:
         super().__init__(
@@ -1132,6 +1133,7 @@ class Affine(Spatial):
             default_pad_label=default_pad_label,
             image_interpolation=image_interpolation,
             label_interpolation=label_interpolation,
+            one_hot_label_interpolation=one_hot_label_interpolation,
             **kwargs,
         )
 
@@ -1148,6 +1150,7 @@ class ElasticDeformation(Spatial):
         locked_borders: int = 2,
         image_interpolation="linear",
         label_interpolation="nearest",
+        one_hot_label_interpolation="linear",
         **kwargs: Any,
     ) -> None:
         super().__init__(
@@ -1157,5 +1160,6 @@ class ElasticDeformation(Spatial):
             locked_borders=locked_borders,
             image_interpolation=image_interpolation,
             label_interpolation=label_interpolation,
+            one_hot_label_interpolation=one_hot_label_interpolation,
             **kwargs,
         )
