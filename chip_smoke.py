@@ -238,6 +238,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    64.0 MiB); and
    CornucopiaAdapter and MonaiAdapter (a stand-in monai module) equal to
    ``torch.flip`` on the card, handed tensors on the card;
+19b. parallel (torch.distributed): a one-rank NCCL group (a TCP store on
+   this host) and its (1, 1) mesh on the card; the headline on
+   ``SubjectsBatch.shard_(mesh, spatial=True)``: Spatial through the
+   halo program (one ``resample_coords`` launch, no ``resample``, no
+   gather inside Spatial, no fallback warning), the output a DTensor on
+   the mesh within 1e-4 of the unsharded call on the same seed; each
+   shard's local program of a (1, 2) and a (1, 4) layout
+   (``halo_resample_spec``'s, ``halo_blur``'s and
+   ``sharded_grid_inference``'s with its fold), fed the halos its
+   neighbours would send (slices of the volume on the card, zeros or the
+   edge past the global ends), reassembled within 1e-4 of the (1, 1)
+   program; the (1, 4) resample draws within +-3 degrees (a halo of
+   about 30 rows; the headline's draws need about 70, more than a 64-row
+   slab); ``make_augment_step`` at B=4 x 256^3 within 1e-4 of the
+   unsharded ``augment_step`` (one ``resample_coords`` and one threefry
+   launch a call); ``sharded_grid_inference`` of 1 x 256^3 (64^3
+   patches overlapping by 16; hann and average; the identity and a
+   Conv3d) against GridSampler + PatchAggregator on the card at rtol
+   1e-6; ``process_large_volume`` of a 512 x 512 x 256 float32 ``.nii``
+   (256 MiB, written in a temporary directory) with a 3-degree rotation,
+   an elastic field and a J blur against the unsharded resample + blur
+   within 1e-4, with its read, compute and write seconds; the threefry
+   counter base: each rank's rows of a (2, 2) and a (4, 1) layout drawn
+   with ``start`` bit-equal to the slice of the whole draw, words from a
+   base past 2^32 equal to the plain words, and the kernel at start = 0
+   timed against the kernel before the base (``probes/threefry_parent.cu``,
+   built beside the package's libraries);
 20. one timed call of KeepLargestComponent on the brats cell's seg with a
    stray island a label (its host time and its two copies), and of
    Swap(patch_size=15, num_iterations=100) on B=4 x 256^3 (its device
@@ -287,6 +314,7 @@ import importlib.util
 import itertools
 import json
 import math
+import os
 import random
 import shutil
 import statistics
@@ -663,6 +691,7 @@ def phase_build(kl, native):
     t0 = time.perf_counter()
     host = threading.Thread(target=native.available)
     host.start()
+    start_parent_threefry(kl, kl.config)
     libraries = kl.build_all()
     host.join()
     print(
@@ -4847,6 +4876,563 @@ def phase_ux(torch, np, tio, tr, kl):
     return launches
 
 
+#: the parallel phase (torch.distributed): a one-rank NCCL group, the
+#: headline's seed, the simulated space layouts and the large volume
+PARALLEL_SEED = 5
+PARALLEL_ATOL = 1e-4
+PARALLEL_LAYOUTS = (2, 4)
+#: the grid-spec draws of the simulated shards: the headline's ranges at
+#: (1, 2), and within +-3 degrees (a halo of about 30 rows, which a 64-row
+#: slab of the (1, 4) layout holds; the headline's draws need about 70)
+SIMULATED_DRAWS = {2: (10.0, 5.0, 3.0), 4: (3.0, 2.0, 1.0)}
+PARALLEL_PATCH, PARALLEL_OVERLAP = 64, 16
+LARGE_SHAPE, LARGE_SIGMA = (512, 512, 256), 1.5
+PARALLEL_RTOL = 1e-6
+#: the global draw of the counter-base check and its layouts (data, space)
+COUNTER_LAYOUTS = ((2, 2), (4, 1))
+PARENT_THREEFRY = Path(__file__).resolve().parent / "probes" / "threefry_parent.cu"
+PARENT_BUILD: dict = {}
+
+
+def start_parent_threefry(kl, config):
+    """Start nvcc on the threefry kernel before the counter base (beside
+    the package's builds): the parallel phase times both in one process."""
+    import hashlib
+
+    digest = hashlib.sha256(" ".join(kl.FLAGS).encode() + PARENT_THREEFRY.read_bytes())
+    path = config.BUILD_DIR / f"libthreefry_parent-{digest.hexdigest()[:16]}.so"
+    if not path.exists():
+        config.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [config.nvcc(), *kl.FLAGS, "-o", str(tmp), str(PARENT_THREEFRY)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        PARENT_BUILD.update(proc=proc, tmp=tmp)
+    PARENT_BUILD["path"] = path
+
+
+def parent_threefry():
+    """The parent kernel's library (its nvcc joined) and its launch."""
+    import ctypes
+
+    proc = PARENT_BUILD.pop("proc", None)
+    if proc is not None:
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed on {PARENT_THREEFRY.name}:\n{output}")
+        os.replace(PARENT_BUILD.pop("tmp"), PARENT_BUILD["path"])
+    lib = ctypes.CDLL(str(PARENT_BUILD["path"]))
+    lib.tio_threefry_segments.restype = ctypes.c_int
+    lib.tio_threefry_segments.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p]
+
+    class Row(ctypes.Structure):  # the parent's 80-byte Segment
+        _fields_ = [
+            ("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32), ("inject", ctypes.c_uint32 * 10),
+            ("offset", ctypes.c_longlong), ("count", ctypes.c_longlong),
+            ("scale", ctypes.c_float), ("first_block", ctypes.c_int), ("blocks", ctypes.c_int),
+        ]
+
+    if ctypes.sizeof(Row) != 80:
+        fail(f"the parent's segment row is {ctypes.sizeof(Row)} bytes, not 80")
+    return lib, Row
+
+
+class GatherSpy:
+    """While active, records every gather a rank could make (the
+    torch.distributed all-gathers, ``DTensor.full_tensor``/``redistribute``)
+    with the transform running when it happened (``inside``)."""
+
+    def __init__(self, torch, tio):
+        self.torch, self.tio = torch, tio
+        self.gathers: list[tuple[str, str | None]] = []
+        self.current: str | None = None
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+
+        self._saved = []
+
+        def wrap(owner, name, record):
+            real = getattr(owner, name)
+
+            def spy(*args, **kwargs):
+                record(name)
+                return real(*args, **kwargs)
+
+            self._saved.append((owner, name, real))
+            setattr(owner, name, spy)
+
+        for name in ("all_gather", "all_gather_into_tensor", "all_gather_object"):
+            wrap(dist, name, lambda n: self.gathers.append((n, self.current)))
+        for name in ("full_tensor", "redistribute"):
+            wrap(DTensor, name, lambda n: self.gathers.append((f"DTensor.{n}", self.current)))
+        spatial = self.tio.Spatial
+        real_apply = spatial.apply_transform
+
+        def apply(transform, batch, params):
+            self.current = type(transform).__name__
+            try:
+                return real_apply(transform, batch, params)
+            finally:
+                self.current = None
+
+        self._saved.append((spatial, "apply_transform", real_apply))
+        spatial.apply_transform = apply
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._saved):
+            setattr(owner, name, real)
+
+    def inside(self, name: str) -> list[str]:
+        return [g for g, where in self.gathers if where == name]
+
+
+def nccl_mesh(torch):
+    """A one-rank NCCL group (a TCP store on this host) and its (1, 1)
+    mesh on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from torchio_tpu_torch.parallel import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    if dist.get_backend() != "nccl":
+        fail(f"the process group runs {dist.get_backend()}, not nccl")
+    return make_mesh(DEVICE)
+
+
+def rel_close(torch, got, want, rtol):
+    err = (got - want).abs()
+    return bool((err <= rtol * want.abs() + rtol).all()), float(err.max())
+
+
+def simulated_slab(halo_mod, x, j0, jl, width, edge):
+    """A shard's halo-extended slab as the exchange would give it: its
+    neighbours' rows sliced from the global volume, zeros (or the edge)
+    past the global ends."""
+    sj = x.shape[3]
+    left = x[:, :, :, j0 - width:j0] if j0 > 0 else None
+    right = x[:, :, :, j0 + jl:j0 + jl + width] if j0 + jl < sj else None
+    return halo_mod.extend(x[:, :, :, j0:j0 + jl], left, right, width, edge=edge)
+
+
+def grid_maps(np, b, shape, degrees, translation, displacement, seed):
+    """Headline-like grid specs on the host: per element a rotation about
+    the centre of up to ``degrees`` on each axis, a scale in [0.9, 1.1], a
+    translation of up to ``translation`` voxels, and a 7^3 coarse field of
+    up to ``displacement`` voxels (borders held at zero)."""
+    rng = np.random.default_rng(seed)
+    centre = (np.asarray(shape, np.float64) - 1) / 2
+    maps, fields = [], []
+    for _ in range(b):
+        m = rot(*np.deg2rad(rng.uniform(-degrees, degrees, 3)), scale=rng.uniform(0.9, 1.1),
+                shift=rng.uniform(-translation, translation, 3), center=centre)
+        field = rng.uniform(-displacement, displacement, (7, 7, 7, 3)).astype(np.float32)
+        field[[0, -1]] = field[:, [0, -1]] = field[:, :, [0, -1]] = 0.0
+        maps.append(m)
+        fields.append(field)
+    return maps, fields
+
+
+def parallel_headline(torch, tio, kl, mesh, smi):
+    """The headline on ``SubjectsBatch.shard_(mesh, spatial=True)``:
+    Spatial through the halo program (one dense-coordinate launch, no
+    grid-spec launch, no gather, no fallback), within 1e-4 of the
+    unsharded call on the same seed."""
+    from torchio_tpu_torch.parallel.mesh import is_dtensor
+
+    dev = torch.device(DEVICE)
+    batch = make_batch(tio, torch, B, (S, S, S), dev, PARALLEL_SEED)
+    tio.seed(PARALLEL_SEED)
+    ref = headline(tio)(copy.deepcopy(batch)).images["t1"].data
+    sharded = copy.deepcopy(batch).shard_(mesh, spatial=True)
+    kl.reset_launches()
+    tio.seed(PARALLEL_SEED)
+    with warnings.catch_warnings(record=True) as caught, GatherSpy(torch, tio) as spy:
+        warnings.simplefilter("always")
+        out = headline(tio)(sharded)
+        torch.cuda.synchronize()
+    launches = dict(kl.LAUNCHES)
+    fallbacks = [str(w.message) for w in caught if "fell back" in str(w.message)]
+    data = out.images["t1"].data
+    if not is_dtensor(data) or data.device_mesh != mesh or out.images["t1"].sharding is None:
+        fail(f"parallel headline: the output is not a DTensor on the mesh ({type(data)})")
+    if launches["resample_coords"] != 1 or launches["resample"] != 0:
+        fail(f"parallel headline: Spatial's launches {launches}, expected 1 resample_coords,"
+             " 0 resample")
+    if launches["threefry_normal"] != THREEFRY_LAUNCHES["headline"]:
+        fail(f"parallel headline: threefry launches {launches['threefry_normal']}")
+    if spy.inside("Spatial") or fallbacks:
+        fail(f"parallel headline: Spatial gathered {spy.inside('Spatial')} or fell back"
+             f" {fallbacks}")
+    err = float((data.full_tensor() - ref).abs().max())
+    if not err <= PARALLEL_ATOL:
+        fail(f"parallel headline: max abs {err} against the unsharded call")
+    times = {}
+    for name, make in (("sharded", lambda: copy.deepcopy(batch).shard_(mesh, spatial=True)),
+                       ("unsharded", lambda: copy.deepcopy(batch))):
+        runs = []
+        for _ in range(3):
+            b = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            headline(tio)(b)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        times[name] = runs
+    print(
+        f"parallel headline: Compose([Spatial, BiasField, Noise], fuse=True) on B={B} x {S}^3"
+        f" shard_(mesh (1, 1), spatial=True): launches {launches}, gathers outside Spatial"
+        f" {[g for g, where in spy.gathers if where != 'Spatial']}, max abs {err:.3g} against the"
+        f" unsharded call; a call {min(times['sharded']) * 1e3:.1f} ms sharded,"
+        f" {min(times['unsharded']) * 1e3:.1f} ms unsharded (best of 3, host clock); card: {smi}"
+    )
+    return launches["resample_coords"], batch
+
+
+def simulate_resample(torch, np, halo_mod, kl, batch, mesh):
+    """``halo_resample_spec``'s local program, each shard of a (1, 2) and a
+    (1, 4) layout fed the halos its neighbours would send, reassembled
+    against the (1, 1) program."""
+    from torchio_tpu_torch.parallel.mesh import NamedSharding, place
+
+    dev = torch.device(DEVICE)
+    x = batch.images["t1"].data.to(torch.float32)
+    sharding = NamedSharding(mesh, ("data", None, None, "space", None))
+    spatial = (S, S, S)
+    report, launches = {}, 0
+    for n in PARALLEL_LAYOUTS:
+        degrees, translation, displacement = SIMULATED_DRAWS[n]
+        maps, fields = grid_maps(np, B, spatial, degrees, translation, displacement, 100 + n)
+        whole = halo_mod.halo_resample_spec(place(x, sharding), maps, fields,
+                                            sharding=sharding, fill=0.0).full_tensor()
+        ms = np.stack(maps)
+        cps = np.stack(fields)
+        jl = S // n
+        halo = halo_mod._halo_width(ms, cps, *spatial)
+        if halo >= jl:
+            fail(f"simulated shards (1, {n}): halo {halo} >= {jl}")
+        maps_t = torch.as_tensor(ms.astype(np.float32), device=dev)
+        cps_t = torch.as_tensor(cps, device=dev)
+        before = kl.LAUNCHES["resample_coords"]
+        slabs = []
+        for s in range(n):
+            ext = simulated_slab(halo_mod, x, s * jl, jl, halo, edge=False)
+            planes = halo_mod.spec_planes(maps_t, cps_t, j0=s * jl, jl=jl, spatial=spatial)
+            slabs.append(halo_mod.halo_resample_local(
+                ext, planes, x.new_zeros((B, C)), j0=s * jl, halo=halo, spatial=spatial,
+                mode="linear", apply_fill=False,
+            ))
+            del ext, planes
+        check_launches(kl, "resample_coords", before, n)
+        launches += n
+        err = float((torch.cat(slabs, dim=3) - whole).abs().max())
+        if not err <= PARALLEL_ATOL:
+            fail(f"simulated halo_resample_spec (1, {n}): max abs {err}")
+        report[f"(1, {n})"] = f"halo {halo}, max abs {err:.3g}"
+        del slabs, whole
+    return report, launches
+
+
+def simulate_blur(torch, halo_mod, batch, mesh):
+    from torchio_tpu_torch.ops.gaussian import gaussian_kernel_1d, radius_for_sigma
+    from torchio_tpu_torch.parallel.mesh import batch_sharding, place
+
+    x = batch.images["t1"].data.to(torch.float32)
+    sigma = 2.0
+    whole = halo_mod.halo_blur(place(x, batch_sharding(mesh)), sigma, mesh).full_tensor()
+    radius = radius_for_sigma(sigma)
+    kernel = torch.as_tensor(gaussian_kernel_1d(sigma, radius), device=x.device)
+    report = {}
+    for n in PARALLEL_LAYOUTS:
+        jl = S // n
+        slabs = [
+            halo_mod.blur_taps(simulated_slab(halo_mod, x, s * jl, jl, radius, edge=True),
+                               kernel, jl)
+            for s in range(n)
+        ]
+        err = float((torch.cat(slabs, dim=3) - whole).abs().max())
+        if not err <= PARALLEL_ATOL:
+            fail(f"simulated halo_blur (1, {n}): max abs {err}")
+        report[f"(1, {n})"] = f"radius {radius}, max abs {err:.3g}"
+    return report
+
+
+def simulate_inference(torch, np, halo_mod, batch, mesh):
+    """``sharded_grid_inference``'s local program and fold, per shard."""
+    from torchio_tpu_torch.parallel import patches as pm
+    from torchio_tpu_torch.parallel import sharded_grid_inference
+    from torchio_tpu_torch.parallel.mesh import NamedSharding, place
+
+    x = batch.images["t1"].data[:1].to(torch.float32)
+    p = (PARALLEL_PATCH,) * 3
+    sharding = NamedSharding(mesh, (None, None, None, "space", None))
+    whole = sharded_grid_inference(
+        place(x, sharding), mesh=mesh, patch_size=p, patch_overlap=PARALLEL_OVERLAP,
+        overlap_mode="hann",
+    ).full_tensor()
+    window = pm.patch_window(p, "hann", x.device)
+    corners = pm.grid_corners((S, S, S), p, (PARALLEL_OVERLAP,) * 3)
+    report = {}
+    for n in PARALLEL_LAYOUTS:
+        jl, halo = S // n, p[1]
+        per_shard, valid = pm._partition_corners(corners, n, jl)
+        sums = []
+        for s in range(n):
+            ext = simulated_slab(halo_mod, x, s * jl, jl, halo, edge=False)
+            local = per_shard[s].copy()
+            local[:, 1] += halo - s * jl
+            sums.append(pm.accumulate_patches(ext, local, valid[s], p, window))
+        slabs = []
+        for s in range(n):
+            folded = []
+            for k in range(2):  # acc, cnt
+                left = sums[s - 1][k][:, :, :, -halo:] if s > 0 else None
+                right = sums[s + 1][k][:, :, :, :halo] if s < n - 1 else None
+                folded.append(pm.fold_local(sums[s][k], left, right, halo))
+            slabs.append(folded[0] / torch.clamp(folded[1], min=1e-8))
+        err = float((torch.cat(slabs, dim=3) - whole).abs().max())
+        if not err <= PARALLEL_ATOL:
+            fail(f"simulated sharded_grid_inference (1, {n}): max abs {err}")
+        report[f"(1, {n})"] = f"{len(corners)} patches, max abs {err:.3g}"
+        del sums, slabs
+    return report
+
+
+def parallel_step(torch, np, tio, kl, mesh):
+    """``make_augment_step`` at B x S^3 against the unsharded step."""
+    from torchio_tpu_torch.parallel import make_augment_step, sample_step_params, shard_batch
+    from torchio_tpu_torch.parallel.step import augment_step
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+    data = torch.rand((B, C, S, S, S), generator=gen, device=dev)
+    tio.seed(PARALLEL_SEED)
+    rotations, shifts = sample_step_params(B, degrees=10.0, translation=2.0)
+    step = make_augment_step(mesh)
+    sharded = shard_batch(data, mesh)
+    kl.reset_launches()
+    out = step(sharded, rotations, shifts, 7)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kl.LAUNCHES.items() if v}
+    if launches != {"resample_coords": 1, "threefry_normal": 1}:
+        fail(f"parallel step: launches {launches}")
+    ref = augment_step(data, rotations, shifts, 7, 0.3, 0.05)
+    err = float((out.full_tensor() - ref).abs().max())
+    if not err <= PARALLEL_ATOL:
+        fail(f"parallel step: max abs {err} against the unsharded step")
+    ms = cuda_time_ms(torch, lambda: step(sharded, rotations, shifts, 7), 3)
+    plain_ms = cuda_time_ms(torch, lambda: augment_step(data, rotations, shifts, 7, 0.3, 0.05), 3)
+    print(
+        f"parallel step: make_augment_step on B={B} x {S}^3 (mesh (1, 1)): launches {launches},"
+        f" max abs {err:.3g} against augment_step; {ms:.2f} ms a call sharded, {plain_ms:.2f} ms"
+        " unsharded (CUDA events, 3 calls)"
+    )
+    return launches
+
+
+def parallel_inference(torch, np, tio, mesh):
+    """``sharded_grid_inference`` of B=1 x S^3 against GridSampler +
+    PatchAggregator on the card, hann and average, identity and Conv3d."""
+    from torchio_tpu_torch.parallel import sharded_grid_inference
+    from torchio_tpu_torch.parallel.mesh import NamedSharding, place
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+    volume = torch.rand((1, C, S, S, S), generator=gen, device=dev)
+    subject = tio.Subject(t1=tio.ScalarImage(volume[0]))
+    sampler = tio.GridSampler(subject, patch_size=PARALLEL_PATCH, patch_overlap=PARALLEL_OVERLAP)
+    batch = next(iter(tio.SubjectsLoader(sampler, batch_size=len(sampler))))
+    patches, locations = batch.images["t1"].data, batch.metadata["patch_location"]
+    torch.manual_seed(PARALLEL_SEED)
+    conv = torch.nn.Conv3d(1, 1, 3, padding=1).to(dev)
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    sharded = place(volume, NamedSharding(mesh, (None, None, None, "space", None)))
+    report = {}
+    try:
+        for mode in ("hann", "average"):
+            for name, model in (("identity", None), ("conv", lambda t: conv(t).detach())):
+                agg = tio.PatchAggregator(subject.spatial_shape, overlap_mode=mode)
+                with torch.no_grad():
+                    agg.add_batch(patches if model is None else model(patches), locations)
+                    want = agg.get_output(device=True)
+                    t0 = time.perf_counter()
+                    got = sharded_grid_inference(
+                        sharded, mesh=mesh, model_fn=model, patch_size=PARALLEL_PATCH,
+                        patch_overlap=PARALLEL_OVERLAP, overlap_mode=mode,
+                    ).full_tensor()[0]
+                    torch.cuda.synchronize()
+                ok, err = rel_close(torch, got, want, PARALLEL_RTOL)
+                if not ok:
+                    fail(f"sharded_grid_inference {mode} {name}: max abs {err}")
+                report[f"{mode}/{name}"] = f"{err:.3g}, {(time.perf_counter() - t0) * 1e3:.0f} ms"
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    print(
+        f"parallel inference: sharded_grid_inference of 1 x {S}^3, {len(sampler)} patches of"
+        f" {PARALLEL_PATCH}^3 overlapping by {PARALLEL_OVERLAP}, against GridSampler +"
+        f" PatchAggregator on the card (rtol {PARALLEL_RTOL}): max abs and host ms {report}"
+    )
+
+
+def parallel_large(torch, np, tio, mesh, smi):
+    """``process_large_volume`` of a 512 x 512 x 256 float32 ``.nii`` with
+    a small rotation, an elastic field and a J blur, against the unsharded
+    Spatial + J blur; its read, compute and write seconds."""
+    import importlib
+
+    from torchio_tpu_torch.io.nifti import read_nifti, write_nifti
+    from torchio_tpu_torch.ops.gaussian import gaussian_blur
+    from torchio_tpu_torch.ops.resample import resample_fused
+    from torchio_tpu_torch.parallel import halo_blur, process_large_volume, write_volume_sharded
+    from torchio_tpu_torch.parallel.halo import halo_resample_spec
+    from torchio_tpu_torch.parallel.large import shard_volume_from_file
+    from torchio_tpu_torch.parallel.mesh import sharding_of
+
+    rng = np.random.default_rng(PARALLEL_SEED)
+    volume = rng.random((1, *LARGE_SHAPE), np.float32)
+    centre = (np.asarray(LARGE_SHAPE, np.float64) - 1) / 2
+    matrix = rot(0.0, 0.0, np.deg2rad(3.0), shift=(1.5, -2.0, 0.5), center=centre)
+    field = rng.uniform(-2.0, 2.0, (5, 5, 5, 3)).astype(np.float32)
+    dev = torch.device(DEVICE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        src, dst, steps = Path(tmp) / "large.nii", Path(tmp) / "out.nii", Path(tmp) / "s.nii"
+        write_nifti(src, volume)
+        t0 = time.perf_counter()
+        sharded = shard_volume_from_file(tio.ScalarImage(src), mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sharded = halo_resample_spec(sharded, [matrix], [field], sharding=sharding_of(sharded))
+        sharded = halo_blur(sharded, LARGE_SIGMA, mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        write_volume_sharded(steps, sharded)
+        t3 = time.perf_counter()
+        out = process_large_volume(src, dst, mesh=mesh, matrix=matrix, control_points=field,
+                                   sigma=LARGE_SIGMA)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        got, _ = read_nifti(dst)
+    ref = resample_fused(torch.as_tensor(volume, device=dev)[None], [matrix], [field])
+    ref = gaussian_blur(ref, (0.0, LARGE_SIGMA, 0.0))
+    err = float((torch.as_tensor(np.asarray(got), device=dev) - ref[0, 0]).abs().max())
+    if not err <= PARALLEL_ATOL:
+        fail(f"process_large_volume: max abs {err} against the unsharded Spatial + J blur")
+    if tuple(out.shape) != (1, 1, *LARGE_SHAPE):
+        fail(f"process_large_volume: output {tuple(out.shape)}")
+    print(
+        f"parallel large: process_large_volume of a {'x'.join(map(str, LARGE_SHAPE))} float32"
+        f" .nii ({volume.nbytes / 2**20:.0f} MiB; 3-degree rotation, a 5^3 elastic field, J blur"
+        f" sigma {LARGE_SIGMA}): read {t1 - t0:.3f} s, compute {t2 - t1:.3f} s, write"
+        f" {t3 - t2:.3f} s (the same calls one by one), the entry point {t4 - t3:.3f} s; max abs"
+        f" {err:.3g} against resample_fused + gaussian_blur along J; card: {smi}"
+    )
+
+
+def counter_base(torch, tr, tk):
+    """The counter base on the card: each rank's rows of a (2, 2) and a
+    (4, 1) layout drawn with ``start`` bit-equal to the slice of the
+    whole draw (and a base past 2^32 to the plain words); the kernel at
+    start = 0 timed against the parent's kernel (no base)."""
+    import ctypes
+
+    dev = torch.device(DEVICE)
+    key = tr.draw_key(2024, 1)
+    shape = (B, C, S, S, S)
+    n = math.prod(shape)
+    per_row = n // B
+    whole = tk.threefry_normal_cuda(key, shape, dev)
+    checked = 0
+    for data, space in COUNTER_LAYOUTS:
+        bl = B // data
+        for rank in range(data * space):
+            b0 = (rank // space) * bl
+            rows = tr.normals([key], [(bl, *shape[1:])], None, dev, starts=[b0 * per_row])
+            if not torch.equal(rows.reshape(bl, *shape[1:]), whole[b0:b0 + bl]):
+                fail(f"counter base: rank {rank} of ({data}, {space}) differs from its rows")
+            checked += 1
+    wide = 2**32 - 6
+    words = tk.threefry_segments_cuda([key], [4099], None, dev, normal=False, starts=[wide])
+    plain = tr.bits_plain(key, wide, 4099, dev)
+    if not torch.equal(words.to(torch.int64) & tr.MASK32, plain):
+        fail("counter base: words from a base past 2^32 differ from the plain words")
+    lib, Row = parent_threefry()
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    (segment,) = tk.segment_plan([key], [n], None)[0]
+    row = (Row * 1)()
+    row[0].k0, row[0].k1 = segment.key
+    row[0].inject[:] = segment.inject
+    row[0].offset, row[0].count, row[0].scale = 0, n, 1.0
+
+    def parent():
+        err = lib.tio_threefry_segments(out.data_ptr(), ctypes.addressof(row), 1, 1,
+                                        torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            fail(f"the parent threefry kernel failed to launch ({err})")
+
+    parent()
+    torch.cuda.synchronize()
+    if not torch.equal(out.reshape(shape), whole):
+        fail("counter base: the kernel at start = 0 differs from the parent kernel")
+    order, ms, parent_ms = time_pair(
+        torch, lambda: tk.threefry_normal_cuda(key, shape, dev), parent, 20, 20
+    )
+    print(
+        f"counter base: {checked} ranks' rows of a B={B} x {S}^3 draw equal to the whole draw's,"
+        f" words from counter 2^32 - 6 equal to the plain words; the kernel at start = 0"
+        f" {ms:.4f} ms, the parent kernel {parent_ms:.4f} ms (new, parent, new, parent:"
+        f" {', '.join(f'{t:.4f}' for t in order)}), ratio {ms / parent_ms:.4f}"
+    )
+    return {"ranks_checked": checked, "ms": ms, "parent_ms": parent_ms,
+            "ratio": ms / parent_ms}
+
+
+def phase_parallel(torch, np, tio, tr, tk, kl, smi):
+    """torch.distributed on the card: a one-rank NCCL group and its (1, 1)
+    mesh; the headline on a J-sharded batch; each shard's local program of
+    a (1, 2) and a (1, 4) layout fed its neighbours' halos; the fused
+    step; sharded patch inference; a 256 MiB volume file to file; the
+    threefry counter base."""
+    import torch.distributed as dist
+
+    from torchio_tpu_torch.parallel import halo as halo_mod
+
+    t0 = time.perf_counter()
+    mesh = nccl_mesh(torch)
+    try:
+        halo_launches, batch = parallel_headline(torch, tio, kl, mesh, smi)
+        kl.reset_launches()
+        resample_report, simulated = simulate_resample(torch, np, halo_mod, kl, batch, mesh)
+        blur_report = simulate_blur(torch, halo_mod, batch, mesh)
+        inference_report = simulate_inference(torch, np, halo_mod, batch, mesh)
+        del batch
+        print(
+            f"simulated shards (each shard's local program fed the halos its neighbours would"
+            f" send, reassembled against the (1, 1) program): halo_resample_spec"
+            f" {resample_report} ({simulated} resample_coords launches); halo_blur"
+            f" {blur_report}; sharded_grid_inference's fold {inference_report}"
+        )
+        step_launches = parallel_step(torch, np, tio, kl, mesh)
+        parallel_inference(torch, np, tio, mesh)
+        parallel_large(torch, np, tio, mesh, smi)
+        counter = counter_base(torch, tr, tk)
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel: {time.perf_counter() - t0:.1f} s; card: {smi}")
+    return {"halo_launches": halo_launches, "simulated_launches": simulated,
+            "step": step_launches, "counter_base": counter}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -4922,6 +5508,7 @@ def main() -> int:
     ixi_launches = phase_ixi(torch, np, tio, kl, smi, args.profile)
     ixi_nifti_launches = phase_ixi_nifti(torch, np, tio, kl, native, smi, args.profile)
     phase_ux(torch, np, tio, tr, kl)
+    parallel = phase_parallel(torch, np, tio, tr, tk, kl, smi)
     ct_launches, ct_volume, ct_written = phase_ct_dicom(torch, np, tio, kl, native, smi, args.profile)
     phase_ct_codecs(torch, np, tio, native, smi, ct_volume, ct_written)
     del ct_volume
@@ -5013,8 +5600,12 @@ def main() -> int:
             f" .nii files): {config5_nifti_launches['resample_coords']}; kspace-oneof (per element,"
             " B=4, 7 calls):"
             f" {oneof_launches['resample_coords']}, one a move of an element that drew"
-            " Motion (2 moves each)",
+            " Motion (2 moves each); parallel (the halo program of Spatial on the headline"
+            f" sharded over J, mesh (1, 1)): {parallel['halo_launches']} a call; the sharded"
+            f" step: {parallel['step']['resample_coords']} a call; the simulated shards of"
+            f" (1, 2) and (1, 4): {parallel['simulated_launches']}, one a shard",
             "path": "kspace-motion-ghosting",
+            "halo_launches": parallel["halo_launches"],
         },
         {
             "name": "bspline_coords",
@@ -5039,8 +5630,11 @@ def main() -> int:
             "note": "jax.random.normal (threefry2x32, Giles' erf_inv) is XLA in the JAX"
             " package, no Pallas kernel; launches on the headline, per path:"
             f" {threefry_paths}; torch.randn (Philox, not the same function)"
-            f" {timings['threefry_normal']['randn_ms']:.3f} ms",
+            f" {timings['threefry_normal']['randn_ms']:.3f} ms; the sharded step draws its"
+            " bias and noise rows in one launch from their counter bases:"
+            f" {parallel['step']['threefry_normal']} a call",
             "path": "headline",
+            "counter_base": parallel["counter_base"],
         },
         {
             "name": "resample_diagonal",

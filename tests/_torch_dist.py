@@ -1,0 +1,578 @@
+"""A pool of gloo ranks for the port's multi-process tests, and the jobs
+they run (torch and the port only: this module never imports jax).
+
+:class:`RankPool` spawns ``world`` processes that join one gloo group
+(a ``file://`` store in a fresh directory, so concurrent test workers
+never share a port), each with one CPU thread, and runs named jobs of
+:data:`JOBS` on every rank at once. A job that fails or outlives its
+timeout on any rank fails the call, and the pool kills its ranks (the
+next call starts a new pool): a hung collective fails its test, never
+the suite.
+
+Each job takes numpy inputs made by the test from a seed, runs the
+port's sharded entry points on the rank's (data, space) mesh and returns
+numpy results (whole tensors gathered after the call, local regions, and
+the :class:`CollectiveSpy` counts of the call).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+import queue
+import shutil
+import tempfile
+import traceback
+import warnings
+
+import numpy as np
+
+WORLD = 4
+JOB_TIMEOUT = 120.0
+INIT_TIMEOUT = 90.0
+
+
+# --------------------------------------------------------------------------
+# The pool (in the pytest process)
+# --------------------------------------------------------------------------
+
+
+class RankPool:
+    """``world`` spawned gloo ranks running :data:`JOBS`."""
+
+    def __init__(self, world: int = WORLD) -> None:
+        self.world = world
+        self._procs: list = []
+
+    def _start(self) -> None:
+        import torch.multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self._dir = tempfile.mkdtemp(prefix="torch_dist_")
+        init_file = os.path.join(self._dir, "store")
+        self._tasks = [ctx.Queue() for _ in range(self.world)]
+        self._results = ctx.Queue()
+        self._procs = [
+            ctx.Process(
+                target=rank_main,
+                args=(rank, self.world, init_file, self._tasks[rank], self._results),
+                daemon=True,
+            )
+            for rank in range(self.world)
+        ]
+        for proc in self._procs:
+            proc.start()
+
+    def run(self, name: str, *args, timeout: float = JOB_TIMEOUT) -> list:
+        """Run job ``name`` on every rank; its values in rank order."""
+        if not self._procs:
+            self._start()
+        for tasks in self._tasks:
+            tasks.put((name, args))
+        values: dict[int, object] = {}
+        try:
+            while len(values) < self.world:
+                rank, ok, value = self._results.get(timeout=timeout)
+                if not ok:
+                    raise RuntimeError(f"rank {rank} failed in {name}:\n{value}")
+                values[rank] = value
+        except queue.Empty:
+            self.close()
+            raise TimeoutError(f"{name} did not finish on every rank in {timeout} s") from None
+        except BaseException:
+            self.close()
+            raise
+        return [values[r] for r in range(self.world)]
+
+    def close(self) -> None:
+        for tasks in getattr(self, "_tasks", []):
+            with contextlib.suppress(Exception):
+                tasks.put(None)
+        for proc in self._procs:
+            proc.join(timeout=5)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=5)
+        self._procs = []
+        if getattr(self, "_dir", None):
+            shutil.rmtree(self._dir, ignore_errors=True)
+            self._dir = None
+
+
+# --------------------------------------------------------------------------
+# A rank
+# --------------------------------------------------------------------------
+
+
+def rank_main(rank: int, world: int, init_file: str, tasks, results) -> None:
+    import cpu_warmup  # noqa: F401  (PyTorch 2.13's first exp region, before anything)
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo",
+        init_method=f"file://{init_file}",
+        rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=INIT_TIMEOUT),
+    )
+    import torchio_tpu_torch as tt
+
+    tt.set_default_device("cpu")
+    try:
+        while True:
+            job = tasks.get()
+            if job is None:
+                break
+            name, args = job
+            try:
+                results.put((rank, True, JOBS[name](*args)))
+            except BaseException:
+                results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+_MESHES: dict = {}
+
+
+def mesh(space: int | None = None):
+    """The rank's (data, space) CPU mesh, built once a layout."""
+    from torchio_tpu_torch.parallel import make_mesh
+
+    if space not in _MESHES:
+        _MESHES[space] = make_mesh("cpu", space=space)
+    return _MESHES[space]
+
+
+class CollectiveSpy:
+    """Counts, while active, every gather a rank could make (the
+    ``torch.distributed`` all-gathers, the functional collectives DTensor
+    gathers with, ``DTensor.full_tensor``/``redistribute``), and the P2P
+    ops of each ``batch_isend_irecv`` call."""
+
+    GATHERS = ("all_gather", "all_gather_into_tensor", "all_gather_object", "_all_gather_base",
+               "gather")
+    FUNCOL = ("all_gather_tensor", "all_gather_tensor_autograd", "all_gather_into_tensor_coalesced")
+
+    def __init__(self) -> None:
+        self.gathers: list[str] = []
+        self.p2p: list[int] = []
+
+    def __enter__(self):
+        import torch.distributed as dist
+        import torch.distributed._functional_collectives as funcol
+        from torch.distributed.tensor import DTensor
+
+        self._saved = []
+
+        def wrap(owner, name, record):
+            real = getattr(owner, name)
+
+            def spy(*args, **kwargs):
+                record(name, args)
+                return real(*args, **kwargs)
+
+            self._saved.append((owner, name, real))
+            setattr(owner, name, spy)
+
+        for name in self.GATHERS:
+            wrap(dist, name, lambda n, a: self.gathers.append(n))
+        for name in self.FUNCOL:
+            wrap(funcol, name, lambda n, a: self.gathers.append(f"funcol.{n}"))
+        for name in ("full_tensor", "redistribute"):
+            wrap(DTensor, name, lambda n, a: self.gathers.append(f"DTensor.{n}"))
+        wrap(dist, "batch_isend_irecv", lambda n, a: self.p2p.append(len(a[0])))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, real in reversed(self._saved):
+            setattr(owner, name, real)
+
+    @property
+    def counts(self) -> dict:
+        return {"gathers": list(self.gathers), "p2p": list(self.p2p)}
+
+
+def _whole(value):
+    from torchio_tpu_torch.parallel.mesh import is_dtensor
+
+    return (value.full_tensor() if is_dtensor(value) else value).detach().cpu().numpy()
+
+
+def _local(value):
+    return value.to_local().detach().cpu().numpy()
+
+
+def _placements(value) -> list[str]:
+    return [repr(p) for p in value.placements]
+
+
+# --------------------------------------------------------------------------
+# Jobs
+# --------------------------------------------------------------------------
+
+
+def job_mesh(space):
+    import torch.distributed as dist
+
+    m = mesh(space)
+    return {
+        "shape": tuple(m.shape),
+        "names": tuple(m.mesh_dim_names),
+        "device_type": m.device_type,
+        "coordinate": tuple(m.get_coordinate()),
+        "rank": dist.get_rank(),
+    }
+
+
+def job_mesh_indivisible(space):
+    from torchio_tpu_torch.parallel import make_mesh
+
+    try:
+        make_mesh("cpu", space=space)
+    except ValueError as error:
+        return str(error)
+    return None
+
+
+def job_step(data, rotations, shifts, seed, space):
+    import torch
+
+    from torchio_tpu_torch.parallel import make_augment_step, shard_batch
+    from torchio_tpu_torch.parallel.step import augment_step
+
+    m = mesh(space)
+    sharded = shard_batch(data, m)
+    step = make_augment_step(m)
+    with CollectiveSpy() as spy:
+        out = step(sharded, rotations, shifts, seed)
+    return {
+        "out": _whole(out),
+        "placements": _placements(out),
+        "local_shape": tuple(out.to_local().shape),
+        "unsharded": augment_step(torch.as_tensor(data), rotations, shifts, seed, 0.3, 0.05)
+        .numpy(),
+        "spy": spy.counts,
+    }
+
+
+def job_halo_blur(data, sigma, space):
+    from torchio_tpu_torch.parallel import halo_blur, shard_batch
+
+    m = mesh(space)
+    sharded = shard_batch(data, m)
+    with CollectiveSpy() as spy:
+        out = halo_blur(sharded, sigma, m)
+    return {"out": _whole(out), "placements": _placements(out), "spy": spy.counts}
+
+
+def job_halo_affine(data, matrix, space, mode="linear"):
+    from torchio_tpu_torch.parallel import halo_resample_affine, shard_batch
+
+    m = mesh(space)
+    try:
+        with CollectiveSpy() as spy:
+            out = halo_resample_affine(shard_batch(data, m), matrix, m, mode=mode)
+    except ValueError as error:
+        return {"error": f"{type(error).__name__}: {error}"}
+    return {"out": _whole(out), "spy": spy.counts}
+
+
+def _spec_sharding(m, spec):
+    from torchio_tpu_torch.parallel.mesh import NamedSharding
+
+    return NamedSharding(m, tuple(spec))
+
+
+def job_halo_spec(data, matrices, cps, spec, fill, space, mode="linear"):
+    from torchio_tpu_torch.parallel.halo import halo_resample_spec
+    from torchio_tpu_torch.parallel.mesh import place
+
+    m = mesh(space)
+    sharding = "cpu" if spec == "cpu" else _spec_sharding(m, spec)
+    import torch
+
+    x = torch.as_tensor(data)
+    if not isinstance(sharding, str) and sharding.padded()[3] is not None:
+        try:
+            x = place(x, sharding)
+        except Exception:  # an indivisible shape still reaches the guards
+            pass
+    try:
+        with CollectiveSpy() as spy:
+            out = halo_resample_spec(x, matrices, cps, sharding=sharding, mode=mode, fill=fill)
+    except ValueError as error:
+        return {"error": f"{type(error).__name__}: {error}"}
+    return {"out": _whole(out), "placements": _placements(out), "spy": spy.counts}
+
+
+def _subjects_batch(images: dict, classes: dict, affines=None):
+    """A port SubjectsBatch from {name: (B, C, I, J, K) array}."""
+    import torchio_tpu_torch as tt
+
+    b = next(iter(images.values())).shape[0]
+    subjects = []
+    for e in range(b):
+        kwargs = {}
+        for name, arr in images.items():
+            cls = tt.LabelMap if classes.get(name) == "label" else tt.ScalarImage
+            aff = None if affines is None else affines[e]
+            kwargs[name] = cls(arr[e], affine=aff) if aff is not None else cls(arr[e])
+        subjects.append(tt.Subject(**kwargs))
+    return tt.SubjectsBatch.from_subjects(subjects)
+
+
+def pipeline(recipe: str):
+    """The port's pipeline of a recipe name (the tests build the JAX
+    package's from the same name)."""
+    import torchio_tpu_torch as tt
+
+    if recipe == "public":
+        return tt.Compose([
+            tt.Affine(degrees=(-10.0, 10.0), scales=(0.95, 1.05)),
+            tt.BiasField(std=0.4),
+            tt.Noise(std=0.05),
+            tt.RescaleIntensity(out_min=0.0, out_max=1.0),
+        ])
+    if recipe == "headline-blur":
+        return tt.Compose([
+            tt.Spatial(degrees=(-10.0, 10.0), max_displacement=2.0, num_control_points=5),
+            tt.BiasField(std=0.4),
+            tt.Noise(std=0.05),
+            tt.Blur(std=(0.5, 1.5)),
+        ], fuse=True)
+    if recipe == "blur-shared":
+        return tt.Blur(std=(1.0, 1.5), per_instance=False)
+    if recipe == "spatial":
+        return tt.Spatial(degrees=(-10.0, 10.0), max_displacement=2.0, num_control_points=5)
+    if recipe == "spatial-wide":
+        return tt.Spatial(degrees=(25.0, 25.0), translation=(20.0, 20.0))
+    if recipe == "resample":
+        return tt.Resample(target=1.0)
+    if recipe == "label-affine":
+        return tt.Affine(degrees=(-8.0, 8.0), label_interpolation="label")
+    if recipe == "noise":
+        return tt.Noise(std=0.1)
+    raise KeyError(recipe)
+
+
+def job_public(recipe, images, classes, seed, spatial, space, affines=None):
+    """``batch.shard_(mesh, spatial=...)`` then the recipe's pipeline."""
+    import torchio_tpu_torch as tt
+    from torchio_tpu_torch.parallel import halo as halo_mod
+    from torchio_tpu_torch.parallel.mesh import is_dtensor
+
+    m = mesh(space)
+    batch = _subjects_batch(images, classes, affines).shard_(m, spatial=spatial)
+    calls = []
+    real = halo_mod.halo_resample_spec
+
+    def spy_spec(*args, **kwargs):
+        calls.append(kwargs.get("mode"))
+        return real(*args, **kwargs)
+
+    halo_mod.halo_resample_spec = spy_spec
+    tt.seed(seed)
+    try:
+        with warnings.catch_warnings(record=True) as caught, CollectiveSpy() as spy:
+            warnings.simplefilter("always")
+            out = pipeline(recipe)(batch)
+    finally:
+        halo_mod.halo_resample_spec = real
+    return {
+        "images": {n: _whole(ib.data) for n, ib in out.images.items()},
+        "sharded": {n: is_dtensor(ib.data) and ib.sharding is not None
+                    for n, ib in out.images.items()},
+        "placements": {n: _placements(ib.data) for n, ib in out.images.items()
+                       if is_dtensor(ib.data)},
+        "halo_calls": calls,
+        "warnings": [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)],
+        "history": [t.name for t in out.applied_transforms],
+        "spy": spy.counts,
+    }
+
+
+def job_copy_unshard(images, space):
+    """Deep copy, a copying transform and unshard on a sharded batch."""
+    import copy
+
+    import torchio_tpu_torch as tt
+    from torchio_tpu_torch.parallel.mesh import is_dtensor
+
+    m = mesh(space)
+    tt.seed(0)
+    batch = _subjects_batch(images, {}).shard_(m)
+    dup = copy.deepcopy(batch)
+    out = tt.Noise(std=0.1)(dup)
+    whole_before = _whole(batch.images["t1"].data)
+    items = [np.asarray(img.data.numpy()) for img in batch.images["t1"].unbatch()]
+    result = {
+        "dup_sharded": dup.images["t1"].sharding is not None,
+        "out_sharded": out.images["t1"].sharding is not None and is_dtensor(out.images["t1"].data),
+        "out_placements": _placements(out.images["t1"].data),
+        "unbatched_equal": bool(np.array_equal(np.stack(items), whole_before)),
+    }
+    batch.unshard_()
+    result["unsharded"] = batch.images["t1"].sharding is None
+    result["plain_after"] = not is_dtensor(batch.images["t1"].data)
+    return result
+
+
+def job_shard_drop(data):
+    """``shard_`` with an explicit 1-D NamedSharding, then a batch-size
+    change (tests/test_batch.py's shard/drop)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torchio_tpu_torch.data.batch import ImagesBatch
+    from torchio_tpu_torch.core.affine import AffineMatrix
+    from torchio_tpu_torch.parallel.mesh import NamedSharding, is_dtensor
+
+    m = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("data",))
+    sharding = NamedSharding(m, ("data",))
+    batch = ImagesBatch(torch.as_tensor(data), [AffineMatrix() for _ in range(data.shape[0])])
+    batch.shard_(sharding)
+    placed = _placements(batch.data), tuple(batch.data.to_local().shape)
+    batch.data = np.ones((3, 1, 4, 4, 4), np.float32)
+    return {
+        "placed": placed,
+        "dropped": batch.sharding is None and not is_dtensor(batch.data),
+        "shape": tuple(batch.data.shape),
+    }
+
+
+def job_blur_axes(data, sigmas, space):
+    """``sharded_spatial_axes`` and ``gaussian_blur`` on a J-sharded DTensor."""
+    from torchio_tpu_torch.ops.gaussian import gaussian_blur, sharded_spatial_axes
+    from torchio_tpu_torch.parallel.mesh import batch_sharding, place
+
+    import torch
+
+    m = mesh(space)
+    x = place(torch.as_tensor(data), batch_sharding(m))
+    with CollectiveSpy() as spy:
+        out = gaussian_blur(x, sigmas)
+    return {
+        "axes": sharded_spatial_axes(x),
+        "plain_axes": sharded_spatial_axes(torch.as_tensor(data)),
+        "out": _whole(out),
+        "spy": spy.counts,
+    }
+
+
+def _model(name):
+    import torch
+
+    if name is None:
+        return None
+    if name == "affine":
+        return lambda x: 2.0 * x + 1.0
+    if name == "conv":
+        torch.manual_seed(0)
+        conv = torch.nn.Conv3d(1, 1, 3, padding=1)
+        return lambda x: conv(x).detach()
+    raise KeyError(name)
+
+
+def job_grid_inference(volume, patch_size, overlap, mode, model, space):
+    import torch
+
+    from torchio_tpu_torch.parallel import sharded_grid_inference
+    from torchio_tpu_torch.parallel.mesh import NamedSharding, place
+
+    m = mesh(space)
+    sharding = NamedSharding(m, (None, None, None, "space", None))
+    x = torch.as_tensor(volume)
+    if volume.shape[3] % m.size(1) == 0:
+        x = place(x, sharding)
+    try:
+        with CollectiveSpy() as spy:
+            out = sharded_grid_inference(
+                x, mesh=m, model_fn=_model(model), patch_size=patch_size,
+                patch_overlap=overlap, overlap_mode=mode,
+            )
+    except ValueError as error:
+        return {"error": f"{type(error).__name__}: {error}"}
+    return {
+        "out": _whole(out),
+        "placements": _placements(out),
+        "local_shape": tuple(out.to_local().shape),
+        "spy": spy.counts,
+    }
+
+
+def job_large(src, dst, matrix, sigma, space):
+    from torchio_tpu_torch.parallel import process_large_volume
+
+    m = mesh(space)
+    with CollectiveSpy() as spy:
+        out = process_large_volume(src, dst, mesh=m, matrix=matrix, sigma=sigma)
+    return {
+        "placements": _placements(out),
+        "local_shape": tuple(out.to_local().shape),
+        "spy": spy.counts,
+    }
+
+
+def job_lazy_read(src, space):
+    import torchio_tpu_torch as tt
+    from torchio_tpu_torch.parallel import shard_volume_from_file
+
+    m = mesh(space)
+    img = tt.ScalarImage(src)
+    seen = []
+    cls = type(img)
+    real = cls.__getitem__
+
+    def spy(self, index):
+        if not isinstance(index, str):
+            seen.append(index)
+        return real(self, index)
+
+    cls.__getitem__ = spy
+    try:
+        arr = shard_volume_from_file(img, m)
+    except ValueError as error:
+        return {"error": f"{type(error).__name__}: {error}"}
+    finally:
+        cls.__getitem__ = real
+    return {
+        "widths": [(i[2].stop - i[2].start) for i in seen],
+        "loaded": img.is_loaded,
+        "whole": _whole(arr),
+        "local_shape": tuple(arr.to_local().shape),
+    }
+
+
+def job_write(data, dst, space):
+    from torchio_tpu_torch.parallel import write_volume_sharded
+    from torchio_tpu_torch.parallel.mesh import NamedSharding, place
+
+    import torch
+
+    m = mesh(space)
+    x = place(torch.as_tensor(data), NamedSharding(m, (None, None, None, "space", None)))
+    write_volume_sharded(dst, x)
+    return tuple(x.to_local().shape)
+
+
+def job_sampler_defaults(n):
+    from torchio_tpu_torch.parallel import DistributedSubjectSampler
+
+    s = DistributedSubjectSampler(n, shuffle=False)
+    return {"rank": s.rank, "world": s.world_size, "order": list(s)}
+
+
+def job_normals(keys, shapes, starts):
+    """The counter base on a rank: its rows of a draw."""
+    from torchio_tpu_torch import random as tr
+
+    return tr.normals(keys, shapes, None, "cpu", starts=starts).numpy()
+
+
+JOBS = {
+    name[4:]: fn for name, fn in dict(globals()).items() if name.startswith("job_")
+}

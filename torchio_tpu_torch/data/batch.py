@@ -12,11 +12,18 @@ tensor lives. Affines stay float64 on the host, one per sample.
 Transforms never write into a batch's tensor in place: every stage
 assigns a new tensor. So a deep copy shares the tensor (as the JAX
 package shares its immutable arrays) and copies only the metadata.
-Mesh sharding (``shard_``) comes later.
+
+``shard_`` places a batch on a :mod:`torch.distributed` device mesh
+(:mod:`..parallel.mesh`): its data becomes a ``DTensor`` of the global
+shape, and every stage's output is placed the same way until the batch
+size changes or ``unshard_`` is called. Stages with a sharded path
+(Spatial's halo resample, Blur's halo taps) take the DTensors; every
+other stage runs on the whole tensors inside :func:`gathered`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy as _copy
 from typing import Any
 
@@ -25,6 +32,7 @@ import torch
 
 from ..config import as_tensor
 from ..core.affine import AffineMatrix
+from ..parallel.mesh import NamedSharding, is_dtensor, mesh_device, place
 from .image import Image, ScalarImage
 from .invertible import Invertible
 from .subject import Subject
@@ -51,6 +59,10 @@ class ImagesBatch(Invertible):
         self._data = data
         self._affines = affines
         self._image_class = image_class
+        self._sharding: NamedSharding | None = None
+        #: inside :func:`gathered`: ``data`` holds the whole tensor and the
+        #: setter does not place what a stage assigns
+        self._gathered = False
         self.applied_transforms: list[Any] = []
 
     @classmethod
@@ -70,7 +82,57 @@ class ImagesBatch(Invertible):
         value = as_tensor(value)
         if value.ndim != 5:
             raise ValueError(f"Expected 5D tensor, got {value.ndim}D")
+        if self._sharding is not None and value.shape[0] == self._data.shape[0]:
+            # a sharded batch keeps every stage's output on the mesh: each
+            # rank keeps its region of a whole result, with no
+            # communication (a shape-changing stage is placed too; only a
+            # batch-size change drops the sharding)
+            if not self._gathered:
+                value = place(value, self._sharding)
+        elif self._sharding is not None:
+            self._sharding = None
+            if is_dtensor(value):
+                value = value.full_tensor()
         self._data = value
+
+    @property
+    def sharding(self) -> NamedSharding | None:
+        """The mesh placement enforced on ``data`` (None: unmanaged)."""
+        return self._sharding
+
+    def shard_(self, mesh_or_sharding: Any, *, spatial: bool = False) -> "ImagesBatch":
+        """Place ``data`` on a mesh and keep transform outputs there.
+
+        Args:
+            mesh_or_sharding: a DeviceMesh (the batch axis goes over its
+                first axis; with ``spatial=True`` the J axis goes over its
+                second) or a :class:`~..parallel.mesh.NamedSharding`.
+            spatial: also shard the J axis (for volumes larger than one
+                card's memory; Spatial and Blur then exchange halos).
+
+        Every rank must hold the same whole batch; each keeps its region.
+        """
+        if isinstance(mesh_or_sharding, NamedSharding):
+            sharding = mesh_or_sharding
+        else:
+            mesh = mesh_or_sharding
+            names = mesh.mesh_dim_names
+            space = names[1] if spatial and len(names) > 1 else None
+            sharding = NamedSharding(mesh, (names[0], None, None, space, None))
+        self._sharding = sharding
+        self._data = place(self._whole().to(mesh_device(sharding.mesh)), sharding)
+        return self
+
+    def unshard_(self) -> "ImagesBatch":
+        """Stop enforcing the mesh placement: ``data`` becomes the whole
+        tensor on every rank (one all-gather)."""
+        self._sharding = None
+        self._data = self._whole()
+        return self
+
+    def _whole(self) -> torch.Tensor:
+        """The whole tensor (gathered from the mesh if sharded)."""
+        return self._data.full_tensor() if is_dtensor(self._data) else self._data
 
     def __deepcopy__(self, memo: dict) -> "ImagesBatch":
         cls = type(self)
@@ -79,6 +141,8 @@ class ImagesBatch(Invertible):
         new._data = self._data
         new._affines = [a.clone() for a in self._affines]
         new._image_class = self._image_class
+        new._sharding = self._sharding
+        new._gathered = self._gathered
         new.applied_transforms = _copy.deepcopy(self.applied_transforms, memo)
         return new
 
@@ -107,20 +171,30 @@ class ImagesBatch(Invertible):
         return np.stack([a.data for a in self._affines]).astype(dtype)
 
     def to(self, device: Any = None, dtype: Any = None) -> "ImagesBatch":
-        self._data = self._data.to(device=device, dtype=dtype)
+        """Move or cast ``data``; a sharded batch stays sharded on its
+        mesh's device and drops the sharding elsewhere."""
+        data = self._whole().to(device=device, dtype=dtype)
+        if self._sharding is not None and data.device != mesh_device(self._sharding.mesh):
+            self._sharding = None
+        self.data = data
         return self
 
     def __getitem__(self, index: int) -> Image:
-        """Element ``index`` as an Image: a view of the batch's tensor on
-        its device, with a cloned affine."""
-        return self._image_class(self._data[index], affine=self._affines[index].clone())
+        """Element ``index`` as an Image: a view of the batch's (whole)
+        tensor on its device, with a cloned affine."""
+        return self._image_class(self._whole()[index], affine=self._affines[index].clone())
 
     def __len__(self) -> int:
         return self.batch_size
 
     def unbatch(self) -> list[Image]:
-        """One Image per element (see ``__getitem__``)."""
-        return [self[i] for i in range(self.batch_size)]
+        """One Image per element (see ``__getitem__``; a sharded batch is
+        gathered once)."""
+        whole = self._whole()
+        return [
+            self._image_class(whole[i], affine=self._affines[i].clone())
+            for i in range(self.batch_size)
+        ]
 
     def __repr__(self) -> str:
         b, c, i, j, k = self._data.shape
@@ -186,6 +260,18 @@ class SubjectsBatch(Invertible):
     def to(self, device: Any = None, dtype: Any = None) -> "SubjectsBatch":
         for batch in self._images.values():
             batch.to(device, dtype)
+        return self
+
+    def shard_(self, mesh_or_sharding: Any, *, spatial: bool = False) -> "SubjectsBatch":
+        """Place every image batch on a mesh; transform outputs stay there
+        (see :meth:`ImagesBatch.shard_`)."""
+        for batch in self._images.values():
+            batch.shard_(mesh_or_sharding, spatial=spatial)
+        return self
+
+    def unshard_(self) -> "SubjectsBatch":
+        for batch in self._images.values():
+            batch.unshard_()
         return self
 
     def __getitem__(self, key: str) -> ImagesBatch:
@@ -264,6 +350,31 @@ class SubjectsBatch(Invertible):
     def __repr__(self) -> str:
         names = ", ".join(self._images)
         return f"SubjectsBatch(batch_size={self.batch_size}, images=[{names}])"
+
+
+@contextlib.contextmanager
+def gathered(batch: SubjectsBatch):
+    """Run a stage that has no sharded path on whole tensors.
+
+    Each sharded image's DTensor is gathered (``full_tensor()``, the
+    counterpart of the all-gather XLA inserts where it cannot partition),
+    the stage reads and assigns whole tensors, and on exit each rank keeps
+    its region of what the stage left. Every rank runs the same program
+    from the same host draws, so the result equals the unsharded one."""
+    images = [
+        ib for ib in batch.images.values()
+        if ib._sharding is not None and is_dtensor(ib._data)
+    ]
+    for ib in images:
+        ib._data = ib._data.full_tensor()
+        ib._gathered = True
+    try:
+        yield
+    finally:
+        for ib in images:
+            ib._gathered = False
+            if ib._sharding is not None:
+                ib.data = ib._data
 
 
 def _slice_params(

@@ -2,7 +2,9 @@
 
 Counterpart of ``torchio_tpu/data/queue.py``: a per-epoch subject
 iterator (shuffled with the stdlib ``random``, or an injected
-``subject_sampler`` for data-parallel shards), a thread pool that loads
+``subject_sampler`` for data-parallel shards, such as
+``parallel.DistributedSubjectSampler`` on each rank of a
+``torch.distributed`` job), a thread pool that loads
 and transforms subjects ahead (the first one in the calling thread), a
 buffer flushed and shuffled at ``max_length``, ``patches_per_volume``
 patches a subject, and a memory estimate.

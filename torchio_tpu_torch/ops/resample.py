@@ -67,8 +67,14 @@ def _axis_coords(n_in: int, n_out: int, device) -> torch.Tensor:
 
 def _lerp_axis(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
     """Linear interpolation of ``x`` along ``dim`` to ``n_out`` samples."""
+    return lerp_at(x, _axis_coords(x.shape[dim], n_out, x.device), dim)
+
+
+def lerp_at(x: torch.Tensor, g: torch.Tensor, dim: int) -> torch.Tensor:
+    """Linear interpolation of ``x`` along ``dim`` at the coordinates
+    ``g`` (a slice of :func:`_axis_coords` gives those rows of an
+    upsample, bit for bit)."""
     n_in = x.shape[dim]
-    g = _axis_coords(n_in, n_out, x.device)
     i0 = torch.floor(g).long().clamp(0, n_in - 1)
     i1 = (i0 + 1).clamp(0, n_in - 1)
     shape = [1] * x.ndim

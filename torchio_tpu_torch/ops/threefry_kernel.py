@@ -41,23 +41,25 @@ THREEFRY = KernelLibrary(
 )
 
 #: segments a launch takes (``csrc/threefry.cu``'s ``kMaxSegments``)
-MAX_SEGMENTS = 48
+MAX_SEGMENTS = 46
 
 
 @dataclass(frozen=True)
 class Segment:
     """One draw of a launch: ``count`` elements at ``offset`` of the
-    output, counters from 0, under ``key``, each normal times ``scale``."""
+    output, counters from ``start``, under ``key``, each normal times
+    ``scale``."""
 
     key: tio_random.Key
     inject: tuple[int, ...]
     offset: int
     count: int
     scale: float
+    start: int = 0
 
 
 class _Row(ctypes.Structure):
-    """``csrc/threefry.cu``'s ``Segment`` (80 bytes)."""
+    """``csrc/threefry.cu``'s ``Segment`` (88 bytes)."""
 
     _fields_ = [
         ("k0", ctypes.c_uint32),
@@ -65,6 +67,7 @@ class _Row(ctypes.Structure):
         ("inject", ctypes.c_uint32 * 10),
         ("offset", ctypes.c_longlong),
         ("count", ctypes.c_longlong),
+        ("start", ctypes.c_longlong),
         ("scale", ctypes.c_float),
         ("first_block", ctypes.c_int),
         ("blocks", ctypes.c_int),
@@ -75,12 +78,16 @@ def segment_plan(
     keys: Sequence[tio_random.Key],
     counts: Sequence[int],
     scales: Sequence[float] | None,
+    starts: Sequence[int] | None = None,
 ) -> list[list[Segment]]:
     """The launches that draw ``counts[s]`` elements under ``keys[s]``,
-    one segment after the other: at most :data:`MAX_SEGMENTS` segments a
-    launch, empty draws left out."""
+    counters from ``starts[s]`` (0 where None), one segment after the
+    other: at most :data:`MAX_SEGMENTS` segments a launch, empty draws
+    left out."""
     if len(keys) != len(counts) or (scales is not None and len(scales) != len(keys)):
         raise ValueError("keys, counts and scales must have one entry a draw")
+    if starts is not None and len(starts) != len(keys):
+        raise ValueError("keys and starts must have one entry a draw")
     segments, offset = [], 0
     for s, (key, count) in enumerate(zip(keys, counts)):
         k0, k1 = (int(k) for k in key)
@@ -88,6 +95,9 @@ def segment_plan(
             raise ValueError(f"a key is two 32-bit words, got {key}")
         if count < 0:
             raise ValueError(f"a draw has at least 0 elements, got {count}")
+        start = 0 if starts is None else int(starts[s])
+        if start < 0:
+            raise ValueError(f"a counter base is at least 0, got {start}")
         if count:
             segments.append(
                 Segment(
@@ -96,6 +106,7 @@ def segment_plan(
                     offset=offset,
                     count=int(count),
                     scale=1.0 if scales is None else float(scales[s]),
+                    start=start,
                 )
             )
         offset += int(count)
@@ -107,7 +118,7 @@ def _rows(segments: list[Segment]):
     for row, seg in zip(rows, segments):
         row.k0, row.k1 = seg.key
         row.inject[:] = seg.inject
-        row.offset, row.count, row.scale = seg.offset, seg.count, seg.scale
+        row.offset, row.count, row.start, row.scale = seg.offset, seg.count, seg.start, seg.scale
     return rows
 
 
@@ -117,12 +128,14 @@ def threefry_segments_cuda(
     scales: Sequence[float] | None,
     device,
     normal: bool = True,
+    starts: Sequence[int] | None = None,
 ) -> torch.Tensor:
     """``jax.random.normal(keys[s], (counts[s],)) * scales[s]`` for every
     ``s`` (``normal``; the normals as drawn where ``scales`` is None, which
     the kernel multiplies by 1, exactly), or ``jax.random.bits`` of the
     keys (int32), one after the other in one flat tensor on a CUDA
-    device."""
+    device. ``starts[s]`` makes draw ``s`` the elements ``[starts[s],
+    starts[s] + counts[s])`` of a larger draw under its key."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the threefry kernel runs on a CUDA device, got {device}")
@@ -131,7 +144,7 @@ def threefry_segments_cuda(
     out = torch.empty(sum(int(c) for c in counts),
                       dtype=torch.float32 if normal else torch.int32, device=device)
     kernel = "threefry_normal" if normal else "threefry_bits"
-    launches = segment_plan(keys, counts, scales)
+    launches = segment_plan(keys, counts, scales, starts)
     if launches:
         with torch.cuda.device(device):
             st = stream(device)

@@ -36,7 +36,9 @@ On a CPU device the draws run as plain integer torch ops (int64 holding
 (:mod:`.ops.threefry_kernel`); :func:`key_randint` draws its two words
 in one launch of that kernel's bits mode. :func:`normals` takes a list of draws,
 each times its own scale, in one launch (BiasField's per-element fields,
-Noise's Rician pair).
+Noise's Rician pair); its ``starts`` (the counter base) make a draw the
+elements ``[start, start + n)`` of a larger one, so a rank of a device
+mesh draws only its batch rows of a draw of the whole batch.
 """
 
 from __future__ import annotations
@@ -316,13 +318,15 @@ def normal(key: Key, shape: tuple[int, ...], device=None) -> torch.Tensor:
     return normal_of_bits(bits_plain(key, 0, math.prod(shape), device)).reshape(shape)
 
 
-def normals_plain(keys, counts, scales, device) -> torch.Tensor:
+def normals_plain(keys, counts, scales, device, starts=None) -> torch.Tensor:
     """The plain version of the segmented threefry kernel: ``normal(keys[s],
     (counts[s],)) * scales[s]`` (no multiply where ``scales`` is None) for
-    every ``s``, concatenated into one flat float32 tensor."""
+    every ``s``, each from counter ``starts[s]`` (0 where None),
+    concatenated into one flat float32 tensor."""
     parts = [torch.empty(0, dtype=torch.float32, device=device)]
     for s, (key, count) in enumerate(zip(keys, counts)):
-        part = normal_of_bits(bits_plain(key, 0, int(count), device))
+        start = 0 if starts is None else int(starts[s])
+        part = normal_of_bits(bits_plain(key, start, int(count), device))
         if scales is not None:
             part = part * torch.tensor(scales[s], dtype=torch.float32, device=device)
         parts.append(part)
@@ -330,23 +334,28 @@ def normals_plain(keys, counts, scales, device) -> torch.Tensor:
 
 
 def normals(
-    keys: list[Key], shapes: list[tuple[int, ...]], scales=None, device=None
+    keys: list[Key], shapes: list[tuple[int, ...]], scales=None, device=None, starts=None
 ) -> torch.Tensor:
     """``jax.random.normal(keys[s], shapes[s], float32) * scales[s]`` for
     every ``s`` (float32 scales; none where ``scales`` is None), flattened
     and concatenated into one float32 tensor on ``device`` (the default
     device where None): on a CUDA device one launch of the threefry kernel
-    for all of them."""
+    for all of them. ``starts[s]`` (the counter base) makes draw ``s`` the
+    elements ``[starts[s], starts[s] + prod(shapes[s]))`` of a larger
+    draw under its key: a rank's batch rows of ``normal(key, (B, ...))``
+    start at ``b0 * prod(...)``."""
     device = _device(device)
     counts = [math.prod(int(n) for n in shape) for shape in shapes]
     if scales is not None and len(scales) != len(keys):
         raise ValueError(f"{len(keys)} keys and {len(scales)} scales")
+    if starts is not None and len(starts) != len(keys):
+        raise ValueError(f"{len(keys)} keys and {len(starts)} starts")
     if device.type == "cuda":
         from .ops.threefry_kernel import threefry_segments_cuda
 
-        return threefry_segments_cuda(keys, counts, scales, device)
+        return threefry_segments_cuda(keys, counts, scales, device, starts=starts)
     _check_cpu(device)
-    return normals_plain(keys, counts, scales, device)
+    return normals_plain(keys, counts, scales, device, starts)
 
 
 def _check_cpu(device: torch.device) -> None:

@@ -9,6 +9,7 @@ import torch
 
 from ..config import as_tensor
 from ..core.dtypes import movable
+from ..parallel.mesh import from_local, is_dtensor, local_slices, sharding_of
 
 __all__ = ["as_tensor", "broadcast_param", "restore_gated", "unique_labels"]
 
@@ -29,6 +30,11 @@ def restore_gated(transformed: torch.Tensor, original: torch.Tensor, keep):
     flags = np.asarray(keep, dtype=bool)
     if flags.all():
         return transformed
+    if is_dtensor(transformed):  # each rank its own rows
+        sharding = sharding_of(transformed)
+        rows = local_slices(transformed.shape, sharding)[0]
+        local = restore_gated(transformed.to_local(), original.to_local(), flags[rows])
+        return from_local(local, sharding, transformed.shape)
     mask = torch.as_tensor(flags, device=transformed.device)
     mask = mask.reshape((-1,) + (1,) * (transformed.ndim - 1))
     kept = torch.where(mask, movable(transformed), movable(original.to(transformed.dtype)))

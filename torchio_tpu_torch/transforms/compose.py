@@ -17,7 +17,7 @@ from collections.abc import Mapping, Sequence
 from typing import Any
 
 from .. import random as tio_random
-from .transform import Transform, record_history
+from .transform import Transform, apply_drawn
 
 
 @contextlib.contextmanager
@@ -91,7 +91,7 @@ class Compose(Transform):
                 coin_drawn = True
             batch = run_fused(batch, pending)
             pending = []
-            batch = _apply_drawn(t, batch) if coin_drawn else _run_child(t, batch)
+            batch = apply_drawn(t, batch) if coin_drawn else _run_child(t, batch)
         return run_fused(batch, pending)
 
     def __iter__(self):
@@ -267,15 +267,6 @@ def _check_consistent_schema(subjects: list[Any], name: str) -> None:
                 f" schema-preserving transforms with per-instance {name},"
                 " or pass per_instance=False."
             )
-
-
-def _apply_drawn(transform: Transform, batch):
-    """``Transform.forward`` after its p-gate coin: draw the parameters,
-    apply them and record the history."""
-    params = transform.make_params(batch)
-    batch = transform.apply_transform(batch, params)
-    record_history(batch, transform, params)
-    return batch
 
 
 def _run_child(transform: Transform, batch):

@@ -17,6 +17,11 @@ stage, and keeps the contract that matters to users:
   elements bit-exact); statistics computed on the device come back as
   the apply's aux output, and the stage's ``finish`` puts them into the
   history as :class:`DeferredParam` entries.
+
+On a sharded batch a stage with ``takes_sharded`` (the per-instance
+Blur: halo taps along a sharded axis) takes the DTensors; a run of the
+other stages takes the whole tensors, gathered once, and the batch's
+setter places what the chain leaves.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import random as tio_random
-from ..core.dtypes import cast_like_jax
+from ..parallel.mesh import is_dtensor, place
 from .transform import DeferredParam, Transform, record_history
 
 
@@ -46,6 +51,8 @@ class FusedStage:
     params: dict
     #: optional ``(aux, params) -> None`` run after the chain
     finish: Callable | None = None
+    #: the apply takes a sharded image's DTensor (else its whole tensor)
+    takes_sharded: bool = False
 
 
 def run_fused(batch, stages: list[tuple[Transform, FusedStage]]):
@@ -56,6 +63,7 @@ def run_fused(batch, stages: list[tuple[Transform, FusedStage]]):
     datas = {n: batch.images[n].data for n in names}
     auxes = []
     for _, stage in stages:
+        datas = _as_stage_takes(batch, datas, stage.takes_sharded)
         datas, aux = stage.apply(datas, stage.args)
         auxes.append(aux)
     for n in names:
@@ -65,6 +73,21 @@ def run_fused(batch, stages: list[tuple[Transform, FusedStage]]):
             stage.finish(aux, stage.params)
         record_history(batch, transform, stage.params)
     return batch
+
+
+def _as_stage_takes(batch, datas: dict, takes_sharded: bool) -> dict:
+    """Each sharded image's data as the next stage takes it: placed on the
+    mesh (no communication) or whole (gathered, once for a run of such
+    stages)."""
+    out = {}
+    for name, data in datas.items():
+        sharding = batch.images[name].sharding
+        if sharding is not None and takes_sharded:
+            data = place(data, sharding)
+        elif sharding is not None and is_dtensor(data):
+            data = data.full_tensor()
+        out[name] = data
+    return out
 
 
 def gate_coin(transform: Transform, batch) -> bool:
@@ -165,7 +188,7 @@ def gamma_apply(names: tuple[str, ...]):
 def blur_apply(names: tuple[str, ...], truncate: float):
     """Per-element blur; ``args[name]`` is (B, 3) voxel sigmas, the static
     radii and the rows that blur (the others stay bit-exact)."""
-    from ..ops.gaussian import blur_per_element
+    from ..ops.gaussian import _cast, blur_per_element
     from ._utils import restore_gated
 
     def apply(datas, args):
@@ -176,7 +199,7 @@ def blur_apply(names: tuple[str, ...], truncate: float):
                 continue
             data = out[nm]
             sig = torch.as_tensor(sig_vox.astype(np.float32), device=data.device)
-            res = cast_like_jax(blur_per_element(data, sig, radii, truncate), data.dtype)
+            res = _cast(blur_per_element(data, sig, radii, truncate), data.dtype)
             out[nm] = restore_gated(res, data, row_keep)
         return out, None
 

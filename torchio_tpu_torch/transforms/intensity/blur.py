@@ -20,7 +20,12 @@ from ..transform import IntensityTransform
 
 
 class Blur(IntensityTransform):
-    r"""Gaussian blur with per-axis standard deviations sampled in mm."""
+    r"""Gaussian blur with per-axis standard deviations sampled in mm.
+
+    On a sharded batch an axis the mesh splits takes halo taps (see
+    :mod:`...ops.gaussian`), fused or not."""
+
+    takes_sharded = True
 
     def __init__(self, *, std: Any = 0.0, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -90,6 +95,7 @@ class Blur(IntensityTransform):
             apply=blur_apply(names, 3.0),
             args=args,
             params=params,
+            takes_sharded=True,
         )
 
     def _radius_bound(self, img_batch: ImagesBatch) -> tuple[int, int, int]:

@@ -47,6 +47,18 @@ them. The inverse (:class:`_SpatialInverse`) inverts the matrices in
 float64, negates the control points, flips ``affine_first`` and resamples
 to the recorded original space. A target given as a file path gives the
 file's shape and affine, read from its header alone.
+
+On a batch sharded over a device mesh with J split (``shard_(mesh,
+spatial=True)``), an image resampled by a map that keeps its space and
+is not axis-aligned, linear or nearest, goes through the halo program
+(:func:`torchio_tpu_torch.parallel.halo.halo_resample_spec`), as in the
+JAX package: each rank resamples its J slab from its slab and its
+neighbours' halos with the dense-coordinate kernel, and nothing gathers
+the volume; the "minimum" fill is each rank's minimum reduced over the
+``space`` group. A halo wider than a slab warns and takes the all-gather
+path. Every other resample of a sharded batch (label maps, orders 2-7,
+a new space, axis-aligned maps) runs on the whole tensor, and the batch
+places the result again.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from ...data.image import Image, LabelMap, ScalarImage
 from ...ops.bspline import bspline_resample, bspline_resample_fused
 from ...ops.gaussian import gaussian_blur
 from ...ops.resample import resample, resample_fused, resample_label_fused
+from ...parallel.mesh import NamedSharding, from_local, is_dtensor, local_slices, sharding_of
 from .._utils import unique_labels
 from ..parameter_range import Choice, _is_distribution, _ParameterRange
 from ..transform import SpatialTransform
@@ -315,6 +328,22 @@ def _border_values(data: torch.Tensor) -> np.ndarray:
     return flat.detach().cpu().numpy()
 
 
+def _sharded_minimum(data, sharding: NamedSharding):
+    """The per-element, per-channel minimum of a sharded batch: each
+    rank's minimum over its region, reduced over the mesh axes that split
+    the spatial axes; a (B, C) DTensor holding each rank's rows."""
+    import torch.distributed as dist
+
+    local = data.to_local()
+    if local.dtype in (torch.uint16, torch.uint32):  # torch has no amin for them
+        local = local.to(torch.int64)
+    rows = torch.amin(local, dim=(-3, -2, -1))
+    spec = sharding.padded()
+    for axis in {a for a in spec[2:] if a is not None}:
+        dist.all_reduce(rows, op=dist.ReduceOp.MIN, group=sharding.mesh.get_group(axis))
+    return from_local(rows, NamedSharding(sharding.mesh, (spec[0],)), data.shape[:2])
+
+
 def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_label):
     """Out-of-bounds fill: a number; a (B, C) tensor of per-element,
     per-channel minima computed on the batch's device ("minimum"); or a
@@ -331,12 +360,15 @@ def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_
         )
     if default_pad_value == "minimum":
         data = img_batch.data
+        if is_dtensor(data):
+            return _sharded_minimum(data, img_batch.sharding)
         if data.dtype in (torch.uint16, torch.uint32):  # torch has no amin for them
             data = data.to(torch.int64)
         return torch.amin(data, dim=(-3, -2, -1))
     if default_pad_value not in ("mean", "otsu"):
         raise ValueError(f'Unknown default_pad_value "{default_pad_value}"')
-    borders = _border_values(img_batch.data)
+    data = img_batch.data
+    borders = _border_values(data.full_tensor() if is_dtensor(data) else data)
     values = np.zeros(borders.shape[:2], np.float32)
     for b in range(borders.shape[0]):
         for c in range(borders.shape[1]):
@@ -470,6 +502,9 @@ class Spatial(SpatialTransform):
             element and channel) for scalar images.
         default_pad_label: fill value for label maps.
     """
+
+    #: a J-sharded batch takes the halo program (see the module's head)
+    takes_sharded = True
 
     def __init__(
         self,
@@ -895,6 +930,9 @@ def _run_spatial_pipeline(
         is_label = issubclass(img_batch.image_class, LabelMap)
         interpolation = label_interpolation if is_label else image_interpolation
         if is_label and interpolation == LABEL_INTERPOLATION:
+            # the vote and the one-hot path run on the whole labels, as in
+            # the JAX package (its vote kernel is gated off when sharded)
+            data = data.full_tensor() if is_dtensor(data) else data
             sampled = _resample_label_partial_volume(
                 data, maps, fields, output_shape,
                 input_affine=input_affine,
@@ -913,12 +951,18 @@ def _run_spatial_pipeline(
             if antialias and not is_label:
                 source = _antialias(data, input_affine, output_affine)
             sampled = _dispatch_resample(
-                source, maps, fields, output_shape, mode=interpolation, fill=fill
+                source, maps, fields, output_shape, mode=interpolation, fill=fill,
+                sharding=img_batch.sharding if is_dtensor(source) else None,
             )
-            # the input dtype comes back after sampling (integer labels
-            # stay integer), saturating as XLA converts
-            sampled = cast_like_jax(sampled, data.dtype)
-        if keep_original is not None:
+            if not is_dtensor(sampled):
+                # the input dtype comes back after sampling (integer labels
+                # stay integer), saturating as XLA converts
+                sampled = cast_like_jax(sampled, data.dtype)
+        if is_dtensor(sampled):
+            sampled = _finish_halo(sampled, data, keep_original)
+        elif keep_original is not None:
+            if is_dtensor(data):
+                data = data.full_tensor()
             sampled = torch.where(keep_original, data.to(sampled.dtype), sampled)
         img_batch.data = sampled
         img_batch.affines = [
@@ -927,9 +971,70 @@ def _run_spatial_pipeline(
         ]
 
 
-def _dispatch_resample(data, maps, fields=None, out_shape=None, *, mode: str, fill):
+def _finish_halo(sampled, data, keep_original):
+    """The halo program's DTensor in the input's dtype, gated-out
+    elements restored from the input, each on this rank's rows."""
+    sharding = sharding_of(sampled)
+    local = cast_like_jax(sampled.to_local(), data.dtype)
+    if keep_original is not None:
+        rows = local_slices(sampled.shape, sharding)[0]
+        local = torch.where(keep_original[rows], data.to_local().to(local.dtype), local)
+    return from_local(local, sharding, sampled.shape)
+
+
+def _spatial_shard_axis(sharding):
+    """The mesh axis name splitting J, or None (for anything but a
+    :class:`~torchio_tpu_torch.parallel.mesh.NamedSharding`)."""
+    spec = getattr(sharding, "spec", None)
+    if spec is None:
+        return None
+    return (tuple(spec) + (None,) * 5)[3]
+
+
+def _axis_aligned(matrix) -> bool:
+    """Whether a 4x4 map's 3x3 part is exactly diagonal."""
+    rot = np.asarray(matrix, np.float64)[:3, :3]
+    return not np.any(rot - np.diag(np.diag(rot)) != 0.0)
+
+
+def _halo_route(data, maps, fields, out_shape, *, mode: str, fill, sharding):
+    """The halo program's DTensor, or None where the JAX package would not
+    take it (after a warning where the halo does not fit)."""
+    from ...parallel.halo import HaloUnsupported, halo_resample_spec
+
+    if (
+        sharding is None
+        or isinstance(maps, torch.Tensor)
+        or mode not in ("linear", "nearest")
+        or _spatial_shard_axis(sharding) is None
+    ):
+        return None
+    same_space = tuple(int(s) for s in out_shape) == tuple(data.shape[-3:])
+    # axis-aligned maps shard cleanly in the JAX package (separable
+    # matmuls); here they run on the whole tensor
+    axis_aligned = all(f is None and _axis_aligned(m) for m, f in zip(maps, fields))
+    if not same_space or axis_aligned:
+        return None
+    try:
+        return halo_resample_spec(data, maps, fields, sharding=sharding, mode=mode, fill=fill)
+    except HaloUnsupported as reason:
+        warnings.warn(
+            f"Spatially-sharded resample fell back to the all-gather path: {reason}",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+        return None
+
+
+def _dispatch_resample(
+    data, maps, fields=None, out_shape=None, *, mode: str, fill, sharding=None
+):
     """Orders 2-7 through the B-spline path, 0-1 through the
     trilinear/nearest resample; float32 out.
+
+    A sharded ``data`` (a DTensor, placed by ``sharding``) takes the halo
+    program where the JAX package takes it (:func:`_halo_route`: a DTensor
+    comes back); otherwise it is gathered and resampled whole.
 
     ``maps`` is either a dense coordinate tensor (a shared (Io, Jo, Ko, 3)
     grid or (B, Io, Jo, Ko, 3) per-element grids; ``fields`` and
@@ -938,6 +1043,15 @@ def _dispatch_resample(data, maps, fields=None, out_shape=None, *, mode: str, fi
     with their coarse ``fields`` and ``out_shape``, routed to the fused
     resamples."""
     order = _INTERPOLATION_TO_ORDER[mode]
+    if is_dtensor(data):
+        routed = _halo_route(
+            data, maps, fields, out_shape, mode=mode, fill=fill, sharding=sharding
+        )
+        if routed is not None:
+            return routed
+        data = data.full_tensor()
+    if is_dtensor(fill):
+        fill = fill.full_tensor()
     if isinstance(maps, torch.Tensor):
         if order >= 2:
             return bspline_resample(data, maps, order=order, fill=fill)
@@ -1018,6 +1132,8 @@ def _resample_label_partial_volume(
 class _SpatialInverse(SpatialTransform):
     """Concrete inverse of Spatial: exact affine inverse, negated elastic
     field, flipped ordering, resample to the recorded original space."""
+
+    takes_sharded = True
 
     def __init__(
         self,

@@ -12,10 +12,16 @@ Execution contract:
   host RNG stream as the JAX package.
 - ``apply_transform(batch, params)`` runs on the batch's device with
   torch ops and the package's kernels.
+
+On a batch sharded over a device mesh (``SubjectsBatch.shard_``), a
+transform whose ``takes_sharded`` is True (Spatial, Blur) takes the
+DTensors and exchanges halos itself; every other transform draws and
+applies inside :func:`..data.batch.gathered`, on the whole tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy as _copy
 import inspect
 import warnings
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import random as tio_random
-from ..data.batch import ImagesBatch, SubjectsBatch
+from ..data.batch import ImagesBatch, SubjectsBatch, gathered
 from ..data.image import Image, ScalarImage
 from ..data.subject import Subject
 
@@ -184,6 +190,18 @@ def record_history(batch: SubjectsBatch, transform: "Transform", params: dict) -
     )
 
 
+def apply_drawn(transform: "Transform", batch: SubjectsBatch) -> SubjectsBatch:
+    """``Transform.forward`` after its p-gate coin: draw the parameters,
+    apply them and record the history (on whole tensors unless the
+    transform takes a sharded batch's DTensors)."""
+    scope = contextlib.nullcontext() if transform.takes_sharded else gathered(batch)
+    with scope:
+        params = transform.make_params(batch)
+        batch = transform.apply_transform(batch, params)
+    record_history(batch, transform, params)
+    return batch
+
+
 class Transform:
     """Abstract base for all transforms.
 
@@ -236,9 +254,7 @@ class Transform:
             and float(tio_random.random()) >= self.p
         ):
             return unwrap(batch)
-        params = self.make_params(batch)
-        batch = self.apply_transform(batch, params)
-        record_history(batch, self, params)
+        batch = apply_drawn(self, batch)
         result = unwrap(batch)
         if isinstance(result, (Subject, Image, ImagesBatch)):
             result.applied_transforms = list(batch.applied_transforms)
@@ -247,6 +263,10 @@ class Transform:
     #: False in transforms that delegate to children which record their
     #: own (invertible) history entries (CropOrPad -> Pad + Crop).
     _records_history = True
+
+    #: True where ``make_params``/``apply_transform`` take a sharded
+    #: batch's DTensors (Spatial's halo resample, Blur's halo taps)
+    takes_sharded = False
 
     # --- Per-instance machinery ---
 
