@@ -316,6 +316,7 @@ import json
 import math
 import os
 import random
+import re
 import shutil
 import statistics
 import struct
@@ -393,9 +394,9 @@ SASS_ALU = (
     "IABS", "FLO", "POPC", "BMSK", "SGXT", "LOP", "MOV", "P2R", "R2P", "PLOP3", "VIADD",
 )
 SASS_FMA = ("IMAD", "FADD", "FMUL", "FFMA", "FCHK", "I2F", "F2I", "IMUL")
-#: threefry::segments_kernel<true, unsigned int>: the normals kernel of
-#: csrc/threefry.cu below 2^31 elements
-THREEFRY_SASS_KERNEL = "_ZN8threefry15segments_kernelILb1EjEEvPvNS_5TableE"
+#: threefry::segments_kernel<true, false, unsigned int>: the normals
+#: kernel of csrc/threefry.cu below 2^31 elements, no segment strided
+THREEFRY_SASS_KERNEL = "_ZN8threefry15segments_kernelILb1ELb0EjEEvPvNS_5TableE"
 
 
 def fail(message: str) -> None:
@@ -4927,15 +4928,16 @@ def parent_threefry():
     lib.tio_threefry_segments.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_void_p]
 
-    class Row(ctypes.Structure):  # the parent's 80-byte Segment
+    class Row(ctypes.Structure):  # the parent's 88-byte Segment
         _fields_ = [
             ("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32), ("inject", ctypes.c_uint32 * 10),
             ("offset", ctypes.c_longlong), ("count", ctypes.c_longlong),
-            ("scale", ctypes.c_float), ("first_block", ctypes.c_int), ("blocks", ctypes.c_int),
+            ("start", ctypes.c_longlong), ("scale", ctypes.c_float),
+            ("first_block", ctypes.c_int), ("blocks", ctypes.c_int),
         ]
 
-    if ctypes.sizeof(Row) != 80:
-        fail(f"the parent's segment row is {ctypes.sizeof(Row)} bytes, not 80")
+    if ctypes.sizeof(Row) != 88:
+        fail(f"the parent's segment row is {ctypes.sizeof(Row)} bytes, not 88")
     return lib, Row
 
 
@@ -5046,8 +5048,9 @@ def grid_maps(np, b, shape, degrees, translation, displacement, seed):
 def parallel_headline(torch, tio, kl, mesh, smi):
     """The headline on ``SubjectsBatch.shard_(mesh, spatial=True)``:
     Spatial through the halo program (one dense-coordinate launch, no
-    grid-spec launch, no gather, no fallback), within 1e-4 of the
-    unsharded call on the same seed."""
+    grid-spec launch, no fallback), BiasField + Noise on the region, no
+    gather anywhere in the call, within 1e-4 of the unsharded call on the
+    same seed."""
     from torchio_tpu_torch.parallel.mesh import is_dtensor
 
     dev = torch.device(DEVICE)
@@ -5071,9 +5074,8 @@ def parallel_headline(torch, tio, kl, mesh, smi):
              " 0 resample")
     if launches["threefry_normal"] != THREEFRY_LAUNCHES["headline"]:
         fail(f"parallel headline: threefry launches {launches['threefry_normal']}")
-    if spy.inside("Spatial") or fallbacks:
-        fail(f"parallel headline: Spatial gathered {spy.inside('Spatial')} or fell back"
-             f" {fallbacks}")
+    if spy.gathers or fallbacks:
+        fail(f"parallel headline: gathered {spy.gathers} or fell back {fallbacks}")
     err = float((data.full_tensor() - ref).abs().max())
     if not err <= PARALLEL_ATOL:
         fail(f"parallel headline: max abs {err} against the unsharded call")
@@ -5091,8 +5093,8 @@ def parallel_headline(torch, tio, kl, mesh, smi):
         times[name] = runs
     print(
         f"parallel headline: Compose([Spatial, BiasField, Noise], fuse=True) on B={B} x {S}^3"
-        f" shard_(mesh (1, 1), spatial=True): launches {launches}, gathers outside Spatial"
-        f" {[g for g, where in spy.gathers if where != 'Spatial']}, max abs {err:.3g} against the"
+        f" shard_(mesh (1, 1), spatial=True): launches {launches}, no gather in the call"
+        f" (BiasField + Noise on the region), max abs {err:.3g} against the"
         f" unsharded call; a call {min(times['sharded']) * 1e3:.1f} ms sharded,"
         f" {min(times['unsharded']) * 1e3:.1f} ms unsharded (best of 3, host clock); card: {smi}"
     )
@@ -5342,8 +5344,9 @@ def parallel_large(torch, np, tio, mesh, smi):
 def counter_base(torch, tr, tk):
     """The counter base on the card: each rank's rows of a (2, 2) and a
     (4, 1) layout drawn with ``start`` bit-equal to the slice of the
-    whole draw (and a base past 2^32 to the plain words); the kernel at
-    start = 0 timed against the parent's kernel (no base)."""
+    whole draw (and a base past 2^32 to the plain words); the kernel's
+    contiguous draw at start = 0 timed against the parent's kernel (a
+    base, no strided segments)."""
     import ctypes
 
     dev = torch.device(DEVICE)
@@ -5372,7 +5375,7 @@ def counter_base(torch, tr, tk):
     row = (Row * 1)()
     row[0].k0, row[0].k1 = segment.key
     row[0].inject[:] = segment.inject
-    row[0].offset, row[0].count, row[0].scale = 0, n, 1.0
+    row[0].offset, row[0].count, row[0].start, row[0].scale = 0, n, 0, 1.0
 
     def parent():
         err = lib.tio_threefry_segments(out.data_ptr(), ctypes.addressof(row), 1, 1,
@@ -5397,12 +5400,363 @@ def counter_base(torch, tr, tk):
             "ratio": ms / parent_ms}
 
 
+def strided_cases(tr, tk):
+    """(name, keys, shapes of the whole draws, regions (b0, bl, j0, jl),
+    bases, scales) of the strided-segment checks: a run that is a
+    multiple of 4 (the headline's J half slab) and runs that are not, a
+    base past 2^32, and a full table (MAX_SEGMENTS strided segments in
+    one launch)."""
+    many = tr.split(tr.prng_key(11), tk.MAX_SEGMENTS)
+    table = [(2, 3, 5 + i % 7, 17 + i, 3 + i % 5) for i in range(len(many))]
+    return (
+        (f"J half slab of B={B} x {S}^3", [tr.draw_key(2024, 1)], [(B, C, S, S, S)],
+         [(0, B, S // 2, S // 2)], [0], None),
+        ("runs of 91 (b0 = 1)", [tr.prng_key(3)], [(3, 2, 5, 37, 7)], [(1, 2, 11, 13)], [0],
+         [0.75]),
+        ("runs of 561 past 2^32", [tr.prng_key(4)], [(2, 1, 64, 40, 33)], [(0, 2, 10, 17)],
+         [2**32 - 5000], None),
+        (f"full table of {len(many)}", many, table,
+         [(1, 1, i % 3, 1 + i % 11) for i in range(len(many))],
+         [(2**32 - 3000) * (i % 2) for i in range(len(many))],
+         [float(i - 19) / 8 for i in range(len(many))]),
+    )
+
+
+def strided_segments(torch, tr, tk, kl, smi):
+    """The strided segment on the card: each region's words equal to the
+    plain version's, its normals within NORMAL_ATOL of the plain ones (and
+    the half slab bit-equal to the same elements of the kernel's whole
+    draw), one launch a table; then the headline's Noise draw timed
+    contiguous, as a J half slab and as a J quarter slab."""
+    dev = torch.device(DEVICE)
+    worst, lines = 0.0, []
+    for name, keys, shapes, regions, bases, scales in strided_cases(tr, tk):
+        spans = [tr.slab_span(shape, *region) for shape, region in zip(shapes, regions)]
+        starts = [base + span[0] for base, span in zip(bases, spans)]
+        counts = [span[1] for span in spans]
+        runs = [span[2] for span in spans]
+        pitches = [span[3] for span in spans]
+        before = kl.LAUNCHES["threefry_bits"], kl.LAUNCHES["threefry_normal"]
+        words = tk.threefry_segments_cuda(keys, counts, None, dev, normal=False, starts=starts,
+                                          runs=runs, pitches=pitches)
+        got = tk.threefry_segments_cuda(keys, counts, scales, dev, starts=starts, runs=runs,
+                                        pitches=pitches)
+        grown = kl.LAUNCHES["threefry_bits"] - before[0], kl.LAUNCHES["threefry_normal"] - before[1]
+        if grown != (1, 1):
+            fail(f"strided segments {name}: launches {grown}, expected one of each")
+        offset, err = 0, 0.0
+        for s, key in enumerate(keys):
+            piece = slice(offset, offset + counts[s])
+            plain = tr.bits_plain(key, starts[s], counts[s], dev, runs[s], pitches[s])
+            if not torch.equal(words[piece], tr.as_uint32(plain).view(torch.int32)):
+                fail(f"strided segments {name}: segment {s}'s words differ from the plain words")
+            normal = tr.normal_of_bits(plain)
+            if scales is not None:
+                normal = normal * torch.tensor(scales[s], dtype=torch.float32, device=dev)
+            err = max(err, float((got[piece] - normal).abs().max()))
+            offset += counts[s]
+            del plain, normal
+        if not err <= NORMAL_ATOL:
+            fail(f"strided segments {name}: normals max abs {err}")
+        if len(keys) == 1 and bases[0] == 0 and scales is None:
+            whole = tk.threefry_normal_cuda(keys[0], shapes[0], dev)
+            b0, bl, j0, jl = regions[0]
+            slab = whole[b0:b0 + bl, :, :, j0:j0 + jl]
+            if not torch.equal(got.reshape(slab.shape), slab):
+                fail(f"strided segments {name}: not the whole draw's slab")
+            del whole, slab
+        worst = max(worst, err)
+        lines.append(f"{name} ({sum(counts):,} elements, runs % 4 = {sorted({r % 4 for r in runs})})")
+        del words, got
+    torch.cuda.empty_cache()
+    key = tr.draw_key(2024, 1)
+    shape = (B, C, S, S, S)
+    times = {}
+    for parts in (1, 2, 4):
+        start, count, run, pitch = tr.slab_span(shape, 0, B, S // parts, S // parts)
+        if parts == 1:
+            start, count, run, pitch = 0, math.prod(shape), math.prod(shape), math.prod(shape)
+
+        def draw(start=start, count=count, run=run, pitch=pitch):
+            return tk.threefry_segments_cuda([key], [count], None, dev, starts=[start],
+                                             runs=[run], pitches=[pitch])
+
+        ms = cuda_time_ms(torch, draw, 20)
+        times[parts] = {"elements": count, "ms": ms, "ns_per_element": ms * 1e6 / count}
+    # the contiguous draw beside a strided segment of 4 elements: the launch
+    # runs the strided instantiation, whose loop takes a one-run segment
+    # behind a uniform branch (what one instantiation for both would cost)
+    n = math.prod(shape)
+
+    def contiguous():
+        return tk.threefry_segments_cuda([key], [n], None, dev)
+
+    def beside_strided():
+        return tk.threefry_segments_cuda([key, key], [n, 4], None, dev, starts=[0, 0],
+                                         runs=[n, 2], pitches=[n, 4])
+
+    if not torch.equal(beside_strided()[:n], contiguous()):
+        fail("strided segments: the contiguous draw differs beside a strided segment")
+    order, own_ms, shared_ms = time_pair(torch, contiguous, beside_strided, 20, 20)
+    print(
+        f"strided segments vs plain: {'; '.join(lines)}: words equal, normals max abs"
+        f" {worst:.3g} (limit {NORMAL_ATOL}), the half slab equal to the whole draw's; the"
+        f" headline's Noise draw (B={B} x {S}^3 normals, CUDA events, 20 launches):"
+        f" contiguous {times[1]['ms']:.4f} ms, a J half slab (rank 1 of (1, 2))"
+        f" {times[2]['ms']:.4f} ms, a J quarter slab (rank 1 of (1, 4)) {times[4]['ms']:.4f} ms;"
+        f" ns an element {times[1]['ns_per_element']:.4f}, {times[2]['ns_per_element']:.4f},"
+        f" {times[4]['ns_per_element']:.4f}; the contiguous draw in its own instantiation"
+        f" {own_ms:.4f} ms, in the strided one (beside 4 strided elements) {shared_ms:.4f} ms"
+        f" (own, strided, own, strided: {', '.join(f'{t:.4f}' for t in order)}), ratio"
+        f" {shared_ms / own_ms:.4f}; card: {smi}"
+    )
+    return {"max_abs_err": worst, "draws": {f"1/{k}": v for k, v in times.items()},
+            "contiguous_in_strided_ratio": shared_ms / own_ms}
+
+
+def parallel_pipelines(torch, tio, kl, mesh, smi):
+    """config 1 (Flip + Noise + RescaleIntensity, fused), config 2 (Blur +
+    BiasField + Gamma) and brats-preprocess-fused (Clamp + ZNormalization +
+    Mask) on ``shard_(mesh, spatial=True)``: no gather in the call, the
+    output still on the mesh, equal to the unsharded call on the same
+    seed (config 2's Blur takes halo taps along J: within PARALLEL_ATOL)."""
+    from torchio_tpu_torch.parallel.mesh import is_dtensor
+
+    dev = torch.device(DEVICE)
+    report = {}
+    cases = (
+        ("config1-flip-noise-rescale", config1_pipeline,
+         lambda: make_batch(tio, torch, B, CONFIG1_SHAPE, dev, 1), 0.0),
+        ("config2-blur-bias-gamma", config2_pipeline,
+         lambda: make_batch(tio, torch, B, (S, S, S), dev, 2), PARALLEL_ATOL),
+        ("brats-preprocess-fused", brats_preprocess,
+         lambda: make_brats_batch(tio, torch, BRATS_B, BRATS_SHAPE, dev, 0), 0.0),
+    )
+    for name, make_pipeline, make, atol in cases:
+        batch = make()
+        tio.seed(PARALLEL_SEED)
+        ref = make_pipeline(tio)(copy.deepcopy(batch))
+        sharded = copy.deepcopy(batch).shard_(mesh, spatial=True)
+        tio.seed(PARALLEL_SEED)
+        with GatherSpy(torch, tio) as spy:
+            out = make_pipeline(tio)(sharded)
+            torch.cuda.synchronize()
+        if spy.gathers:
+            fail(f"parallel {name}: gathers in the sharded call {spy.gathers}")
+        errs = {}
+        for image, ib in out.images.items():
+            if not is_dtensor(ib.data) or ib.sharding is None:
+                fail(f"parallel {name}: {image} is not on the mesh after the call")
+            got = ib.data.full_tensor()
+            want = ref.images[image].data
+            errs[image] = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+            if not errs[image] <= atol:
+                fail(f"parallel {name}: {image} max abs {errs[image]} against the unsharded call")
+        if [t.name for t in out.applied_transforms] != [t.name for t in ref.applied_transforms]:
+            fail(f"parallel {name}: histories differ")
+        report[name] = errs
+        del batch, ref, sharded, out
+        torch.cuda.empty_cache()
+    print(
+        f"parallel pipelines on shard_(mesh (1, 1), spatial=True): no gather in any call;"
+        f" max abs against the unsharded call {report}; card: {smi}"
+    )
+    return report
+
+
+def bias_noise(tio):
+    """The headline's pointwise stages: BiasField + Noise, fused."""
+    return tio.Compose([tio.BiasField(std=0.5), tio.Noise(std=0.1)], fuse=True)
+
+
+def shard_worker(rank: int, world: int, port: int) -> None:
+    """One of ``world`` processes sharing the card in a gloo group: the
+    headline's BiasField + Noise on its J slab of a (1, world) layout,
+    against its slab of the unsharded call; prints one JSON line."""
+    import json as json_mod
+
+    import torch
+    import torch.distributed as dist
+
+    import torchio_tpu_torch as tio
+    from torchio_tpu_torch.parallel import make_mesh
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        dev = torch.device(DEVICE)
+        mesh = make_mesh(DEVICE, space=world)
+        batch = make_batch(tio, torch, B, (S, S, S), dev, PARALLEL_SEED)
+        tio.seed(PARALLEL_SEED)
+        ref = bias_noise(tio)(copy.deepcopy(batch)).t1.data
+        jl = S // world
+        want = ref[:, :, :, rank * jl:(rank + 1) * jl].cpu()  # off the card: not in the peak
+        del ref
+        batch.shard_(mesh, spatial=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tio.seed(PARALLEL_SEED)
+        out = bias_noise(tio)(batch).t1.data
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        local = out.to_local()
+        print(json_mod.dumps({
+            "rank": rank, "equal": bool(torch.equal(local.cpu(), want)),
+            "local_shape": list(local.shape), "resident": resident, "peak": peak,
+        }))
+    finally:
+        dist.destroy_process_group()
+
+
+#: what gloo says where it refuses an op on a CUDA tensor: the one
+#: failure of the processes that sends the layouts to the simulated shards
+GLOO_REFUSES_CUDA = (
+    r"ProcessGroupGloo::\w+: unsupported device type"
+    r"|No backend type associated with device type cuda"
+    r"|a Tensor with unexpected device type"
+)
+
+
+def shard_processes(world: int, timeout: float = 240.0, prelude: str = ""):
+    """``world`` processes of :func:`shard_worker` on the one card; their
+    JSON lines, and for each process that failed its error: the tail of
+    its standard error, or the time it outlived (every process
+    stopped). ``prelude``: Python run in each process before the
+    worker."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = Path(__file__).resolve().parent
+    code = prelude + f"\nimport chip_smoke as cs; cs.shard_worker({{}}, {world}, {port})"
+    procs = [
+        subprocess.Popen([sys.executable, "-c", code.format(rank)], cwd=here,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(world)
+    ]
+    results, errors = [], []
+    deadline = time.time() + timeout
+    try:
+        for proc in procs:
+            try:
+                out, err = proc.communicate(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                errors.append(f"a process did not finish in {timeout:.0f} s")
+                break
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            if proc.returncode != 0 or not lines:
+                tail = "\n".join(err.strip().splitlines()[-12:])
+                errors.append(f"rc {proc.returncode}, no JSON line" if not tail else tail)
+            else:
+                results.append(json.loads(lines[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results, errors
+
+
+def simulated_bias_noise(torch, tio, world: int, batch, ref, params):
+    """Each shard's local program of BiasField + Noise on a (1, world)
+    layout (a region cut by hand: no process group), from the unsharded
+    call's recorded params; each output slab against the unsharded one,
+    with its peak memory."""
+    import numpy as np
+
+    from torchio_tpu_torch.parallel.mesh import Region
+    from torchio_tpu_torch.transforms.intensity.bias_field import biased_region
+    from torchio_tpu_torch.transforms.intensity.noise import noisy_region
+
+    bias, noise = params
+    x = batch.t1.data
+    jl = S // world
+    report = []
+    for s in range(world):
+        slab = x[:, :, :, s * jl:(s + 1) * jl].contiguous()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        region = Region(slab, tuple(x.shape), (0, 0, 0, s * jl, 0))
+        out = biased_region(region, np.asarray(bias["std"], np.float32), bias["seed"],
+                            bias["scale"], False)
+        mean = torch.as_tensor(noise["mean"], device=slab.device).reshape(-1, 1, 1, 1, 1)
+        std = torch.as_tensor(noise["std"], device=slab.device).reshape(-1, 1, 1, 1, 1)
+        out = noisy_region(noise["seed"], 0, Region(out, tuple(x.shape), region.starts), mean,
+                           std, False)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        equal = torch.equal(out, ref[:, :, :, s * jl:(s + 1) * jl])
+        report.append({"rank": s, "equal": bool(equal), "local_shape": list(out.shape),
+                       "resident": resident, "peak": peak})
+        del slab, out
+    return report
+
+
+def parallel_local_programs(torch, tio, smi):
+    """The headline's BiasField + Noise on each shard of a (1, 2) and a
+    (1, 4) layout, against the unsharded call's slabs, with peak memory:
+    first as 2 and 4 processes sharing the card in a gloo group; where
+    that fails, as each shard's local program in this process."""
+    dev = torch.device(DEVICE)
+    batch = make_batch(tio, torch, B, (S, S, S), dev, PARALLEL_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tio.seed(PARALLEL_SEED)
+    out = bias_noise(tio)(copy.deepcopy(batch))
+    torch.cuda.synchronize()
+    whole_peak = torch.cuda.max_memory_allocated()
+    ref = out.t1.data
+    params = [t.params for t in out.applied_transforms]
+    report = {"unsharded": {"resident": resident, "peak": whole_peak}}
+    for world in PARALLEL_LAYOUTS:
+        results, errors = shard_processes(world)
+        route = "processes"
+        if errors or len(results) != world:
+            refusals = [m for e in errors for m in re.findall(f".*(?:{GLOO_REFUSES_CUDA}).*", e)]
+            if not refusals:
+                fail(f"BiasField + Noise as {world} processes sharing the card in a gloo group:"
+                     f" {len(results)} of {world} gave a result; their errors:\n"
+                     + "\n---\n".join(errors))
+            route = f"simulated (gloo refused a CUDA tensor: {refusals[0].strip()})"
+            results = simulated_bias_noise(torch, tio, world, batch, ref, params)
+        bad = [r["rank"] for r in results if not r["equal"]]
+        if bad:
+            fail(f"BiasField + Noise on (1, {world}) ({route}): shards {bad} differ from their slab")
+        report[f"(1, {world})"] = {"route": route, "shards": results}
+    del batch, out, ref
+    torch.cuda.empty_cache()
+    mib = 2**20
+    print(
+        "BiasField + Noise on each shard's slab (equal to the unsharded call's slab): unsharded"
+        f" B={B} x {S}^3 peak {whole_peak / mib:.0f} MiB (input resident {resident / mib:.0f}"
+        " MiB); " + "; ".join(
+            f"{layout} by {entry['route']}: peaks "
+            f"{[round(r['peak'] / mib) for r in entry['shards']]} MiB (resident "
+            f"{[round(r['resident'] / mib) for r in entry['shards']]} MiB)"
+            for layout, entry in report.items() if layout != "unsharded"
+        ) + f"; card: {smi}"
+    )
+    return report
+
+
 def phase_parallel(torch, np, tio, tr, tk, kl, smi):
     """torch.distributed on the card: a one-rank NCCL group and its (1, 1)
     mesh; the headline on a J-sharded batch; each shard's local program of
     a (1, 2) and a (1, 4) layout fed its neighbours' halos; the fused
     step; sharded patch inference; a 256 MiB volume file to file; the
-    threefry counter base."""
+    threefry counter base; the strided segment against its plain version
+    and the headline's Noise draw as J slabs; configs 1 and 2 and
+    brats-preprocess-fused sharded with no gather; the headline's
+    BiasField + Noise on each shard of (1, 2) and (1, 4), as processes
+    sharing the card in a gloo group (or each shard's local program)."""
     import torch.distributed as dist
 
     from torchio_tpu_torch.parallel import halo as halo_mod
@@ -5426,11 +5780,15 @@ def phase_parallel(torch, np, tio, tr, tk, kl, smi):
         parallel_inference(torch, np, tio, mesh)
         parallel_large(torch, np, tio, mesh, smi)
         counter = counter_base(torch, tr, tk)
+        strided = strided_segments(torch, tr, tk, kl, smi)
+        pipelines = parallel_pipelines(torch, tio, kl, mesh, smi)
     finally:
         dist.destroy_process_group()
+    local_programs = parallel_local_programs(torch, tio, smi)
     print(f"parallel: {time.perf_counter() - t0:.1f} s; card: {smi}")
     return {"halo_launches": halo_launches, "simulated_launches": simulated,
-            "step": step_launches, "counter_base": counter}
+            "step": step_launches, "counter_base": counter, "strided": strided,
+            "pipelines": pipelines, "local_programs": local_programs}
 
 
 def main() -> int:
@@ -5631,10 +5989,13 @@ def main() -> int:
             " package, no Pallas kernel; launches on the headline, per path:"
             f" {threefry_paths}; torch.randn (Philox, not the same function)"
             f" {timings['threefry_normal']['randn_ms']:.3f} ms; the sharded step draws its"
-            " bias and noise rows in one launch from their counter bases:"
-            f" {parallel['step']['threefry_normal']} a call",
+            " bias rows and its noise region (a strided segment) in one launch:"
+            f" {parallel['step']['threefry_normal']} a call; strided segments (a rank's J slab)"
+            " against the plain version and the headline's Noise draw as a J half and quarter"
+            " slab under 'strided'",
             "path": "headline",
             "counter_base": parallel["counter_base"],
+            "strided": parallel["strided"],
         },
         {
             "name": "resample_diagonal",

@@ -1,7 +1,8 @@
-// The threefry kernel of csrc/threefry.cu as it was before the counter base
-// (an 80-byte Segment, counters from 0 in every segment), kept verbatim below
-// so that chip_smoke.py's parallel phase can time the kernel with its base at
-// start = 0 against this one in the same process.
+// The threefry kernel of csrc/threefry.cu as it was before strided segments
+// (an 88-byte Segment with a counter base, every segment one run of
+// counters), kept verbatim below so that chip_smoke.py's parallel phase can
+// time the kernel's contiguous draw at start = 0 against this one in the
+// same process.
 //
 // jax.random's threefry2x32 draws on NVIDIA Hopper (sm_90a): 32-bit
 // words (jax.random.bits) and float32 standard normals
@@ -15,12 +16,14 @@
 // plain versions are torchio_tpu_torch/random.py's bits_plain,
 // normal_of_bits and normals_plain.
 //
-// What element e of segment s (key (k0, k1), n_s elements) computes, in
-// registers:
-//   1. the counter pair (e >> 32, e & 0xFFFFFFFF), e counted from 0 in
-//      each segment: JAX's counter mode (jax_threefry_partitionable), in
-//      which an element's bits depend on its flat index alone, so a
-//      segment's words are those of a separate draw;
+// What element e of segment s (key (k0, k1), n_s elements, counter base
+// start_s) computes, in registers:
+//   1. the counter pair (c >> 32, c & 0xFFFFFFFF) of c = start_s + e:
+//      JAX's counter mode (jax_threefry_partitionable), in which an
+//      element's bits depend on its flat index alone, so a segment's
+//      words are those of a separate draw, and a segment with a start is
+//      elements [start, start + n) of a larger draw (a rank's batch rows
+//      of a draw of the whole batch);
 //   2. threefry2x32 of the pair: 20 rounds of add, rotate, xor, with the
 //      key schedule injected after every 4 (the ten injected words,
 //      k2 = k0 ^ k1 ^ 0x1BD11BDA plus the group's index, summed on the
@@ -78,7 +81,7 @@ constexpr int kVec = 4;
 // Segments a launch takes: the table is a kernel parameter, under the
 // 4 KB that every CUDA version accepts (ops/threefry_kernel.py's
 // MAX_SEGMENTS splits a longer list into launches of this many).
-constexpr int kMaxSegments = 48;
+constexpr int kMaxSegments = 46;
 // nextafterf(-1, 0) = -(1 - 2^-24): jax.random.normal's lower bound
 constexpr float kNormalLo = -0x1.fffffep-1f;
 constexpr float kSqrt2 = 1.41421356237309515f;
@@ -89,6 +92,7 @@ struct Segment {
   uint32_t inject[10];  // after group g of 4 rounds: x0 += inject[2 g], x1 += inject[2 g + 1]
   long long offset;     // the draw's first element in out
   long long count;      // its elements
+  long long start;      // the counter of its first element
   float scale;          // each normal times scale
   int first_block;      // its first block and its blocks (set by launch below)
   int blocks;
@@ -100,7 +104,7 @@ struct Table {
   Segment seg[kMaxSegments];
 };
 
-static_assert(sizeof(Segment) == 80, "ops/threefry_kernel.py's _Row mirrors Segment");
+static_assert(sizeof(Segment) == 88, "ops/threefry_kernel.py's _Row mirrors Segment");
 static_assert(sizeof(Table) <= 4096, "the table is a kernel parameter");
 
 // The elements of a segment at dst (4-byte aligned) before its first
@@ -204,12 +208,14 @@ __device__ __forceinline__ void normals_of(const uint32_t (&word)[kN], float sca
   }
 }
 
-// Element e of seg into dst[e] (dst: the segment's first element)
+// Element e of seg (counter base + e) into dst[e] (dst: the segment's
+// first element)
 template <bool kNormal, typename Index>
 __device__ __forceinline__ void scalar_element(void* dst, const Segment& seg, uint32_t one,
-                                               Index e) {
+                                               Index base, Index e) {
+  const Index c = base + e;
   const uint32_t w =
-      word_of<(sizeof(Index) > 4)>(seg, one, (uint32_t)((uint64_t)e >> 32), (uint32_t)e);
+      word_of<(sizeof(Index) > 4)>(seg, one, (uint32_t)((uint64_t)c >> 32), (uint32_t)c);
   if constexpr (kNormal) {
     const uint32_t word[1] = {w};
     float r[1];
@@ -220,8 +226,8 @@ __device__ __forceinline__ void scalar_element(void* dst, const Segment& seg, ui
   }
 }
 
-// Index: uint32_t when every segment of the launch is below 2^31
-// elements (the counter's high word is 0, and no index wraps), uint64_t
+// Index: uint32_t when every segment's start + count of the launch is
+// below 2^31 (the counter's high word is 0, and no index wraps), uint64_t
 // otherwise. A block serves one segment: its head (threads 0-2 of the
 // segment's first block), its vectors of kVec elements at a stride of
 // the segment's blocks, and its tail (threads 32-34 of the first block).
@@ -239,22 +245,24 @@ __global__ void __launch_bounds__(kThreads)
   const Index head = (Index)head_of(dst, seg.count);
   const Index vectors = ((Index)seg.count - head) / kVec;
   const Index block = (Index)(blockIdx.x - seg.first_block);
+  const Index base = (Index)seg.start;
   if (block == 0) {
     const Index tail = ((Index)seg.count - head) % kVec;
     if (threadIdx.x < head) {
-      scalar_element<kNormal>(dst, seg, one, (Index)threadIdx.x);
+      scalar_element<kNormal>(dst, seg, one, base, (Index)threadIdx.x);
     } else if (threadIdx.x >= 32 && threadIdx.x - 32 < tail) {
-      scalar_element<kNormal>(dst, seg, one, head + vectors * kVec + (threadIdx.x - 32));
+      scalar_element<kNormal>(dst, seg, one, base, head + vectors * kVec + (threadIdx.x - 32));
     }
   }
   const Index stride = (Index)seg.blocks * kThreads;
   for (Index v = block * kThreads + threadIdx.x; v < vectors; v += stride) {
     const Index e = head + v * kVec;
+    const Index c = base + e;  // the vector's first counter
     uint32_t w[kVec];
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
-      const Index ei = e + i;
-      w[i] = word_of<kWide>(seg, one, (uint32_t)((uint64_t)ei >> 32), (uint32_t)ei);
+      const Index ci = c + i;
+      w[i] = word_of<kWide>(seg, one, (uint32_t)((uint64_t)ci >> 32), (uint32_t)ci);
     }
     if constexpr (kNormal) {
       float r[kVec];
@@ -310,7 +318,8 @@ int launch(void* out, const Segment* segments, int nseg, int normal, cudaStream_
   long long most = 0;
   for (int s = 0; s < nseg; ++s) {
     table.seg[s] = segments[s];
-    most = segments[s].count > most ? segments[s].count : most;
+    const long long end = segments[s].start + segments[s].count;
+    most = end > most ? end : most;
   }
   if (most >= (1ll << 31)) {
     return normal ? launch_kernel<true, uint64_t>(out, table, sms, stream)

@@ -150,8 +150,10 @@ def mesh(space: int | None = None):
 class CollectiveSpy:
     """Counts, while active, every gather a rank could make (the
     ``torch.distributed`` all-gathers, the functional collectives DTensor
-    gathers with, ``DTensor.full_tensor``/``redistribute``), and the P2P
-    ops of each ``batch_isend_irecv`` call."""
+    gathers with, ``DTensor.full_tensor``/``redistribute``) with the
+    elements each one gathers (-1 where the call does not say), every
+    ``all_reduce`` and ``broadcast`` with its elements, and the P2P ops of
+    each ``batch_isend_irecv`` call."""
 
     GATHERS = ("all_gather", "all_gather_into_tensor", "all_gather_object", "_all_gather_base",
                "gather")
@@ -159,7 +161,23 @@ class CollectiveSpy:
 
     def __init__(self) -> None:
         self.gathers: list[str] = []
+        self.gather_elements: list[int] = []
+        self.reduces: list[int] = []
+        self.broadcasts: list[int] = []
         self.p2p: list[int] = []
+
+    @staticmethod
+    def _elements(name: str, args, kwargs) -> int:
+        """The elements a gather call brings together."""
+        if name in ("full_tensor", "redistribute") and args:
+            return int(args[0].numel())
+        if name == "all_gather":
+            tensors = args[0] if args else kwargs.get("tensor_list")
+            return sum(int(t.numel()) for t in tensors)
+        if name in ("all_gather_into_tensor", "_all_gather_base"):
+            out = args[0] if args else kwargs.get("output_tensor")
+            return int(out.numel())
+        return -1
 
     def __enter__(self):
         import torch.distributed as dist
@@ -172,19 +190,27 @@ class CollectiveSpy:
             real = getattr(owner, name)
 
             def spy(*args, **kwargs):
-                record(name, args)
+                record(name, args, kwargs)
                 return real(*args, **kwargs)
 
             self._saved.append((owner, name, real))
             setattr(owner, name, spy)
 
+        def gather(label):
+            def record(n, a, k):
+                self.gathers.append(label(n))
+                self.gather_elements.append(self._elements(n, a, k))
+            return record
+
         for name in self.GATHERS:
-            wrap(dist, name, lambda n, a: self.gathers.append(n))
+            wrap(dist, name, gather(lambda n: n))
         for name in self.FUNCOL:
-            wrap(funcol, name, lambda n, a: self.gathers.append(f"funcol.{n}"))
+            wrap(funcol, name, gather(lambda n: f"funcol.{n}"))
         for name in ("full_tensor", "redistribute"):
-            wrap(DTensor, name, lambda n, a: self.gathers.append(f"DTensor.{n}"))
-        wrap(dist, "batch_isend_irecv", lambda n, a: self.p2p.append(len(a[0])))
+            wrap(DTensor, name, gather(lambda n: f"DTensor.{n}"))
+        wrap(dist, "all_reduce", lambda n, a, k: self.reduces.append(int(a[0].numel())))
+        wrap(dist, "broadcast", lambda n, a, k: self.broadcasts.append(int(a[0].numel())))
+        wrap(dist, "batch_isend_irecv", lambda n, a, k: self.p2p.append(len(a[0])))
         return self
 
     def __exit__(self, *exc) -> None:
@@ -193,7 +219,13 @@ class CollectiveSpy:
 
     @property
     def counts(self) -> dict:
-        return {"gathers": list(self.gathers), "p2p": list(self.p2p)}
+        return {
+            "gathers": list(self.gathers),
+            "gather_elements": list(self.gather_elements),
+            "all_reduce": list(self.reduces),
+            "broadcast": list(self.broadcasts),
+            "p2p": list(self.p2p),
+        }
 
 
 def _whole(value):
@@ -356,6 +388,8 @@ def pipeline(recipe: str):
         return tt.Affine(degrees=(-8.0, 8.0), label_interpolation="label")
     if recipe == "noise":
         return tt.Noise(std=0.1)
+    if recipe == "motion":
+        return tt.Motion(degrees=5.0, translation=2.0)
     raise KeyError(recipe)
 
 
@@ -571,6 +605,115 @@ def job_normals(keys, shapes, starts):
     from torchio_tpu_torch import random as tr
 
     return tr.normals(keys, shapes, None, "cpu", starts=starts).numpy()
+
+
+def local_recipe(pkg, recipe: str) -> list:
+    """The transforms of a pointwise-stage recipe in ``pkg`` (this port or
+    the JAX package: the tests build both from the same name)."""
+    recipes = {
+        "noise": lambda: [pkg.Noise(std=(0.05, 0.2), p=0.7)],
+        "rician": lambda: [pkg.Noise(std=(0.05, 0.1), rician=True, p=0.7)],
+        "bias": lambda: [pkg.BiasField(std=(0.2, 0.5), p=0.7)],
+        "bias-shared": lambda: [pkg.BiasField(std=0.3, per_instance=False)],
+        "bias-noise": lambda: [pkg.BiasField(std=0.4), pkg.Noise(std=0.05)],
+        "gamma": lambda: [pkg.Gamma(log_gamma=(-0.3, 0.3), p=0.7)],
+        "clamp": lambda: [pkg.Clamp(out_min=0.2, out_max=0.8)],
+        "flip": lambda: [pkg.Flip(axes=(0, 1, 2), flip_probability=0.5, p=0.8)],
+        "flip-shared": lambda: [pkg.Flip(axes=(1, 2), per_instance=False)],
+        "znorm": lambda: [pkg.ZNormalization()],
+        "znorm-seg": lambda: [pkg.Clamp(out_min=0.1), pkg.ZNormalization(masking_method="seg")],
+        "mask": lambda: [pkg.Mask(masking_method="seg", labels=[1, 2], outside_value=-1.0)],
+        "rescale": lambda: [pkg.Noise(std=0.05), pkg.RescaleIntensity(out_min=0.0, out_max=1.0)],
+        "rescale-pct": lambda: [
+            pkg.RescaleIntensity(out_min=(0.0, 0.2), out_max=1.0, percentile_low=1.0,
+                                 percentile_high=99.0)
+        ],
+        "rescale-seg": lambda: [
+            pkg.RescaleIntensity(out_min=0.0, out_max=1.0, masking_method="seg",
+                                 percentile_low=2.0, percentile_high=98.0)
+        ],
+        "fill-mean": lambda: [pkg.Spatial(degrees=(-6.0, 6.0), default_pad_value="mean")],
+        "fill-otsu": lambda: [pkg.Spatial(degrees=(-6.0, 6.0), default_pad_value="otsu")],
+    }
+    return recipes[recipe]()
+
+
+def _history(batch) -> list:
+    return [(h.name, h.params, h.include, h.exclude) for h in batch.applied_transforms]
+
+
+def job_local(recipe, images, classes, seed):
+    """``recipe`` fused and unfused, on this rank's whole batch and on the
+    batch sharded over B and over B and J: each run's whole images, its
+    history, the next host draw and its collectives."""
+    import copy
+
+    import torchio_tpu_torch as tt
+
+    m = mesh(None)
+    base = _subjects_batch(images, classes)
+    out = {}
+    for fuse in (False, True):
+        for layout in (None, "B", "BJ"):
+            batch = copy.deepcopy(base)
+            if layout is not None:
+                batch.shard_(m, spatial=layout == "BJ")
+            pipeline = tt.Compose(local_recipe(tt, recipe), fuse=fuse)
+            tt.seed(seed)
+            with warnings.catch_warnings(record=True) as caught, CollectiveSpy() as spy:
+                warnings.simplefilter("always")
+                result = pipeline(batch)
+            out[(fuse, layout)] = {
+                "images": {n: _whole(ib.data) for n, ib in result.images.items()},
+                "sharded": {n: ib.sharding is not None for n, ib in result.images.items()},
+                "history": _history(result),
+                "draw": float(tt.random.random()),
+                "warnings": [str(w.message) for w in caught],
+                "spy": spy.counts,
+            }
+    return out
+
+
+def job_fills(images, kind, spatial):
+    """``_batch_fill_value``'s "mean"/"otsu" fills of a sharded batch
+    against the whole batch's, with the collectives of the sharded call."""
+    from torchio_tpu_torch.transforms.spatial.spatial import _batch_fill_value
+
+    m = mesh(None)
+    whole = _subjects_batch(images, {})
+    sharded = _subjects_batch(images, {}).shard_(m, spatial=spatial)
+    with CollectiveSpy() as spy:
+        got = _batch_fill_value(sharded.images["t1"], default_pad_value=kind,
+                                default_pad_label=0.0)
+    want = _batch_fill_value(whole.images["t1"], default_pad_value=kind, default_pad_label=0.0)
+    return {"got": _whole(got), "local": _local(got), "want": np.asarray(want),
+            "spy": spy.counts}
+
+
+def job_region_draws(key, shape, spatial):
+    """A rank's region of a draw through ``random.region_normals``, and
+    Noise's field on a sharded tensor."""
+    import torch
+
+    from torchio_tpu_torch import random as tr
+    from torchio_tpu_torch.parallel.mesh import batch_sharding, place, region_of
+
+    m = mesh(None)
+    sharding = batch_sharding(m)
+    if not spatial:
+        from torchio_tpu_torch.parallel.mesh import NamedSharding
+
+        sharding = NamedSharding(m, ("data",))
+    x = place(torch.zeros(shape), sharding)
+    region = region_of(x)
+    with CollectiveSpy() as spy:
+        got = tr.region_normals([key], region).reshape(region.local.shape)
+    whole = tr.normal(key, shape, "cpu")
+    return {
+        "equal": bool(torch.equal(got, whole[region.rows][:, :, :, region.cols])),
+        "starts": region.starts,
+        "spy": spy.counts,
+    }
 
 
 JOBS = {

@@ -81,14 +81,21 @@ def test_segments_with_starts_and_scales():
 
 def test_segment_record_matches_the_kernel():
     """``_Row`` is the kernel's ``Segment`` byte for byte, with the 64-bit
-    counter base after the count, and a launch's table of MAX_SEGMENTS
-    records stays a kernel parameter (4 KB)."""
+    counter base after the count and the strided segment's run and pitch
+    after it, and a launch's table of MAX_SEGMENTS records stays a kernel
+    parameter (4 KB): the cap follows from the record's size on both
+    sides."""
     source = CU.read_text()
     size = int(re.search(r"static_assert\(sizeof\(Segment\) == (\d+)", source).group(1))
-    assert ctypes.sizeof(tk._Row) == size == 88
-    cap = int(re.search(r"constexpr int kMaxSegments = (\d+);", source).group(1))
-    assert cap == tk.MAX_SEGMENTS
-    assert 8 + cap * size <= 4096
+    assert ctypes.sizeof(tk._Row) == size == 104
+    table = int(re.search(r"constexpr int kTableBytes = (\d+);", source).group(1))
+    assert re.search(
+        r"constexpr int kMaxSegments = \(int\)\(\(kTableBytes - 8\) / sizeof\(Segment\)\);",
+        source,
+    )
+    cap = (table - 8) // size
+    assert cap == tk.MAX_SEGMENTS == 39
+    assert 8 + cap * size <= 4096 < 8 + (cap + 1) * size
     body = re.search(r"struct Segment \{(.*?)\};", source, re.S).group(1)
     code = " ".join(line.split("//")[0] for line in body.splitlines())
     names = [
@@ -96,10 +103,11 @@ def test_segment_record_matches_the_kernel():
         for decl in code.split(";")
         for name in re.findall(r"(\w+)(?:\[\d+\])?\s*(?:,|$)", decl.strip())
     ]
-    assert names == ["k0", "k1", "inject", "offset", "count", "start", "scale", "first_block",
-                     "blocks"]
+    assert names == ["k0", "k1", "inject", "offset", "count", "start", "run", "pitch", "scale",
+                     "first_block", "blocks"]
     assert [f[0] for f in tk._Row._fields_] == names
-    assert tk._Row.start.offset == 64 and tk._Row.scale.offset == 72
+    assert tk._Row.start.offset == 64 and tk._Row.run.offset == 72
+    assert tk._Row.pitch.offset == 80 and tk._Row.scale.offset == 88
 
 
 def test_segment_plan_carries_the_base():

@@ -14,8 +14,10 @@ source file's head says what the kernel computes and what bounds it):
   :func:`~torchio_tpu_torch.random.bits_plain`, and ``bits_plain``.
 
 :func:`segment_plan` lays the segments out on the host: each one's offset,
-its key and the ten words its key schedule injects, and its scale; a list
-longer than a launch's table is split into launches. The kernel finds
+its key and the ten words its key schedule injects, its scale, and its
+counters (a base, and for a strided segment, a region of a larger draw,
+runs of ``run`` counters ``pitch`` apart); a list longer than a launch's
+table is split into launches. The kernel finds
 each segment's scalar head before its first 16-byte aligned element from
 the segment's address. :mod:`.kernel_lib` builds and loads
 the library and counts the launches (``LAUNCHES["threefry_normal"]``,
@@ -40,15 +42,12 @@ THREEFRY = KernelLibrary(
     kernels=("threefry_normal", "threefry_bits"),
 )
 
-#: segments a launch takes (``csrc/threefry.cu``'s ``kMaxSegments``)
-MAX_SEGMENTS = 46
-
-
 @dataclass(frozen=True)
 class Segment:
     """One draw of a launch: ``count`` elements at ``offset`` of the
-    output, counters from ``start``, under ``key``, each normal times
-    ``scale``."""
+    output under ``key``, each normal times ``scale``; element ``n`` takes
+    counter ``start + (n // run) * pitch + n % run`` (``run = pitch =
+    count`` where the draw is contiguous)."""
 
     key: tio_random.Key
     inject: tuple[int, ...]
@@ -56,10 +55,18 @@ class Segment:
     count: int
     scale: float
     start: int = 0
+    run: int | None = None
+    pitch: int | None = None
+
+    @property
+    def span(self) -> tuple[int, int]:
+        """``(run, pitch)`` as the kernel takes them."""
+        run = self.count if self.run is None else self.run
+        return run, run if self.pitch is None else self.pitch
 
 
 class _Row(ctypes.Structure):
-    """``csrc/threefry.cu``'s ``Segment`` (88 bytes)."""
+    """``csrc/threefry.cu``'s ``Segment`` (104 bytes)."""
 
     _fields_ = [
         ("k0", ctypes.c_uint32),
@@ -68,10 +75,17 @@ class _Row(ctypes.Structure):
         ("offset", ctypes.c_longlong),
         ("count", ctypes.c_longlong),
         ("start", ctypes.c_longlong),
+        ("run", ctypes.c_longlong),
+        ("pitch", ctypes.c_longlong),
         ("scale", ctypes.c_float),
         ("first_block", ctypes.c_int),
         ("blocks", ctypes.c_int),
     ]
+
+
+#: segments a launch takes: the table (two 4-byte words, then the rows) is
+#: a kernel parameter under 4 KB (``csrc/threefry.cu``'s ``kMaxSegments``)
+MAX_SEGMENTS = (4096 - 8) // ctypes.sizeof(_Row)
 
 
 def segment_plan(
@@ -79,15 +93,19 @@ def segment_plan(
     counts: Sequence[int],
     scales: Sequence[float] | None,
     starts: Sequence[int] | None = None,
+    runs: Sequence[int | None] | None = None,
+    pitches: Sequence[int | None] | None = None,
 ) -> list[list[Segment]]:
     """The launches that draw ``counts[s]`` elements under ``keys[s]``,
-    counters from ``starts[s]`` (0 where None), one segment after the
-    other: at most :data:`MAX_SEGMENTS` segments a launch, empty draws
+    counters from ``starts[s]`` (0 where None) in runs of ``runs[s]``
+    counters ``pitches[s]`` apart (one run where None), one segment after
+    the other: at most :data:`MAX_SEGMENTS` segments a launch, empty draws
     left out."""
     if len(keys) != len(counts) or (scales is not None and len(scales) != len(keys)):
         raise ValueError("keys, counts and scales must have one entry a draw")
-    if starts is not None and len(starts) != len(keys):
-        raise ValueError("keys and starts must have one entry a draw")
+    for name, values in (("starts", starts), ("runs", runs), ("pitches", pitches)):
+        if values is not None and len(values) != len(keys):
+            raise ValueError(f"keys and {name} must have one entry a draw")
     segments, offset = [], 0
     for s, (key, count) in enumerate(zip(keys, counts)):
         k0, k1 = (int(k) for k in key)
@@ -98,6 +116,11 @@ def segment_plan(
         start = 0 if starts is None else int(starts[s])
         if start < 0:
             raise ValueError(f"a counter base is at least 0, got {start}")
+        run, pitch = tio_random.check_span(
+            int(count),
+            None if runs is None else runs[s],
+            None if pitches is None else pitches[s],
+        )
         if count:
             segments.append(
                 Segment(
@@ -107,6 +130,8 @@ def segment_plan(
                     count=int(count),
                     scale=1.0 if scales is None else float(scales[s]),
                     start=start,
+                    run=run,
+                    pitch=pitch,
                 )
             )
         offset += int(count)
@@ -119,6 +144,7 @@ def _rows(segments: list[Segment]):
         row.k0, row.k1 = seg.key
         row.inject[:] = seg.inject
         row.offset, row.count, row.start, row.scale = seg.offset, seg.count, seg.start, seg.scale
+        row.run, row.pitch = seg.span
     return rows
 
 
@@ -129,13 +155,17 @@ def threefry_segments_cuda(
     device,
     normal: bool = True,
     starts: Sequence[int] | None = None,
+    runs: Sequence[int | None] | None = None,
+    pitches: Sequence[int | None] | None = None,
 ) -> torch.Tensor:
     """``jax.random.normal(keys[s], (counts[s],)) * scales[s]`` for every
     ``s`` (``normal``; the normals as drawn where ``scales`` is None, which
     the kernel multiplies by 1, exactly), or ``jax.random.bits`` of the
     keys (int32), one after the other in one flat tensor on a CUDA
     device. ``starts[s]`` makes draw ``s`` the elements ``[starts[s],
-    starts[s] + counts[s])`` of a larger draw under its key."""
+    starts[s] + counts[s])`` of a larger draw under its key; ``runs[s]``
+    and ``pitches[s]`` a strided region of it (element ``n`` at counter
+    ``start + (n // run) * pitch + n % run``)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the threefry kernel runs on a CUDA device, got {device}")
@@ -144,7 +174,7 @@ def threefry_segments_cuda(
     out = torch.empty(sum(int(c) for c in counts),
                       dtype=torch.float32 if normal else torch.int32, device=device)
     kernel = "threefry_normal" if normal else "threefry_bits"
-    launches = segment_plan(keys, counts, scales, starts)
+    launches = segment_plan(keys, counts, scales, starts, runs, pitches)
     if launches:
         with torch.cuda.device(device):
             st = stream(device)

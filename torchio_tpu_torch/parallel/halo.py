@@ -37,6 +37,7 @@ from .mesh import (
     is_dtensor,
     mesh_device,
     place,
+    shard_range,
     sharding_of,
 )
 
@@ -115,6 +116,51 @@ def _exchange_halo_zero(x: torch.Tensor, width: int, group):
     return extend(x, *_neighbour_slabs(x, width, group), width, edge=False)
 
 
+#: P2P tag of the mirror exchange (apart from the halos' two)
+_TAG_MIRROR = 2
+
+
+def mirror_columns(x: torch.Tensor, size: int, group, dim: int = 3) -> torch.Tensor:
+    """The columns along ``dim`` that mirror this rank's: where ``x`` holds
+    columns ``[start, stop)`` of a global extent ``size`` split over
+    ``group`` (``torch.chunk``'s split), the global columns ``[size -
+    stop, size - start)``, in increasing order, from the ranks that hold
+    them: one ``batch_isend_irecv`` on ``group`` (the collective-permute
+    of a flip along a split axis). A rank that is its own mirror sends
+    nothing."""
+    import torch.distributed as dist
+
+    n, s = dist.get_world_size(group), dist.get_rank(group)
+    ranges = [shard_range(size, n, p) for p in range(n)]
+    start, stop = ranges[s]
+    ops, pieces = [], []
+    for p, (p0, p1) in enumerate(ranges):
+        peer = dist.get_global_rank(group, p)
+        # the part of mine that rank p mirrors
+        lo, hi = max(size - p1, start), min(size - p0, stop)
+        if hi > lo and p != s:
+            ops.append(dist.P2POp(dist.isend, x.narrow(dim, lo - start, hi - lo).contiguous(),
+                                  peer, group, _TAG_MIRROR))
+        # the part of rank p's that mine mirrors
+        lo, hi = max(size - stop, p0), min(size - start, p1)
+        if hi <= lo:
+            continue
+        if p == s:
+            pieces.append(x.narrow(dim, lo - start, hi - lo))
+            continue
+        shape = list(x.shape)
+        shape[dim] = hi - lo
+        piece = torch.empty(shape, dtype=x.dtype, device=x.device)
+        ops.append(dist.P2POp(dist.irecv, piece, peer, group, _TAG_MIRROR))
+        pieces.append(piece)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if not pieces:
+        return x.narrow(dim, 0, 0)
+    return torch.cat(pieces, dim=dim)
+
+
 def _local_of(x, sharding: NamedSharding) -> torch.Tensor:
     """This rank's region of ``x`` (a DTensor or a whole tensor) placed by
     ``sharding``."""
@@ -188,20 +234,24 @@ def _slab_planes(map44: torch.Tensor, si: int, jl: int, sk: int, j0: int):
     )
 
 
-def _upsample_field_slab(cp, out_shape, j_start: int, j_len: int) -> torch.Tensor:
+def _upsample_field_slab(cp, out_shape, j_start: int, j_len: int, *, first: int = 0
+                         ) -> torch.Tensor:
     """Rows ``[j_start, j_start + j_len)`` of the trilinearly upsampled
-    coarse (ni, nj, nk, 3) field, bit for bit the same rows of
-    :func:`..ops.resample.upsample_field` over the GLOBAL ``out_shape``
-    (align_corners: coordinates scale with the global extent)."""
+    coarse field whose (ni, nj, nk) axes are dims ``first`` to ``first +
+    2`` (a (ni, nj, nk, 3) displacement field, or, at ``first = 2``, a
+    (B, C, ni, nj, nk) bias field), bit for bit the same rows of
+    :func:`..ops.resample.upsample_field` (and ``upsample_volume``) over
+    the GLOBAL ``out_shape`` (align_corners: coordinates scale with the
+    global extent)."""
     field = torch.as_tensor(cp).to(torch.float32)
     io, jo, ko = (int(s) for s in out_shape)
     dev = field.device
-    out = lerp_at(field, _axis_coords(field.shape[0], io, dev), 0)
-    rows = _axis_coords(field.shape[1], jo, dev)[j_start:j_start + j_len]
+    out = lerp_at(field, _axis_coords(field.shape[first], io, dev), first)
+    rows = _axis_coords(field.shape[first + 1], jo, dev)[j_start:j_start + j_len]
     if jo == 1:
         rows = torch.zeros(j_len, dtype=torch.float32, device=dev)
-    out = lerp_at(out, rows, 1)
-    return lerp_at(out, _axis_coords(field.shape[2], ko, dev), 2)
+    out = lerp_at(out, rows, first + 1)
+    return lerp_at(out, _axis_coords(field.shape[first + 2], ko, dev), first + 2)
 
 
 def _inbounds_weight(ci, cj, ck, spatial) -> torch.Tensor:

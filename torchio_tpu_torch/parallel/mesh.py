@@ -23,6 +23,7 @@ import sys
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 
@@ -182,6 +183,193 @@ def place(value: torch.Tensor, sharding: NamedSharding):
     if value.device != device:
         value = value.to(device)
     return from_local(value[local_slices(value.shape, sharding)], sharding, value.shape)
+
+
+@dataclass(frozen=True)
+class Region:
+    """A stage's view of a tensor on this rank: its block of the global
+    tensor (``local``), the block's first index along each dim
+    (``starts``: ``b0`` on B, ``j0`` on J of a (B, C, I, J, K) batch), the
+    global ``shape``, and the sharding that placed it (None for a plain
+    tensor, which is its own whole region, or for a block a caller cut
+    by hand: the local program of one shard).
+
+    A pointwise stage maps ``local`` and :meth:`wrap` s the result; a draw
+    reads ``shape`` and ``starts``; a statistic reduces over the process
+    groups of the mesh axes that split the dims it reads (:meth:`group`).
+    """
+
+    local: torch.Tensor
+    shape: tuple[int, ...]
+    starts: tuple[int, ...]
+    sharding: NamedSharding | None = None
+
+    @property
+    def b0(self) -> int:
+        return self.starts[0]
+
+    @property
+    def j0(self) -> int:
+        return self.starts[3]
+
+    @property
+    def rows(self) -> slice:
+        """This region's B rows of the global tensor."""
+        return slice(self.b0, self.b0 + int(self.local.shape[0]))
+
+    @property
+    def cols(self) -> slice:
+        """This region's J columns of the global (B, C, I, J, K) tensor."""
+        return slice(self.j0, self.j0 + int(self.local.shape[3]))
+
+    @property
+    def whole(self) -> bool:
+        """Whether the region is the whole tensor."""
+        return tuple(self.local.shape) == tuple(self.shape)
+
+    def split(self, dim: int) -> bool:
+        """Whether the mesh splits ``dim`` (a region cut by hand: whether
+        it is part of ``dim``)."""
+        if self.sharding is None:
+            return int(self.local.shape[dim]) != int(self.shape[dim])
+        return self.sharding.padded(len(self.shape))[dim] is not None
+
+    def group(self, dim: int):
+        """The process group of the mesh axis that splits ``dim`` (None
+        where no mesh axis does)."""
+        if self.sharding is None:
+            return None
+        name = self.sharding.padded(len(self.shape))[dim]
+        return None if name is None else self.sharding.mesh.get_group(name)
+
+    @property
+    def data_group(self):
+        return self.group(0)
+
+    @property
+    def space_group(self):
+        return self.group(3)
+
+    @property
+    def holds_first(self) -> bool:
+        """Whether this rank holds (its columns of) batch element 0, which
+        the batch-wide statistics read."""
+        return self.b0 == 0 and int(self.local.shape[0]) > 0
+
+    def check_aligned(self, other: "Region") -> None:
+        """Raise unless ``other`` (a mask's region) covers the same spatial
+        block as this region: its voxels pair with this region's."""
+        if other.starts[2:] != self.starts[2:] or (
+            tuple(other.local.shape[2:]) != tuple(self.local.shape[2:])
+        ):
+            raise ValueError(
+                f"the mask's region at {other.starts} is not the image's at {self.starts}:"
+                " shard both with the same batch"
+            )
+
+    def take(self, value: Any) -> Any:
+        """This region's rows of a per-element value: a list, array or
+        tensor with one entry for each element of the global batch. A
+        value every element shares comes as a scalar (a number, None, or
+        a 0-d array or tensor) and passes through. A batch-wide vector (a
+        statistic, an input range) is neither and must not come here: the
+        caller says what is per-element by passing it, and a value whose
+        length is not the batch's raises."""
+        if value is None or isinstance(value, (int, float, np.generic)):
+            return value
+        if not isinstance(value, (list, np.ndarray, torch.Tensor)):
+            raise TypeError(f"a per-element value is a list, array or tensor, not {type(value)}")
+        if not isinstance(value, list) and value.ndim == 0:
+            return value
+        b = int(self.shape[0])
+        if len(value) != b:
+            raise ValueError(f"a per-element value has {len(value)} entries for a batch of {b}")
+        return value if int(self.local.shape[0]) == b else value[self.rows]
+
+    def wrap(self, local: torch.Tensor):
+        """The global tensor (a DTensor placed as this region's) whose
+        block here is ``local`` (of this region's shape); ``local`` itself
+        for a region without a sharding."""
+        if self.sharding is None:
+            return local
+        return from_local(local, self.sharding, self.shape)
+
+    def share_first(self, value: torch.Tensor) -> torch.Tensor:
+        """``value`` as the ranks holding element 0 computed it, on every
+        rank: one ``broadcast`` over the group of the mesh axis that splits
+        B (from its coordinate 0, which holds element 0); nothing where B
+        is whole."""
+        group = self.data_group
+        if group is not None:
+            import torch.distributed as dist
+
+            value = value.contiguous()
+            dist.broadcast(value, src=dist.get_global_rank(group, 0), group=group)
+        return value
+
+    def reduce_columns(self, value: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """A partial statistic of this rank's J columns reduced over the
+        group of the mesh axis that splits J (one ``all_reduce``; nothing
+        where J is whole). ``op``: "sum" or "max"."""
+        group = self.space_group
+        if group is not None:
+            import torch.distributed as dist
+
+            value = value.contiguous()
+            reduce_op = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+            dist.all_reduce(value, op=reduce_op, group=group)
+        return value
+
+    def gather_first(self, first: torch.Tensor | None = None) -> torch.Tensor:
+        """Element 0 whole, (1, C, I, J, K), on the ranks that hold it: its
+        J columns (``first``, this rank's (1, C, I, jl, K) columns of it or
+        of a tensor of its layout; the local block's where None) gathered
+        over the mesh axis that splits J (one ``all_gather`` of one
+        element; nothing where J is whole). Only the ranks of
+        :attr:`holds_first` may call it."""
+        first = self.local[:1] if first is None else first
+        group = self.space_group
+        if group is None:
+            return first
+        import torch.distributed as dist
+
+        parts = dist.get_world_size(group)
+        sj = int(self.shape[3])
+        widths = [stop - start for start, stop in
+                  (shard_range(sj, parts, p) for p in range(parts))]
+        wide = max(widths)
+        padded = first
+        if first.shape[3] < wide:
+            pad = first.new_zeros((*first.shape[:3], wide - first.shape[3], *first.shape[4:]))
+            padded = torch.cat([first, pad], dim=3)
+        pieces = [torch.empty_like(padded) for _ in range(parts)]
+        dist.all_gather(pieces, padded.contiguous(), group=group)
+        return torch.cat([piece[:, :, :, :w] for piece, w in zip(pieces, widths)], dim=3)
+
+
+def region_of(value) -> Region:
+    """This rank's :class:`Region` of ``value``: a DTensor's local block
+    and offsets (no communication), or a plain tensor whole."""
+    if not is_dtensor(value):
+        return Region(value, tuple(int(n) for n in value.shape), (0,) * value.ndim)
+    sharding = sharding_of(value)
+    slices = local_slices(value.shape, sharding)
+    return Region(
+        value.to_local(),
+        tuple(int(n) for n in value.shape),
+        tuple(int(s.start or 0) for s in slices),
+        sharding,
+    )
+
+
+def map_region(fn, value, *per_element):
+    """``fn(local, *values)`` on this rank's region of ``value``, each of
+    ``per_element`` a per-element value or a scalar taken to the region's
+    rows (:meth:`Region.take`), the result placed as ``value`` is: the
+    pointwise stages' sharded path (a plain tensor is its own region). A
+    batch-wide value goes into ``fn``'s closure, never here."""
+    region = region_of(value)
+    return region.wrap(fn(region.local, *(region.take(v) for v in per_element)))
 
 
 def shard_batch(data, mesh):

@@ -8,9 +8,10 @@ whole batch to [0, 1] by its GLOBAL minimum and maximum.
 :func:`augment_step` runs it on whole tensors. :func:`make_augment_step`
 returns the sharded step: each rank resamples its J slab through the halo
 program's local function (:mod:`.halo`), draws only its batch rows of the
-global bias and noise draws (the threefry counter base, one launch of
-``csrc/threefry.cu`` on a card), upsamples only its J rows of the bias
-field, and takes the global statistics with one ``all_reduce`` each.
+global bias draw and only its rows and J columns of the noise draw (a
+counter base and a strided segment, one launch of ``csrc/threefry.cu``
+on a card), upsamples only its J rows of the bias field, and takes the
+global statistics with one ``all_reduce`` each.
 """
 
 from __future__ import annotations
@@ -23,8 +24,14 @@ import torch
 import torch.distributed as dist
 
 from .. import random as tio_random
-from ..ops.resample import _axis_coords, lerp_at, resample
-from .halo import HaloUnsupported, _exchange_halo_zero, _halo_width, halo_resample_local
+from ..ops.resample import resample
+from .halo import (
+    HaloUnsupported,
+    _exchange_halo_zero,
+    _halo_width,
+    _upsample_field_slab,
+    halo_resample_local,
+)
 from .mesh import (
     axis_index,
     axis_size,
@@ -86,24 +93,26 @@ def _bias_and_noise(seed, b0: int, bl: int, shape, j0: int, jl: int, bias_std, n
     """This rank's rows ``[b0, b0 + bl)`` and J rows ``[j0, j0 + jl)`` of
     ``exp(upsample(bias_std * normal(kb, (B, 1, *coarse))))`` and of
     ``noise_std * normal(kn, (B, C, I, J, K))``, ``kb, kn =
-    split(PRNGKey(seed))``: both draws in one ``normals`` call, each from
-    its counter base (one threefry launch on a card)."""
+    split(PRNGKey(seed))``: both draws in one ``normals`` call (one
+    threefry launch on a card), the coarse rows from their counter base,
+    the noise as one strided segment of the rank's elements alone."""
     c, si, sj, sk = shape
     kb, kn = tio_random.split(tio_random.prng_key(int(seed)))
     small = _coarse_shape((si, sj, sk))
-    per_coarse, per_volume = math.prod(small), c * si * sj * sk
+    per_coarse = math.prod(small)
+    start, count, run, pitch = tio_random.slab_span((b0 + bl, c, si, sj, sk), b0, bl, j0, jl)
     flat = tio_random.normals(
         [kb, kn],
-        [(bl, 1, *small), (bl, c, si, sj, sk)],
+        [(bl, 1, *small), (count,)],
         [bias_std, noise_std],
         device,
-        starts=[b0 * per_coarse, b0 * per_volume],
+        starts=[b0 * per_coarse, start],
+        runs=[None, run],
+        pitches=[None, pitch],
     )
     coarse = flat[: bl * per_coarse].reshape(bl, 1, *small)
-    noise = flat[bl * per_coarse:].reshape(bl, c, si, sj, sk)[:, :, :, j0:j0 + jl]
-    field = lerp_at(coarse, _axis_coords(small[0], si, device), 2)
-    field = lerp_at(field, _axis_coords(small[1], sj, device)[j0:j0 + jl], 3)
-    field = lerp_at(field, _axis_coords(small[2], sk, device), 4)
+    noise = flat[bl * per_coarse:].reshape(bl, c, si, jl, sk)
+    field = _upsample_field_slab(coarse, (si, sj, sk), j0, jl, first=2)
     return torch.exp(field), noise
 
 

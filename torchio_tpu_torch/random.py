@@ -38,7 +38,9 @@ in one launch of that kernel's bits mode. :func:`normals` takes a list of draws,
 each times its own scale, in one launch (BiasField's per-element fields,
 Noise's Rician pair); its ``starts`` (the counter base) make a draw the
 elements ``[start, start + n)`` of a larger one, so a rank of a device
-mesh draws only its batch rows of a draw of the whole batch.
+mesh draws only its batch rows of a draw of the whole batch; with
+``runs`` and ``pitches`` a draw is a strided region of a larger one (a
+rank's J slab: :func:`slab_span`).
 """
 
 from __future__ import annotations
@@ -173,12 +175,42 @@ def split(key: Key, num: int = 2) -> list[Key]:
     return [threefry2x32(key, 0, i) for i in range(num)]
 
 
-def bits_plain(key: Key, start: int, count: int, device) -> torch.Tensor:
+def check_span(count: int, run, pitch) -> tuple[int | None, int | None]:
+    """A draw's ``(run, pitch)``: ``(None, None)`` for one contiguous run
+    (neither given), else a positive ``run`` (``count`` where None) and a
+    ``pitch`` of at least ``run`` (``run`` where None)."""
+    if run is None and pitch is None:
+        return None, None
+    run = int(count) if run is None else int(run)
+    pitch = run if pitch is None else int(pitch)
+    if run <= 0 or pitch < run:
+        raise ValueError(f"a strided draw needs run > 0 and pitch >= run, got {run}, {pitch}")
+    return run, pitch
+
+
+def slab_span(shape, b0: int, bl: int, j0: int, jl: int) -> tuple[int, int, int, int]:
+    """``(start, count, run, pitch)`` of the region ``[b0, b0 + bl) x
+    [j0, j0 + jl)`` (dims 0 and 3) of a row-major draw of the 5-D
+    ``shape`` (B, C, I, J, K): each (b, c, i) row of the region is a run
+    of ``jl K`` counters, the runs ``J K`` apart. A whole J is one run."""
+    _, c, si, sj, sk = (int(n) for n in shape)
+    count = bl * c * si * jl * sk
+    start = (b0 * c * si * sj + j0) * sk
+    if jl == sj:
+        return start, count, count, count
+    return start, count, jl * sk, sj * sk
+
+
+def bits_plain(key: Key, start: int, count: int, device, run=None, pitch=None) -> torch.Tensor:
     """Elements ``[start, start + count)`` of a flat draw of 32-bit words,
     as int64 in ``[0, 2^32)``: element ``e`` is ``x0 ^ x1`` of the block of
-    the counter pair ``(e >> 32, e & 0xFFFFFFFF)``. The plain version of
-    the threefry kernel's bits."""
-    flat = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    the counter pair ``(e >> 32, e & 0xFFFFFFFF)``. With ``run`` and
+    ``pitch``, element ``n`` is the draw's element ``start + (n // run) *
+    pitch + n % run``. The plain version of the threefry kernel's bits."""
+    flat = torch.arange(count, dtype=torch.int64, device=device)
+    if run is not None and run < count:
+        flat = (flat // run) * pitch + flat % run
+    flat = flat + start
     x0, x1 = threefry2x32(key, flat >> 32, flat & MASK32)
     return x0 ^ x1
 
@@ -318,15 +350,20 @@ def normal(key: Key, shape: tuple[int, ...], device=None) -> torch.Tensor:
     return normal_of_bits(bits_plain(key, 0, math.prod(shape), device)).reshape(shape)
 
 
-def normals_plain(keys, counts, scales, device, starts=None) -> torch.Tensor:
+def normals_plain(keys, counts, scales, device, starts=None, runs=None,
+                  pitches=None) -> torch.Tensor:
     """The plain version of the segmented threefry kernel: ``normal(keys[s],
     (counts[s],)) * scales[s]`` (no multiply where ``scales`` is None) for
-    every ``s``, each from counter ``starts[s]`` (0 where None),
+    every ``s``, each from counter ``starts[s]`` (0 where None), in runs of
+    ``runs[s]`` counters ``pitches[s]`` apart (one run where None),
     concatenated into one flat float32 tensor."""
     parts = [torch.empty(0, dtype=torch.float32, device=device)]
     for s, (key, count) in enumerate(zip(keys, counts)):
         start = 0 if starts is None else int(starts[s])
-        part = normal_of_bits(bits_plain(key, start, int(count), device))
+        run, pitch = check_span(
+            int(count), None if runs is None else runs[s], None if pitches is None else pitches[s]
+        )
+        part = normal_of_bits(bits_plain(key, start, int(count), device, run, pitch))
         if scales is not None:
             part = part * torch.tensor(scales[s], dtype=torch.float32, device=device)
         parts.append(part)
@@ -334,7 +371,13 @@ def normals_plain(keys, counts, scales, device, starts=None) -> torch.Tensor:
 
 
 def normals(
-    keys: list[Key], shapes: list[tuple[int, ...]], scales=None, device=None, starts=None
+    keys: list[Key],
+    shapes: list[tuple[int, ...]],
+    scales=None,
+    device=None,
+    starts=None,
+    runs=None,
+    pitches=None,
 ) -> torch.Tensor:
     """``jax.random.normal(keys[s], shapes[s], float32) * scales[s]`` for
     every ``s`` (float32 scales; none where ``scales`` is None), flattened
@@ -343,19 +386,43 @@ def normals(
     for all of them. ``starts[s]`` (the counter base) makes draw ``s`` the
     elements ``[starts[s], starts[s] + prod(shapes[s]))`` of a larger
     draw under its key: a rank's batch rows of ``normal(key, (B, ...))``
-    start at ``b0 * prod(...)``."""
+    start at ``b0 * prod(...)``. ``runs[s]`` and ``pitches[s]`` make it a
+    strided region of that draw, element ``n`` its element ``starts[s] +
+    (n // runs[s]) * pitches[s] + n % runs[s]`` (a rank's J slab:
+    :func:`slab_span`)."""
     device = _device(device)
     counts = [math.prod(int(n) for n in shape) for shape in shapes]
-    if scales is not None and len(scales) != len(keys):
-        raise ValueError(f"{len(keys)} keys and {len(scales)} scales")
-    if starts is not None and len(starts) != len(keys):
-        raise ValueError(f"{len(keys)} keys and {len(starts)} starts")
+    for name, values in (("scales", scales), ("starts", starts), ("runs", runs),
+                         ("pitches", pitches)):
+        if values is not None and len(values) != len(keys):
+            raise ValueError(f"{len(keys)} keys and {len(values)} {name}")
     if device.type == "cuda":
         from .ops.threefry_kernel import threefry_segments_cuda
 
-        return threefry_segments_cuda(keys, counts, scales, device, starts=starts)
+        return threefry_segments_cuda(keys, counts, scales, device, starts=starts, runs=runs,
+                                      pitches=pitches)
     _check_cpu(device)
-    return normals_plain(keys, counts, scales, device, starts)
+    return normals_plain(keys, counts, scales, device, starts, runs, pitches)
+
+
+def region_normals(keys: list[Key], region, scales=None) -> torch.Tensor:
+    """Each key's ``normal(key, region.shape)`` at the elements of
+    ``region`` (a :class:`~.parallel.mesh.Region` of a (B, C, I, J, K)
+    tensor, split along B and J only) and no other: one strided segment a
+    key (:func:`slab_span`), all of them in one :func:`normals` call (one
+    launch on a card), concatenated flat."""
+    if any(region.split(d) for d in (1, 2, 4)):
+        raise ValueError(
+            f"a region of {region.shape} at {region.starts} is split along C, I or K:"
+            " its draws are not one strided segment"
+        )
+    local = region.local
+    start, count, run, pitch = slab_span(
+        region.shape, region.b0, int(local.shape[0]), region.j0, int(local.shape[3])
+    )
+    n = len(keys)
+    return normals(keys, [(count,)] * n, scales, local.device, starts=[start] * n,
+                   runs=[run] * n, pitches=[pitch] * n)
 
 
 def _check_cpu(device: torch.device) -> None:

@@ -18,10 +18,14 @@ stage, and keeps the contract that matters to users:
   the apply's aux output, and the stage's ``finish`` puts them into the
   history as :class:`DeferredParam` entries.
 
-On a sharded batch a stage with ``takes_sharded`` (the per-instance
-Blur: halo taps along a sharded axis) takes the DTensors; a run of the
-other stages takes the whole tensors, gathered once, and the batch's
-setter places what the chain leaves.
+On a sharded batch a stage with ``takes_sharded`` takes the DTensors and
+computes on each rank's region: Noise and BiasField draw only their
+region's elements, Gamma and Clamp map it, Flip takes the mirror columns
+along a split axis, Blur takes halo taps there, and Normalize,
+Standardize and Mask read element 0's statistic or mask where it lies
+(one ``all_reduce``, ``broadcast`` or one element's ``all_gather``). A
+run of other stages takes the whole tensors, gathered once, and the
+batch's setter places what the chain leaves.
 """
 
 from __future__ import annotations
@@ -107,7 +111,8 @@ def _bparam(value: torch.Tensor, ndim: int) -> torch.Tensor:
     return value.reshape((-1,) + (1,) * (ndim - 1))
 
 
-def noise_apply(names: tuple[str, ...], rician: bool, gated: bool):
+def noise_apply(names: tuple[str, ...], rician: bool):
+    from ._utils import restore_gated
     from .intensity.noise import add_noise
 
     def apply(datas, args):
@@ -115,25 +120,15 @@ def noise_apply(names: tuple[str, ...], rician: bool, gated: bool):
         out = dict(datas)
         for n, nm in enumerate(names):
             data = out[nm]
-            m = _bparam(mean, data.ndim)
-            s = _bparam(std, data.ndim)
-            res = add_noise(seed, n, data, m, s, rician)
-            if gated:
-                mask = keep.reshape((-1,) + (1,) * (data.ndim - 1))
-                res = torch.where(mask > 0.5, res, data.to(res.dtype))
-            out[nm] = res
+            m, s = _bparam(mean, data.ndim), _bparam(std, data.ndim)
+            out[nm] = restore_gated(add_noise(seed, n, data, m, s, rician), data, keep)
         return out, None
 
     return apply
 
 
-def bias_apply(
-    names: tuple[str, ...],
-    scale: float,
-    per_element: bool,
-    gated: bool,
-    all_identity: bool,
-):
+def bias_apply(names: tuple[str, ...], scale: float, per_element: bool, all_identity: bool):
+    from ._utils import restore_gated
     from .intensity.bias_field import bias_per_element, bias_shared
 
     def apply(datas, args):
@@ -145,12 +140,9 @@ def bias_apply(
             data = out[nm]
             if per_element:
                 res = bias_per_element(data, stds, seeds, scale, False)
-                if gated:
-                    mask = keep.reshape((-1,) + (1,) * (data.ndim - 1))
-                    res = torch.where(mask > 0.5, res, data)
+                out[nm] = restore_gated(res, data, keep)
             else:
-                res = bias_shared(data, stds, seeds, scale, False)
-            out[nm] = res
+                out[nm] = bias_shared(data, stds, seeds, scale, False)
         return out, None
 
     return apply
@@ -210,7 +202,7 @@ def normalize_apply(names: tuple[str, ...], percentiles: tuple[float, float] | N
     """Rescale with the explicit input range of ``params`` (percentiles
     None) or with the percentiles of each image's first element, computed
     here on the device and returned as aux (deferred pairs)."""
-    from .intensity.normalize import range_pair, rescale
+    from .intensity.normalize import first_range, rescale_region
 
     def apply(datas, params):
         out = dict(datas)
@@ -220,10 +212,9 @@ def normalize_apply(names: tuple[str, ...], percentiles: tuple[float, float] | N
             if percentiles is None:
                 bounds = (params["in_min"], params["in_max"])
             else:
-                flat = data[0].to(torch.float32).reshape(-1)
-                bounds = DeferredParam(range_pair(flat, *percentiles), finalize_range_warn(nm))
+                bounds = first_range(data, None, *percentiles, nm)
                 aux[nm] = bounds
-            res = rescale(data, bounds, params["out_min"], params["out_max"], nm)
+            res = rescale_region(data, bounds, params["out_min"], params["out_max"], nm)
             if res is not None:
                 out[nm] = res
         return out, aux
@@ -244,14 +235,14 @@ def standardize_apply(names: tuple[str, ...], mask_name: str | None):
     """Each image standardized by the statistics of its first element
     (within ``mask_name``'s non-zero voxels); the device triples return
     as aux."""
-    from .intensity.standardize import standardize_stats, standardized
+    from .intensity.standardize import first_stats, standardized
 
     def apply(datas, args):
         out = dict(datas)
         aux = {}
-        mask = None if mask_name is None else datas[mask_name][0] != 0
+        mask = None if mask_name is None else datas[mask_name]
         for nm in names:
-            triple = standardize_stats(out[nm][0].to(torch.float32), mask)
+            triple = first_stats(out[nm], mask)
             aux[nm] = triple
             out[nm] = standardized(out[nm], triple)
         return out, aux
@@ -262,14 +253,11 @@ def standardize_apply(names: tuple[str, ...], mask_name: str | None):
 def mask_apply(
     names: tuple[str, ...], mask_name: str, labels: tuple | None, outside_value: float
 ):
-    from .intensity.mask import label_mask
+    from .intensity.mask import first_mask, masked
 
     def apply(datas, args):
-        mask = label_mask(datas[mask_name][0], labels)
-        return {
-            **datas,
-            **{nm: torch.where(mask, datas[nm], outside_value) for nm in names},
-        }, None
+        mask = first_mask(datas[mask_name], labels)
+        return {**datas, **{nm: masked(datas[nm], mask, outside_value) for nm in names}}, None
 
     return apply
 

@@ -11,11 +11,15 @@ a shared seed (:func:`torchio_tpu_torch.random.device_normal`), and all
 of a batch's per-element fields, each times its element's std, in one
 :func:`torchio_tpu_torch.random.normals` (one launch of the threefry
 kernel on a card). The upsample, ``exp`` and multiply are plain torch
-ops, as the JAX package leaves them to XLA.
+ops, as the JAX package leaves them to XLA. On a sharded batch each rank
+draws its rows' coarse fields whole (they are tiny), upsamples only its J
+columns of the global field, and multiplies its region, with no
+collective.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -25,6 +29,7 @@ from ... import random as tio_random
 from ...core.dtypes import cast_like_jax
 from ...data.batch import SubjectsBatch
 from ...ops.resample import upsample_volume
+from ...parallel.mesh import Region, region_of
 from .._utils import restore_gated
 from ..parameter_range import to_nonneg_range
 from ..transform import IntensityTransform
@@ -34,8 +39,19 @@ def _coarse_shape(spatial, scale: float) -> tuple[int, int, int]:
     return tuple(max(round(s * scale), 4) for s in spatial)
 
 
-def _apply_field(data: torch.Tensor, coarse: torch.Tensor, divide: bool) -> torch.Tensor:
-    field = torch.exp(upsample_volume(coarse, tuple(data.shape[2:])))
+def _apply_field(region: Region, coarse: torch.Tensor, divide: bool) -> torch.Tensor:
+    """``region.local`` times (or over) ``exp`` of the coarse fields of its
+    rows upsampled to the global spatial shape, at the region's J columns
+    only (the rows of the global upsample, bit for bit)."""
+    data = region.local
+    spatial = region.shape[2:]
+    if region.split(3):
+        from ...parallel.halo import _upsample_field_slab
+
+        smooth = _upsample_field_slab(coarse, spatial, region.j0, int(data.shape[3]), first=2)
+    else:
+        smooth = upsample_volume(coarse, tuple(spatial))
+    field = torch.exp(smooth)
     out = data / field if divide else data * field
     return cast_like_jax(out, data.dtype)
 
@@ -43,20 +59,45 @@ def _apply_field(data: torch.Tensor, coarse: torch.Tensor, divide: bool) -> torc
 def bias_per_element(data, stds: np.ndarray, seeds, scale: float, divide: bool):
     """One field per element: element ``b``'s coarse field is drawn from
     its own seed with the (1, C, *small) shape the JAX package uses, times
-    ``stds[b]`` (float32, on the host), all B fields in one draw."""
-    b, c = data.shape[:2]
-    small = _coarse_shape(data.shape[2:], scale)
+    ``stds[b]`` (float32, on the host), all of the region's fields in one
+    draw (a DTensor: each rank draws its rows' fields whole, then
+    upsamples its J columns)."""
+    region = region_of(data)
+    return region.wrap(
+        biased_region(region, region.take(np.asarray(stds, np.float32)),
+                      region.take(list(seeds)), scale, divide)
+    )
+
+
+def biased_region(region: Region, stds: np.ndarray, seeds, scale: float, divide: bool):
+    """The local program of :func:`bias_per_element`: ``region.local``
+    times (or over) its rows' fields (``stds`` and ``seeds`` already its
+    rows'), each coarse field drawn whole, upsampled at the region's J
+    columns of the global shape."""
+    local = region.local
+    b, c = local.shape[:2]
+    small = _coarse_shape(region.shape[2:], scale)
     keys = [tio_random.draw_key(int(sd), 0) for sd in seeds]
-    coarse = tio_random.normals(keys, [(1, c, *small)] * b, stds, data.device)
-    return _apply_field(data, coarse.reshape(b, c, *small), divide)
+    coarse = tio_random.normals(keys, [(1, c, *small)] * b, stds, local.device)
+    return _apply_field(region, coarse.reshape(b, c, *small), divide)
 
 
 def bias_shared(data, std: torch.Tensor, seed: int, scale: float, divide: bool):
-    """One (B, C, *small) coarse draw from one seed."""
-    b, c = data.shape[:2]
-    small = _coarse_shape(data.shape[2:], scale)
-    coarse = tio_random.device_normal(int(seed), (b, c, *small), data.device, 0)
-    return _apply_field(data, coarse * std.reshape(-1, 1, 1, 1, 1), divide)
+    """One (B, C, *small) coarse draw from one seed (a DTensor: each rank
+    draws its rows of it, from their counter base)."""
+    region = region_of(data)
+    local = region.local
+    b, c = local.shape[:2]
+    small = _coarse_shape(region.shape[2:], scale)
+    if int(b) == int(region.shape[0]):
+        coarse = tio_random.device_normal(int(seed), (b, c, *small), local.device, 0)
+    else:
+        start = region.b0 * c * math.prod(small)
+        coarse = tio_random.normals(
+            [tio_random.draw_key(int(seed), 0)], [(b, c, *small)], None, local.device,
+            starts=[start],
+        ).reshape(b, c, *small)
+    return region.wrap(_apply_field(region, coarse * std.reshape(-1, 1, 1, 1, 1), divide))
 
 
 def _f32(value, device) -> torch.Tensor:
@@ -81,7 +122,11 @@ class BiasField(IntensityTransform):
     Args:
         std: coarse-field standard deviation (scalar / range / dist).
         scale: coarse-to-full resolution ratio in (0, 1].
+
+    A sharded batch stays on each rank's region, fused or not.
     """
+
+    takes_sharded = True
 
     def __init__(self, *, std: Any = 0.5, scale: float = 0.025, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -145,21 +190,17 @@ class BiasField(IntensityTransform):
         if per_element:
             identity = [s == 0 for s in params["std"]]
             all_id = all(identity)
-            gated = any(identity) and not all_id
-            args = (
-                np.asarray(params["std"], np.float32),
-                params["seed"],
-                _f32([not i for i in identity], device),
-            )
+            keep = [not i for i in identity] if any(identity) else None
+            args = (np.asarray(params["std"], np.float32), params["seed"], keep)
         else:
             all_id = params["std"] == 0
-            gated = False
             args = (_f32(params["std"], device), params["seed"], None)
         return FusedStage(
             names=names,
-            apply=bias_apply(names, self.scale, per_element, gated, all_id),
+            apply=bias_apply(names, self.scale, per_element, all_id),
             args=args,
             params=params,
+            takes_sharded=True,
         )
 
     @property

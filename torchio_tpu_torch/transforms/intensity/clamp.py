@@ -5,7 +5,8 @@ dtype follows the JAX package's ``jnp.clip`` with Python bounds (weak
 types): an integer image clamped by integer bounds keeps its dtype, and
 a float bound makes it float32. ``torch.clamp`` promotes the same way,
 but has no kernel for uint16 and uint32, so those go through int64 (or
-float32 for a float bound) explicitly.
+float32 for a float bound) explicitly. A sharded batch is clamped on each rank's region, with no
+collective.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any
 import torch
 
 from ...data.batch import SubjectsBatch
+from ...parallel.mesh import map_region
 from ..transform import IntensityTransform
 
 #: unsigned types with no ``torch.clamp`` kernel
@@ -23,9 +25,14 @@ _WIDE_UNSIGNED = (torch.uint16, torch.uint32)
 
 def clamp_values(data: torch.Tensor, out_min, out_max) -> torch.Tensor:
     """``jnp.clip(data, out_min, out_max)`` with Python bounds (either may
-    be None), in the dtype JAX gives it."""
+    be None), in the dtype JAX gives it (a DTensor on each rank's
+    region)."""
     if out_min is None and out_max is None:
         return data
+    return map_region(_clamp_local, data, out_min, out_max)
+
+
+def _clamp_local(data: torch.Tensor, out_min, out_max) -> torch.Tensor:
     if data.dtype in _WIDE_UNSIGNED:
         floating = any(isinstance(b, float) for b in (out_min, out_max))
         wide = data.to(torch.float32 if floating else torch.int64)
@@ -36,6 +43,8 @@ def clamp_values(data: torch.Tensor, out_min, out_max) -> torch.Tensor:
 
 class Clamp(IntensityTransform):
     """Clamp intensities to ``[out_min, out_max]``."""
+
+    takes_sharded = True
 
     def __init__(
         self,
@@ -75,4 +84,5 @@ class Clamp(IntensityTransform):
             apply=clamp_apply(names, self.out_min, self.out_max),
             args=None,
             params=self.make_params(batch),
+            takes_sharded=True,
         )

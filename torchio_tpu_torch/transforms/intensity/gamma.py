@@ -2,7 +2,8 @@
 
 Counterpart of ``torchio_tpu/transforms/intensity/gamma.py``:
 :math:`\\mathrm{sign}(I) \\cdot |I|^{e^\\beta}`, per-instance
-log-gamma, invertible via :math:`-\\beta` (``_GammaInverse``).
+log-gamma, invertible via :math:`-\\beta` (``_GammaInverse``). A sharded
+batch is mapped on each rank's region, with no collective.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any
 import torch
 
 from ...data.batch import SubjectsBatch
+from ...parallel.mesh import map_region
 from .._utils import broadcast_param
 from ..parameter_range import to_range
 from ..transform import IntensityTransform
@@ -20,7 +22,11 @@ from ..transform import IntensityTransform
 
 def gamma_pow(data: torch.Tensor, log_gamma) -> torch.Tensor:
     """``sign(v) |v|^exp(log_gamma)``: a per-element list exponentiates on
-    the device, a scalar on the host."""
+    the device, a scalar on the host; a DTensor on each rank's region."""
+    return map_region(_gamma_local, data, log_gamma)
+
+
+def _gamma_local(data: torch.Tensor, log_gamma) -> torch.Tensor:
     if isinstance(log_gamma, list):
         gamma = torch.exp(broadcast_param(log_gamma, data))
     else:
@@ -31,6 +37,8 @@ def gamma_pow(data: torch.Tensor, log_gamma) -> torch.Tensor:
 class Gamma(IntensityTransform):
     r"""Apply :math:`v \mapsto \mathrm{sign}(v)\,|v|^{\gamma}` with
     :math:`\gamma = e^{\beta}` and :math:`\beta` sampled from ``log_gamma``."""
+
+    takes_sharded = True
 
     def __init__(self, *, log_gamma: Any = 0.0, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -78,6 +86,7 @@ class Gamma(IntensityTransform):
             apply=gamma_apply(names),
             args=params["log_gamma"],
             params=params,
+            takes_sharded=True,
         )
 
     @property

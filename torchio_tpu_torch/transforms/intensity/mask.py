@@ -6,6 +6,11 @@ first element's (C, I, J, K) tensor, taken from the first batch element
 and applied batch-wide. The result dtype follows the JAX package's
 ``jnp.where`` with a Python ``outside_value`` (weak types), as
 ``torch.where`` promotes: a float value makes an integer image float32.
+
+On a sharded batch (a LabelMap-key mask) the ranks that hold element 0
+share its mask's J columns over the mesh axis that splits B (one
+``broadcast`` of one element's columns), and every rank masks its
+region.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ import torch
 
 from ...data.batch import SubjectsBatch
 from ...data.image import LabelMap
+from ...parallel.mesh import region_of
 from ..transform import IntensityTransform
+from .normalize import MaskedStatistic, mask_gathers
 
 
 def label_mask(mask_data: torch.Tensor, labels) -> torch.Tensor:
@@ -30,7 +37,28 @@ def label_mask(mask_data: torch.Tensor, labels) -> torch.Tensor:
     return mask
 
 
-class Mask(IntensityTransform):
+def first_mask(mask_data, labels) -> torch.Tensor:
+    """:func:`label_mask` of element 0 of the (B, C, I, J, K) ``mask_data``:
+    a DTensor's J columns of it on every rank (its holders share it over
+    the mesh axis that splits B), a whole tensor's all of it."""
+    region = region_of(mask_data)
+    if region.whole:
+        return label_mask(region.local[0], labels)
+    local = region.local
+    mask = torch.empty(tuple(local.shape[1:]), dtype=torch.uint8, device=local.device)
+    if region.holds_first:
+        mask = label_mask(local[0], labels).to(torch.uint8)
+    return region.share_first(mask).to(torch.bool)
+
+
+def masked(data, mask: torch.Tensor, outside_value: float):
+    """``where(mask, data, outside_value)`` on each rank's region of a
+    DTensor (``mask`` its columns of element 0's mask), or whole."""
+    region = region_of(data)
+    return region.wrap(torch.where(mask.to(region.local.device), region.local, outside_value))
+
+
+class Mask(MaskedStatistic, IntensityTransform):
     """Zero (or set to ``outside_value``) voxels outside a mask.
 
     ``masking_method`` is a LabelMap key or a callable on the first
@@ -56,8 +84,7 @@ class Mask(IntensityTransform):
     ) -> SubjectsBatch:
         mask = self._resolve_mask(batch)
         for _name, img_batch in self._get_images(batch).items():
-            data = img_batch.data
-            img_batch.data = torch.where(mask.to(data.device), data, self.outside_value)
+            img_batch.data = masked(img_batch.data, mask, self.outside_value)
         return batch
 
     def fusable(self, batch: SubjectsBatch) -> bool:
@@ -82,10 +109,11 @@ class Mask(IntensityTransform):
             apply=mask_apply(names, mask_name, labels, self.outside_value),
             args=None,
             params={},
+            takes_sharded=True,
         )
 
     def _resolve_mask(self, batch: SubjectsBatch) -> torch.Tensor:
-        if callable(self.masking_method) and not isinstance(self.masking_method, str):
+        if mask_gathers(self.masking_method):
             first = next(iter(self._get_images(batch).values()))
             return torch.as_tensor(
                 self.masking_method(first.data[0]), device=first.device
@@ -100,7 +128,7 @@ class Mask(IntensityTransform):
             mask_batch = batch.images[key]
             if not issubclass(mask_batch.image_class, LabelMap):
                 raise TypeError(f'Masking method "{key}" must refer to a LabelMap.')
-            return label_mask(mask_batch.data[0], self.labels)
+            return first_mask(mask_batch.data, self.labels)
         raise TypeError(
             f"masking_method must be a str or callable, got {type(self.masking_method)}"
         )

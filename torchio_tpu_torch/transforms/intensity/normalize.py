@@ -11,6 +11,13 @@ the one host transfer happens when the history is first read, after the
 output was computed. (0, 100) is the min and max; other percentiles are
 exact order statistics (:mod:`.._statistics`).
 
+On a sharded batch (a LabelMap-key mask or none) the range of element 0
+is computed where it lies: its minimum and maximum reduce the partial
+ones of its J columns (``all_reduce``); other percentiles gather its J
+columns, one element, over the mesh axis that splits J (``all_gather``),
+and take the exact order statistics there; the pair is shared over the
+axis that splits B (``broadcast``). Every rank rescales its region.
+
 One deliberate difference from the JAX package (its known fault
 ``normalize.py:92``): fused, an integer image with a zero input range
 keeps its dtype, as it does unfused.
@@ -25,6 +32,7 @@ import torch
 
 from ...data.batch import ImagesBatch, SubjectsBatch
 from ...data.image import LabelMap
+from ...parallel.mesh import region_of
 from .._statistics import quantiles_on_device
 from .._utils import broadcast_param
 from ..fuse import finalize_range_warn
@@ -32,7 +40,25 @@ from ..parameter_range import to_range
 from ..transform import DeferredParam, IntensityTransform
 
 
-class Normalize(IntensityTransform):
+def mask_gathers(masking_method) -> bool:
+    """Whether a masking spec is a callable: it reads the whole first
+    element, so its stage runs on the gathered batch."""
+    return callable(masking_method) and not isinstance(masking_method, str)
+
+
+class MaskedStatistic:
+    """The dispatch of a transform that reads element 0 within
+    ``masking_method``: a sharded batch stays on each rank's region
+    unless the mask is a callable (:func:`mask_gathers`)."""
+
+    masking_method: Any
+
+    @property
+    def takes_sharded(self) -> bool:
+        return not mask_gathers(self.masking_method)
+
+
+class Normalize(MaskedStatistic, IntensityTransform):
     r"""Clip to an input range and linearly rescale to an output range.
 
     :math:`v_{out} = (v - m_{min}) / (m_{max} - m_{min})
@@ -98,10 +124,8 @@ class Normalize(IntensityTransform):
             pct_high = self.percentile_high.sample_1d()
             in_ranges: dict[str, Any] = {}
             for name, img_batch in self._get_images(batch).items():
-                mask = self._get_mask(img_batch, batch)
-                in_ranges[name] = _percentile_range(
-                    img_batch.data[0], mask, pct_low, pct_high, name
-                )
+                mask_data = mask_data_of(self.masking_method, img_batch, batch)
+                in_ranges[name] = first_range(img_batch.data, mask_data, pct_low, pct_high, name)
             params["in_ranges"] = in_ranges
         if n is not None:
             self._tag_batched(params, batch, n, None, ["out_min", "out_max"])
@@ -142,6 +166,7 @@ class Normalize(IntensityTransform):
             args=params,
             params=params,
             finish=finish,
+            takes_sharded=True,
         )
 
     def apply_transform(
@@ -155,7 +180,8 @@ class Normalize(IntensityTransform):
                 if name not in in_ranges:
                     continue
                 bounds = in_ranges[name]
-            out = rescale(img_batch.data, bounds, params["out_min"], params["out_max"], name)
+            out = rescale_region(img_batch.data, bounds, params["out_min"], params["out_max"],
+                                 name)
             if out is not None:
                 img_batch.data = out
         return batch
@@ -173,9 +199,6 @@ class Normalize(IntensityTransform):
             in_ranges=params.get("in_ranges"),
             copy=False,
         )
-
-    def _get_mask(self, img_batch: ImagesBatch, batch: SubjectsBatch):
-        return resolve_mask(self.masking_method, img_batch, batch)
 
 
 def rescale(data: torch.Tensor, bounds, out_min, out_max, name: str):
@@ -222,27 +245,52 @@ def rescale(data: torch.Tensor, bounds, out_min, out_max, name: str):
     return (data - in_min) / in_range * out_range + out_min
 
 
+def rescale_region(data, bounds, out_min, out_max, name: str):
+    """:func:`rescale` of each rank's region of a DTensor (per-element
+    output bounds taken to its rows), or of a whole tensor; None where
+    the input range is zero."""
+    region = region_of(data)
+    out = rescale(region.local, bounds, region.take(out_min), region.take(out_max), name)
+    return None if out is None else region.wrap(out)
+
+
+def mask_batch_of(masking_method: str, batch: SubjectsBatch) -> ImagesBatch:
+    """The LabelMap batch a masking key names."""
+    if masking_method not in batch.images:
+        raise KeyError(
+            f'Masking method "{masking_method}" not found in batch'
+            f" images. Available: {list(batch.images)}"
+        )
+    mask_batch = batch.images[masking_method]
+    if not issubclass(mask_batch.image_class, LabelMap):
+        raise TypeError(
+            f'Masking method "{masking_method}" must refer to a LabelMap.'
+        )
+    return mask_batch
+
+
+def mask_data_of(masking_method, img_batch: ImagesBatch, batch: SubjectsBatch):
+    """The mask a statistic of element 0 reads, as (B, ...) data whose
+    element 0 is read: None (every voxel), a LabelMap key's batch data
+    (a DTensor on a sharded batch), or a callable's mask of the first
+    element (on the gathered batch) with a leading axis."""
+    if isinstance(masking_method, str):
+        return mask_batch_of(masking_method, batch).data
+    mask = resolve_mask(masking_method, img_batch, batch)
+    return None if mask is None else mask[None]
+
+
 def resolve_mask(masking_method, img_batch: ImagesBatch, batch: SubjectsBatch):
     """A masking spec -> a boolean tensor over the first element (on its
     device), or None."""
     if masking_method is None:
         return None
-    if callable(masking_method) and not isinstance(masking_method, str):
+    if mask_gathers(masking_method):
         return torch.as_tensor(
             masking_method(img_batch.data[0]), device=img_batch.device
         ).to(torch.bool)
     if isinstance(masking_method, str):
-        if masking_method not in batch.images:
-            raise KeyError(
-                f'Masking method "{masking_method}" not found in batch'
-                f" images. Available: {list(batch.images)}"
-            )
-        mask_batch = batch.images[masking_method]
-        if not issubclass(mask_batch.image_class, LabelMap):
-            raise TypeError(
-                f'Masking method "{masking_method}" must refer to a LabelMap.'
-            )
-        return mask_batch.data[0] != 0
+        return mask_batch_of(masking_method, batch).data[0] != 0
     raise TypeError(
         f"masking_method must be None, str, or callable, got {type(masking_method)}"
     )
@@ -285,6 +333,53 @@ def _percentile_range(tensor, mask, pct_low, pct_high, name) -> DeferredParam:
     if pair is None:
         pair = range_pair(data, pct_low, pct_high)
     return DeferredParam(pair, finalize_range_warn(name))
+
+
+def first_range(data, mask_data, pct_low: float, pct_high: float, name: str) -> DeferredParam:
+    """:func:`_percentile_range` of element 0 of the (B, C, I, J, K)
+    ``data`` within the non-zero voxels of element 0 of ``mask_data``
+    (None: every voxel), the same pair on every rank. A DTensor's holders
+    of element 0 reduce their columns' minima and maxima (``all_reduce``)
+    or, for other percentiles, gather its columns (one element) and take
+    the exact order statistics; the pair (and an empty mask's warning)
+    reaches the other rows' ranks by one ``broadcast``."""
+    region = region_of(data)
+    mask_region = None if mask_data is None else region_of(mask_data)
+    if region.whole:
+        mask = None if mask_region is None else mask_region.local[0] != 0
+        return _percentile_range(region.local[0], mask, pct_low, pct_high, name)
+    holds = region.holds_first
+    device = region.local.device
+    first = m = None
+    if holds:
+        first = region.local[0].to(torch.float32)
+        if mask_region is not None:
+            region.check_aligned(mask_region)
+            m = torch.broadcast_to(mask_region.local[0] != 0, first.shape)
+    if mask_region is not None:
+        count = torch.zeros(1, dtype=torch.float64, device=device)
+        if holds:
+            count = region.reduce_columns(m.sum().to(torch.float64).reshape(1))
+        if not bool(region.share_first(count)[0] > 0):
+            warnings.warn(
+                f'Cannot compute percentiles for "{name}": mask is empty.'
+                " Using full range.",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            m = None
+    pair = torch.empty(2, dtype=torch.float32, device=device)
+    if holds and pct_low == 0.0 and pct_high == 100.0:
+        lo = (first if m is None else torch.where(m, first, torch.inf)).amin()
+        hi = (first if m is None else torch.where(m, first, -torch.inf)).amax()
+        # both as maxima: one all_reduce for the pair
+        pair = region.reduce_columns(torch.stack([-lo, hi]), op="max")
+        pair = torch.stack([-pair[0], pair[1]])
+    elif holds:
+        values = first if m is None else torch.where(m, first, torch.nan)
+        whole = region.gather_first(values[None])
+        pair = quantiles_on_device(whole, [pct_low / 100.0, pct_high / 100.0])
+    return DeferredParam(region.share_first(pair), finalize_range_warn(name))
 
 
 class _RescaleInverse(IntensityTransform):

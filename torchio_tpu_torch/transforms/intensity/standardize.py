@@ -8,6 +8,11 @@ invertible. The statistics stay on the batch's device as an eager
 :class:`DeferredParam`: its finalizer raises on an empty mask and on a
 zero standard deviation when the history is recorded, after the output
 was computed.
+
+On a sharded batch (a LabelMap-key mask or none) the ranks that hold
+element 0 sum its columns, reduce the partial sums over the mesh axis
+that splits J (``all_reduce``) and share the triple over the axis that
+splits B (``broadcast``); every rank standardizes its region.
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import torch
 
 from ...data.batch import SubjectsBatch
 from ...data.image import LabelMap
+from ...parallel.mesh import map_region, region_of
 from ..transform import DeferredParam, IntensityTransform
-from .normalize import resolve_mask
+from .normalize import MaskedStatistic, mask_data_of
 
 
 def _finalize_stats(name: str):
@@ -54,14 +60,51 @@ def standardize_stats(first: torch.Tensor, mask: torch.Tensor | None) -> torch.T
     return torch.stack([mean, std, count])
 
 
+def first_stats(data, mask_data=None) -> torch.Tensor:
+    """:func:`standardize_stats` of element 0 of the (B, C, I, J, K)
+    ``data`` within the non-zero voxels of element 0 of ``mask_data``
+    (None: every voxel), the same triple on every rank: a DTensor's
+    holders of element 0 sum its J columns and reduce the partial sums
+    over the mesh axis that splits J, and share the triple over the one
+    that splits B."""
+    region = region_of(data)
+    mask_region = None if mask_data is None else region_of(mask_data)
+    if region.whole:
+        mask = None if mask_region is None else mask_region.local[0] != 0
+        return standardize_stats(region.local[0].to(torch.float32), mask)
+    triple = torch.empty(3, dtype=torch.float32, device=region.local.device)
+    if region.holds_first:
+        first = region.local[0].to(torch.float32)
+        if mask_region is None:
+            m = None
+            count = torch.tensor(float(first.numel()), dtype=torch.float64, device=first.device)
+            total = first.sum()
+        else:
+            region.check_aligned(mask_region)
+            m = torch.broadcast_to(mask_region.local[0] != 0, first.shape)
+            count = m.sum().to(torch.float64)
+            total = torch.where(m, first, 0.0).sum()
+        # the voxel count exact in float64, the sum rounded to float32 once
+        sums = region.reduce_columns(torch.stack([total.to(torch.float64), count]))
+        total, count = sums[0].to(torch.float32), sums[1].to(torch.float32)
+        mean = total / torch.clamp(count, min=1.0)
+        dev = (first - mean) ** 2
+        ss = region.reduce_columns((dev if m is None else torch.where(m, dev, 0.0)).sum())
+        std = torch.sqrt(ss / torch.clamp(count - 1.0, min=1.0))
+        one = torch.ones((), dtype=torch.float32, device=first.device)
+        triple = torch.stack([mean, std, one if m is None else count])
+    return region.share_first(triple)
+
+
 def standardized(data: torch.Tensor, stats) -> torch.Tensor:
     """``(data - mean) / std`` in float32, from a recorded (mean, std) pair
-    or a device triple."""
+    or a device triple: batch-wide values, the same for every element (a
+    DTensor on each rank's region)."""
     mean, std = stats[0], stats[1]
-    return (data.to(torch.float32) - mean) / std
+    return map_region(lambda local: (local.to(torch.float32) - mean) / std, data)
 
 
-class Standardize(IntensityTransform):
+class Standardize(MaskedStatistic, IntensityTransform):
     """Z-score normalization: subtract mean, divide by std.
 
     Statistics are computed from the first batch element (optionally
@@ -80,8 +123,8 @@ class Standardize(IntensityTransform):
     def make_params(self, batch: SubjectsBatch) -> dict[str, Any]:
         stats: dict[str, Any] = {}
         for name, img_batch in self._get_images(batch).items():
-            mask = resolve_mask(self.masking_method, img_batch, batch)
-            triple = standardize_stats(img_batch.data[0].to(torch.float32), mask)
+            mask_data = mask_data_of(self.masking_method, img_batch, batch)
+            triple = first_stats(img_batch.data, mask_data)
             stats[name] = DeferredParam(triple, _finalize_stats(name), eager=True)
         return {"stats": stats}
 
@@ -123,6 +166,7 @@ class Standardize(IntensityTransform):
             args=None,
             params={},
             finish=install_standardize_params,
+            takes_sharded=True,
         )
 
     @property

@@ -17,6 +17,7 @@ import torch
 from ... import random as tio_random
 from ...core.dtypes import movable
 from ...data.batch import SubjectsBatch
+from ...parallel.mesh import Region, is_dtensor, region_of
 from ..transform import SpatialTransform
 
 #: The three anatomical axis families; a label belongs to the family
@@ -63,8 +64,29 @@ def _resolve_axes(
 
 def flip(data: torch.Tensor, dims) -> torch.Tensor:
     """``torch.flip`` for every dtype (torch has no flip kernel for its
-    wider unsigned types: their bits move as the signed type's)."""
-    return torch.flip(movable(data), tuple(dims)).view(data.dtype)
+    wider unsigned types: their bits move as the signed type's). A
+    DTensor flips on each rank's region: locally along an axis the mesh
+    does not split, along a split one from the mirror ranks' columns."""
+    if not is_dtensor(data):
+        return torch.flip(movable(data), tuple(dims)).view(data.dtype)
+    region = region_of(data)
+    result = movable(region.local)
+    for dim in sorted({int(d) % data.ndim for d in dims}):
+        result = _flip_local(region, result, dim)
+    return region.wrap(result.view(data.dtype))
+
+
+def _flip_local(region: Region, local: torch.Tensor, dim: int) -> torch.Tensor:
+    """``local`` (rows of ``region``) flipped along ``dim`` of the global
+    tensor: a split ``dim`` takes the mirror ranks' columns, reversed."""
+    if not region.split(dim):
+        return torch.flip(local, (dim,))
+    group = region.group(dim)
+    if group is None:
+        raise ValueError(f"a region cut by hand along dim {dim} has no mirror ranks to flip with")
+    from ...parallel.halo import mirror_columns
+
+    return torch.flip(mirror_columns(local, int(region.shape[dim]), group, dim), (dim,))
 
 
 def flip_flags(axes_per_element: list[list[int]]) -> np.ndarray:
@@ -79,13 +101,23 @@ def flip_per_element(data: torch.Tensor, flags: np.ndarray) -> torch.Tensor:
     """Flip each batch element along its own axes (``flags`` from
     :func:`flip_flags`). Flips along distinct axes commute, so the batch
     is flipped once per axis that any element flips, and a mask picks
-    each element's version."""
-    result = movable(data)
+    each element's version. A DTensor flips on each rank's rows; along a
+    split axis only the rows that flip it take their mirror columns."""
+    region = region_of(data)
+    mine = region.take(np.asarray(flags, bool))
+    result = movable(region.local)
     for axis in np.flatnonzero(flags.any(axis=0)):
-        select = torch.as_tensor(flags[:, axis], device=data.device)
-        select = select.reshape(-1, 1, 1, 1, 1)
-        result = torch.where(select, torch.flip(result, (int(axis) - 3,)), result)
-    return result.view(data.dtype)
+        dim = 2 + int(axis)
+        if not mine[:, axis].any():
+            continue  # the ranks holding these rows all skip the exchange
+        if region.split(dim):
+            rows = torch.as_tensor(np.flatnonzero(mine[:, axis]), device=result.device)
+            flipped = _flip_local(region, result.index_select(0, rows), dim)
+            result = result.index_copy(0, rows, flipped)
+        else:
+            select = torch.as_tensor(mine[:, axis], device=result.device).reshape(-1, 1, 1, 1, 1)
+            result = torch.where(select, torch.flip(result, (dim,)), result)
+    return region.wrap(result.view(data.dtype))
 
 
 class Flip(SpatialTransform):
@@ -94,6 +126,8 @@ class Flip(SpatialTransform):
     ``axes`` may be ints in {0, 1, 2} or anatomical labels ('Left',
     'Posterior', ...) resolved against the image orientation.
     """
+
+    takes_sharded = True
 
     def __init__(
         self,
@@ -185,12 +219,14 @@ class Flip(SpatialTransform):
                 apply=flip_per_element_apply(names),
                 args=flip_flags(axes),
                 params=params,
+                takes_sharded=True,
             )
         return FusedStage(
             names=names,
             apply=flip_static_apply(names, tuple(a - 3 for a in axes)),
             args=(),
             params=params,
+            takes_sharded=True,
         )
 
 

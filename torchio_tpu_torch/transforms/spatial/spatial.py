@@ -79,7 +79,15 @@ from ...data.image import Image, LabelMap, ScalarImage
 from ...ops.bspline import bspline_resample, bspline_resample_fused
 from ...ops.gaussian import gaussian_blur
 from ...ops.resample import resample, resample_fused, resample_label_fused
-from ...parallel.mesh import NamedSharding, from_local, is_dtensor, local_slices, sharding_of
+from ...parallel.mesh import (
+    NamedSharding,
+    from_local,
+    is_dtensor,
+    local_slices,
+    region_of,
+    shard_range,
+    sharding_of,
+)
 from .._utils import unique_labels
 from ..parameter_range import Choice, _is_distribution, _ParameterRange
 from ..transform import SpatialTransform
@@ -328,6 +336,93 @@ def _border_values(data: torch.Tensor) -> np.ndarray:
     return flat.detach().cpu().numpy()
 
 
+def _border_fill(borders: np.ndarray, kind: str) -> np.ndarray:
+    """(B, C) float32 fills from (B, C, n) border voxels: their float64
+    mean ("mean"), or the mean of those below their Otsu threshold
+    ("otsu")."""
+    values = np.zeros(borders.shape[:2], np.float32)
+    for b in range(borders.shape[0]):
+        for c in range(borders.shape[1]):
+            flat = borders[b, c].astype(np.float64)
+            if kind == "mean":
+                values[b, c] = flat.mean()
+            else:
+                threshold = _otsu_threshold(flat)
+                vals = flat[flat < threshold]
+                values[b, c] = vals.mean() if vals.size else flat.mean()
+    return values
+
+
+def _face_pieces(local: torch.Tensor, first: bool, last: bool) -> list:
+    """A J slab's pieces of the six faces, in :func:`_border_values`'
+    order: its columns of the I and K faces, and the J faces where the
+    slab holds the global J ends (None elsewhere)."""
+    return [
+        local[:, :, 0], local[:, :, -1],
+        local[:, :, :, 0] if first else None, local[:, :, :, -1] if last else None,
+        local[:, :, :, :, 0], local[:, :, :, :, -1],
+    ]
+
+
+def _sharded_border_fill(data, sharding: NamedSharding, kind: str):
+    """The "mean"/"otsu" fills of a sharded batch, a (B, C) DTensor of each
+    rank's rows: each rank takes its pieces of its rows' six faces, and
+    only those pieces are gathered, over the mesh axis that splits J (one
+    ``all_gather``), to give each row's faces in the JAX package's order,
+    edges counted once per face."""
+    import torch.distributed as dist
+
+    region = region_of(data)
+    if any(region.split(d) for d in (1, 2, 4)):
+        raise ValueError(
+            f'the "{kind}" fill of a batch split along C, I or K is not supported;'
+            " shard B and J only"
+        )
+    local = region.local
+    bl, c, si, jl, sk = (int(n) for n in local.shape)
+    sj = int(region.shape[3])
+    group = region.space_group
+    if group is None:
+        borders = _border_values(local)
+    else:
+        parts, me = dist.get_world_size(group), dist.get_rank(group)
+        ranges = [shard_range(sj, parts, p) for p in range(parts)]
+        sizes = [
+            2 * (stop - start) * sk + (p == 0) * si * sk + (p == parts - 1) * si * sk
+            + 2 * si * (stop - start)
+            for p, (start, stop) in enumerate(ranges)
+        ]
+        mine = [f.reshape(bl, c, -1) for f in _face_pieces(local, me == 0, me == parts - 1)
+                if f is not None]
+        flat = torch.cat(mine, dim=2).to(torch.float64)
+        wide = max(sizes)
+        flat = torch.cat([flat, flat.new_zeros((bl, c, wide - flat.shape[2]))], dim=2)
+        pieces = [torch.empty_like(flat) for _ in range(parts)]
+        dist.all_gather(pieces, flat.contiguous(), group=group)
+        faces = [[] for _ in range(6)]
+        for p, ((start, stop), piece) in enumerate(zip(ranges, pieces)):
+            w, at = stop - start, 0
+            shapes = [(w, sk), (w, sk), (si, sk) if p == 0 else None,
+                      (si, sk) if p == parts - 1 else None, (si, w), (si, w)]
+            for face, shape in zip(faces, shapes):
+                if shape is None:
+                    continue
+                n = shape[0] * shape[1]
+                face.append(piece[:, :, at:at + n].reshape(bl, c, *shape))
+                at += n
+        # the I faces join their columns along J (their first axis), the K
+        # faces along J (their second), the J faces come whole from the ends
+        joined = [
+            torch.cat(faces[0], dim=2), torch.cat(faces[1], dim=2), faces[2][0], faces[3][0],
+            torch.cat(faces[4], dim=3), torch.cat(faces[5], dim=3),
+        ]
+        borders = torch.cat([f.reshape(bl, c, -1) for f in joined], dim=2)
+        borders = borders.detach().cpu().numpy()
+    values = torch.as_tensor(_border_fill(borders, kind), device=local.device)
+    spec = sharding.padded()
+    return from_local(values, NamedSharding(sharding.mesh, (spec[0],)), data.shape[:2])
+
+
 def _sharded_minimum(data, sharding: NamedSharding):
     """The per-element, per-channel minimum of a sharded batch: each
     rank's minimum over its region, reduced over the mesh axes that split
@@ -349,7 +444,8 @@ def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_
     per-channel minima computed on the batch's device ("minimum"); or a
     (B, C) float32 host array of per-element, per-channel float64 border
     statistics ("mean", and "otsu": the mean of the border voxels below
-    their Otsu threshold)."""
+    their Otsu threshold). A sharded batch's statistical fills are (B, C)
+    DTensors of each rank's rows, with no gather of the volume."""
     if issubclass(img_batch.image_class, LabelMap):
         return float(default_pad_label)
     if isinstance(default_pad_value, Number):
@@ -368,18 +464,9 @@ def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_
     if default_pad_value not in ("mean", "otsu"):
         raise ValueError(f'Unknown default_pad_value "{default_pad_value}"')
     data = img_batch.data
-    borders = _border_values(data.full_tensor() if is_dtensor(data) else data)
-    values = np.zeros(borders.shape[:2], np.float32)
-    for b in range(borders.shape[0]):
-        for c in range(borders.shape[1]):
-            flat = borders[b, c].astype(np.float64)
-            if default_pad_value == "mean":
-                values[b, c] = flat.mean()
-            else:
-                threshold = _otsu_threshold(flat)
-                vals = flat[flat < threshold]
-                values[b, c] = vals.mean() if vals.size else flat.mean()
-    return values
+    if is_dtensor(data):
+        return _sharded_border_fill(data, img_batch.sharding, default_pad_value)
+    return _border_fill(_border_values(data), default_pad_value)
 
 
 # --------------------------------------------------------------------------
