@@ -264,7 +264,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    with ``start`` bit-equal to the slice of the whole draw, words from a
    base past 2^32 equal to the plain words, and the kernel at start = 0
    timed against the kernel before the base (``probes/threefry_parent.cu``,
-   built beside the package's libraries);
+   built beside the package's libraries); the label and index stages
+   sharded: synthseg's B=4 x 256^3 label maps through Spatial,
+   RemapLabels (32 labels to 8 classes), RemoveLabels, Anisotropy,
+   SequentialLabels, Contour and OneHot on ``shard_(mesh, spatial=True)``,
+   and ixi's B=4 subjects through Reorient, CropOrPad, a reflect Pad,
+   Crop, Resize, Swap, PCA and OneHot on ``shard_(mesh)`` with
+   Reorient("RAS") and on ``shard_(mesh, spatial=True)`` with
+   Reorient("PRI"): no gather and no stage in ``gathered``, each output a
+   DTensor equal to the unsharded call (labels bit for bit, images within
+   1e-4), with the call times and peaks; RemapLabels, RemoveLabels,
+   CropOrPad along I and K and OneHot(num_classes=8) as 2 and 4 processes
+   sharing the card in a gloo group at (2, 1), (1, 2) and (1, 4), each
+   block bit-equal; Contour's and the reflect Pad's J planes as each
+   shard's local program of (1, 2) and (1, 4);
 20. one timed call of KeepLargestComponent on the brats cell's seg with a
    stray island a label (its host time and its two copies), and of
    Swap(patch_size=15, num_iterations=100) on B=4 x 256^3 (its device
@@ -4944,11 +4957,15 @@ def parent_threefry():
 class GatherSpy:
     """While active, records every gather a rank could make (the
     torch.distributed all-gathers, ``DTensor.full_tensor``/``redistribute``)
-    with the transform running when it happened (``inside``)."""
+    with the transform running when it happened (``inside``: Spatial, or
+    each of ``stages``), and every stage that entered
+    ``data.batch.gathered`` (``entered``)."""
 
-    def __init__(self, torch, tio):
+    def __init__(self, torch, tio, stages=()):
         self.torch, self.tio = torch, tio
+        self.stages = list(stages)
         self.gathers: list[tuple[str, str | None]] = []
+        self.entered: list[str | None] = []
         self.current: str | None = None
 
     def __enter__(self):
@@ -4983,11 +5000,42 @@ class GatherSpy:
 
         self._saved.append((spatial, "apply_transform", real_apply))
         spatial.apply_transform = apply
+        for stage in self.stages:
+            for hook in ("make_params", "apply_transform"):
+                self._label(stage, hook)
+        from torchio_tpu_torch.transforms import transform as transform_mod
+
+        real_gathered = transform_mod.gathered
+
+        def gathered(batch):
+            self.entered.append(self.current)
+            return real_gathered(batch)
+
+        self._saved.append((transform_mod, "gathered", real_gathered))
+        transform_mod.gathered = gathered
         return self
+
+    def _label(self, stage, hook):
+        """``stage.hook`` (on the instance) runs with ``current`` set to
+        the stage's class name."""
+        real = getattr(stage, hook)
+
+        def labelled(*args, **kwargs):
+            outer, self.current = self.current, type(stage).__name__
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.current = outer
+
+        setattr(stage, hook, labelled)
+        self._saved.append((stage, hook, None))
 
     def __exit__(self, *exc):
         for owner, name, real in reversed(self._saved):
-            setattr(owner, name, real)
+            if real is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, real)
 
     def inside(self, name: str) -> list[str]:
         return [g for g, where in self.gathers if where == name]
@@ -5564,6 +5612,423 @@ def parallel_pipelines(torch, tio, kl, mesh, smi):
     return report
 
 
+#: the sharded label and index pipelines: RemapLabels' 32 labels
+#: to 8 classes, the seed, the index pipeline's pad and resize, and the
+#: collective-free stages' crop along I and K (as processes sharing the card)
+LABEL_CLASSES = 8
+LABEL_SEED = 7
+INDEX_PAD, INDEX_RESIZE = 2, (160, 160, 128)
+FREE_CROP = (224, SYNTH_SHAPE[1], 240)
+LABEL_REPS = 2
+
+
+def label_classes():
+    """RemapLabels' map of synthseg's labels to LABEL_CLASSES classes."""
+    per_class = SYNTH_LABELS // LABEL_CLASSES
+    return {label: label // per_class for label in range(SYNTH_LABELS)}
+
+
+def labels_pipeline(tio):
+    """synthseg's label map through the label stages: geometry, labels to
+    classes, a class removed, thick slices, compacted labels, contours,
+    one-hot."""
+    return tio.Compose([
+        tio.Spatial(scales=(0.9, 1.1), degrees=10, max_displacement=7.5),
+        tio.RemapLabels(label_classes()),
+        tio.RemoveLabels([7]),
+        tio.Anisotropy(downsampling=(1.5, 5)),
+        tio.SequentialLabels(),
+        tio.Contour(),
+        tio.OneHot(),
+    ])
+
+
+def index_pipeline(tio, orientation):
+    """ixi's subjects through the index stages: reorient, crop or pad to
+    ixi's crop, a reflect pad and its crop, resize, patch swaps, PCA (one
+    component: one channel), one-hot labels."""
+    return tio.Compose([
+        tio.Reorient(orientation),
+        tio.CropOrPad(IXI_CROP),
+        tio.Pad(padding=INDEX_PAD, padding_mode="reflect"),
+        tio.Crop(cropping=INDEX_PAD),
+        tio.Resize(INDEX_RESIZE),
+        tio.Swap(patch_size=15, num_iterations=100),
+        tio.PCA(num_components=1),
+        tio.OneHot(),
+    ])
+
+
+def timed_call(torch, make_pipeline, tio, make_batch, reps=LABEL_REPS):
+    """The best of ``reps`` calls of a fresh pipeline on a fresh batch
+    (host clock, synchronised), the seed set before each; the largest
+    peak of the card's memory in a call and the bytes resident before it
+    (the input batch)."""
+    runs, peaks = [], []
+    for _ in range(reps):
+        batch = make_batch()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tio.seed(LABEL_SEED)
+        t0 = time.perf_counter()
+        make_pipeline(tio)(batch)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        del batch
+    return min(runs), max(peaks), resident
+
+
+def peak_call(torch, tio, pipeline, batch):
+    """``pipeline(batch)`` from LABEL_SEED with the card's resident bytes
+    before it and its peak."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tio.seed(LABEL_SEED)
+    out = pipeline(batch)
+    torch.cuda.synchronize()
+    return out, resident, torch.cuda.max_memory_allocated()
+
+
+def spatial_ties(torch, np, rs, batch):
+    """(B, 1, *shape) True where the nearest labels of a batch's first
+    record, a Spatial on its own space, may differ between the halo
+    program and the grid-spec kernel: a coordinate within TIE_BAND of a
+    .5 tie."""
+    ib = batch.seg
+    shape = tuple(ib.data.shape[2:])
+    maps, fields = slice_grids(np, rs, batch.applied_transforms[0].params, ib.affines[0],
+                               shape, ib.data.device)
+    return ~coord_tie_mask(torch, rs, maps, fields, shape)
+
+
+def compare_outputs(torch, tio, name, out, want, ties=None):
+    """Each image of ``out`` (a DTensor on the mesh) against ``want``'s:
+    label maps bit for bit (off ``ties``), images within PARALLEL_ATOL;
+    the differing voxels or max abs of each."""
+    from torchio_tpu_torch.parallel.mesh import is_dtensor
+
+    errs = {}
+    for image, ib in out.images.items():
+        data = ib.data
+        if not is_dtensor(data) or ib.sharding is None:
+            fail(f"parallel {name}: {image} is not a DTensor on the mesh ({type(data)})")
+        got, ref = data.full_tensor(), want.images[image].data
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            fail(f"parallel {name}: {image} {tuple(got.shape)} {got.dtype} against"
+                 f" {tuple(ref.shape)} {ref.dtype}")
+        if issubclass(ib.image_class, tio.LabelMap):
+            differ = got != ref
+            errs[image] = int(differ.sum())
+            off_ties = int((differ & ~ties).sum()) if ties is not None else errs[image]
+            if off_ties:
+                fail(f"parallel {name}: {image} differs from the unsharded call at"
+                     f" {off_ties} voxels" + (" off near ties" if ties is not None else ""))
+        else:
+            errs[image] = float((got.double() - ref.double()).abs().max())
+            if not errs[image] <= PARALLEL_ATOL:
+                fail(f"parallel {name}: {image} max abs {errs[image]} against the unsharded call")
+    if [t.name for t in out.applied_transforms] != [t.name for t in want.applied_transforms]:
+        fail(f"parallel {name}: histories differ")
+    return errs
+
+
+def sharded_stages(torch, np, tio, kl, mesh, smi, name, make_pipeline, make_batch, spatial,
+                   lead=0, launches=None):
+    """One pipeline of label or index stages on ``shard_(mesh,
+    spatial=...)``: no gather and no stage in ``gathered`` in the call,
+    each output a DTensor on the mesh, the same history as the unsharded
+    call on the same seed. Its first ``lead`` stages (a Spatial of the
+    label maps) run the halo program, whose nearest labels may differ
+    from the grid-spec kernel's at near ties: their output is held to the
+    unsharded call off near ties, and the later stages to the unsharded
+    stages on that same output (label maps bit for bit, images within
+    PARALLEL_ATOL). The sharded call launches the kernels ``launches``
+    names, as often, and no other. The call times and peaks of both."""
+    rs = importlib.import_module("torchio_tpu_torch.ops.resample")
+    t0 = time.perf_counter()
+    batch = make_batch()
+    stages = make_pipeline(tio).transforms
+    first, rest = tio.Compose(stages[:lead]), tio.Compose(stages[lead:])
+
+    def whole(b):
+        return rest(first(b))
+
+    sharded = copy.deepcopy(batch).shard_(mesh, spatial=spatial)
+    kl.reset_launches()
+    with warnings.catch_warnings(record=True) as caught, GatherSpy(torch, tio, stages) as spy:
+        warnings.simplefilter("always")
+        tio.seed(LABEL_SEED)
+        led = first(sharded)
+        out = rest(led)
+        torch.cuda.synchronize()
+    launched = {kernel: n for kernel, n in kl.LAUNCHES.items() if n}
+    if launched != (launches or {}):
+        fail(f"parallel {name}: launches {launched}, expected {launches or {}}")
+    if spy.gathers or spy.entered:
+        fail(f"parallel {name}: gathers {spy.gathers}, stages in gathered {spy.entered}")
+    moved = [str(w.message) for w in caught if "moves the J axis" in str(w.message)]
+    if moved:
+        fail(f"parallel {name}: {moved}")
+    tio.seed(LABEL_SEED)
+    ref = whole(copy.deepcopy(batch))
+    errs = {}
+    if lead:
+        # the lead against the unsharded lead off near ties; the rest
+        # against the unsharded stages on the lead's own output
+        tio.seed(LABEL_SEED)
+        ref_led = first(copy.deepcopy(batch))
+        errs["lead"] = compare_outputs(torch, tio, f"{name} (lead)", led, ref_led,
+                                       spatial_ties(torch, np, rs, ref_led))
+        del ref_led
+        errs["whole"] = {
+            image: int((ib.data.full_tensor() != ref.images[image].data).sum())
+            for image, ib in out.images.items()
+        }
+        same_lead = copy.deepcopy(led).unshard_()
+        del ref
+        ref = rest(same_lead)
+    errs["output"] = compare_outputs(torch, tio, name, out, ref)
+    shapes = {image: list(ib.data.shape) for image, ib in out.images.items()}
+    del ref, out, led, sharded
+    torch.cuda.empty_cache()
+    sharded_ms, peak, resident = timed_call(
+        torch, make_pipeline, tio, lambda: copy.deepcopy(batch).shard_(mesh, spatial=spatial))
+    whole_ms, whole_peak, whole_resident = timed_call(
+        torch, make_pipeline, tio, lambda: copy.deepcopy(batch))
+    times = {"sharded": sharded_ms, "unsharded": whole_ms}
+    del batch
+    torch.cuda.empty_cache()
+    mib = 2**20
+    seconds = time.perf_counter() - t0
+    print(
+        f"parallel {name} on shard_(mesh (1, 1), spatial={spatial}): outputs {shapes}, launches"
+        f" {launched}, no gather and no stage in gathered; against the unsharded call {errs} (labels: differing"
+        f" voxels; images: max abs; 'lead': Spatial against the grid-spec kernel, differing"
+        f" only at near ties; 'whole': the pipeline's labels against the unsharded pipeline's;"
+        f" 'output': the stages after the lead against the unsharded stages on the same input);"
+        f" a call {times['sharded'] * 1e3:.1f} ms sharded, {times['unsharded'] * 1e3:.1f} ms"
+        f" unsharded (best of {LABEL_REPS}, host clock); peak {peak / mib:.0f} MiB on the shard"
+        f" (resident {resident / mib:.0f} MiB), {whole_peak / mib:.0f} MiB unsharded (resident"
+        f" {whole_resident / mib:.0f} MiB); {seconds:.1f} s; card: {smi}"
+    )
+    return {"errors": errs, "launches": launched, "ms": {k: v * 1e3 for k, v in times.items()},
+            "peak_mib": peak / mib, "unsharded_peak_mib": whole_peak / mib, "s": seconds}
+
+
+def parallel_label_pipelines(torch, np, tio, kl, mesh, smi):
+    """The labels pipeline on synthseg's label maps (B and J sharded: one
+    ``resample_coords`` launch a call, Spatial's halo program on the label
+    map) and the index pipeline on ixi's subjects (B sharded with
+    Reorient("RAS"), which moves J; B and J sharded with Reorient("PRI"),
+    which flips J; no kernel)."""
+    dev = torch.device(DEVICE)
+    report = {}
+    cases = (
+        ("labels", labels_pipeline,
+         lambda: make_synth_batch(tio, torch, SYNTH_B, SYNTH_SHAPE, dev), True, 1,
+         {"resample_coords": 1}),
+        ("index-RAS", lambda t: index_pipeline(t, "RAS"),
+         lambda: make_ixi_batch(tio, torch, np, IXI_B, IXI_SHAPE, dev, IXI_SEED), False, 0,
+         None),
+        ("index-PRI", lambda t: index_pipeline(t, "PRI"),
+         lambda: make_ixi_batch(tio, torch, np, IXI_B, IXI_SHAPE, dev, IXI_SEED), True, 0,
+         None),
+    )
+    for name, make_pipeline, make, spatial, lead, launches in cases:
+        report[name] = sharded_stages(torch, np, tio, kl, mesh, smi, name, make_pipeline, make,
+                                      spatial, lead, launches)
+    return report
+
+
+def collective_free(tio):
+    """The label stages that need no collective on any layout: labels to
+    classes, a class removed, a crop along I and K, a one-hot of a fixed
+    class count."""
+    return tio.Compose([
+        tio.RemapLabels(label_classes()),
+        tio.RemoveLabels([7]),
+        tio.CropOrPad(FREE_CROP),
+        tio.OneHot(num_classes=LABEL_CLASSES),
+    ])
+
+
+def label_shard_worker(rank: int, world: int, port: int, space: int) -> None:
+    """One of ``world`` processes sharing the card in a gloo group:
+    :func:`collective_free` on its block of synthseg's label maps at the
+    layout (world / space, space), against its block of the unsharded
+    call; prints one JSON line."""
+    import json as json_mod
+
+    import torch
+    import torch.distributed as dist
+
+    import torchio_tpu_torch as tio
+    from torchio_tpu_torch.parallel import make_mesh
+    from torchio_tpu_torch.parallel.mesh import shard_range
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        dev = torch.device(DEVICE)
+        mesh = make_mesh(DEVICE, space=space)
+        data, column = mesh.get_coordinate()
+        batch = make_synth_batch(tio, torch, SYNTH_B, SYNTH_SHAPE, dev)
+        tio.seed(LABEL_SEED)
+        ref = collective_free(tio)(copy.deepcopy(batch)).seg.data
+        rows = slice(*shard_range(ref.shape[0], world // space, data))
+        cols = slice(*shard_range(ref.shape[3], space, column))
+        want = ref[rows][:, :, :, cols].cpu()  # off the card: not in the peak
+        del ref
+        batch.shard_(mesh, spatial=space > 1)
+        out, resident, peak = peak_call(torch, tio, collective_free(tio), batch)
+        local = out.seg.data.to_local()
+        print(json_mod.dumps({
+            "rank": rank, "equal": bool(torch.equal(local.cpu(), want)),
+            "local_shape": list(local.shape), "resident": resident, "peak": peak,
+        }))
+    finally:
+        dist.destroy_process_group()
+
+
+#: the layouts of the collective-free label stages as processes sharing
+#: the card: (world, space)
+LABEL_PROCESS_LAYOUTS = ((2, 1), (2, 2), (4, 4))
+
+
+def simulated_collective_free(torch, tio, world, space, ref):
+    """Each shard's local program of :func:`collective_free` (its block as
+    a batch of its own: the stages make no collective), against its block
+    of the unsharded call, with its peak memory."""
+    from torchio_tpu_torch.parallel.mesh import shard_range
+
+    dev = torch.device(DEVICE)
+    report = []
+    seg = make_synth_batch(tio, torch, SYNTH_B, SYNTH_SHAPE, dev).seg.data
+    for rank in range(world):
+        rows = slice(*shard_range(SYNTH_B, world // space, rank // space))
+        cols = slice(*shard_range(SYNTH_SHAPE[1], space, rank % space))
+        block = seg[rows][:, :, :, cols]
+        batch = tio.SubjectsBatch.from_subjects(
+            [tio.Subject(seg=tio.LabelMap(e.clone())) for e in block])
+        out, resident, peak = peak_call(torch, tio, collective_free(tio), batch)
+        equal = torch.equal(out.seg.data, ref[rows][:, :, :, cols])
+        report.append({"rank": rank, "equal": bool(equal), "local_shape": list(out.seg.data.shape),
+                       "resident": resident, "peak": peak})
+        del batch, out
+    return report
+
+
+def parallel_label_processes(torch, tio, smi):
+    """:func:`collective_free` on each block of (2, 1), (1, 2) and (1, 4),
+    as 2 and 4 processes sharing the card in a gloo group (where gloo
+    refuses a CUDA tensor, each shard's local program in this process),
+    each block bit-equal to the unsharded call's, with its peak memory."""
+    dev = torch.device(DEVICE)
+    batch = make_synth_batch(tio, torch, SYNTH_B, SYNTH_SHAPE, dev)
+    out, resident, whole_peak = peak_call(torch, tio, collective_free(tio), batch)
+    ref = out.seg.data
+    report = {"unsharded": {"resident": resident, "peak": whole_peak}}
+    for world, space in LABEL_PROCESS_LAYOUTS:
+        layout = f"({world // space}, {space})"
+        results, errors = shard_processes(world, worker="label_shard_worker",
+                                          extra=f", {space}")
+        route = "processes"
+        if errors or len(results) != world:
+            refusals = [m for e in errors for m in re.findall(f".*(?:{GLOO_REFUSES_CUDA}).*", e)]
+            if not refusals:
+                fail(f"the collective-free label stages as {world} processes at {layout}:"
+                     f" {len(results)} of {world} gave a result; their errors:\n"
+                     + "\n---\n".join(errors))
+            route = f"simulated (gloo refused a CUDA tensor: {refusals[0].strip()})"
+            results = simulated_collective_free(torch, tio, world, space, ref)
+        bad = [r["rank"] for r in results if not r["equal"]]
+        if bad:
+            fail(f"the collective-free label stages on {layout} ({route}): blocks {bad} differ")
+        report[layout] = {"route": route, "shards": results}
+    del batch, out, ref
+    torch.cuda.empty_cache()
+    mib = 2**20
+    print(
+        "RemapLabels + RemoveLabels + CropOrPad (I and K) + OneHot(num_classes=8) on each block"
+        f" of synthseg's B={SYNTH_B} x {SYNTH_SHAPE[0]}^3 labels (equal to the unsharded call's"
+        f" block): unsharded peak {whole_peak / mib:.0f} MiB (resident {resident / mib:.0f}"
+        " MiB); " + "; ".join(
+            f"{layout} by {entry['route']}: peaks "
+            f"{[round(r['peak'] / mib) for r in entry['shards']]} MiB (resident "
+            f"{[round(r['resident'] / mib) for r in entry['shards']]} MiB)"
+            for layout, entry in report.items() if layout != "unsharded"
+        ) + f"; card: {smi}"
+    )
+    return report
+
+
+def simulate_label_planes(torch, tio, smi):
+    """Contour's and the reflect Pad's J planes as each shard's local
+    program of a (1, 2) and a (1, 4) layout, fed the planes its neighbours
+    would send (sliced from the global volume: Contour's plane beside each
+    end, the reflect pad's columns by ``halo.column_routes``), reassembled
+    against the unsharded stage bit for bit."""
+    import numpy as np
+
+    from torchio_tpu_torch.parallel import halo as halo_mod
+    from torchio_tpu_torch.parallel.mesh import shard_range
+    from torchio_tpu_torch.transforms.label.contour import contour_block
+    from torchio_tpu_torch.transforms.spatial._padding import _border_index, pad_tensor
+
+    dev = torch.device(DEVICE)
+    seg = make_synth_batch(tio, torch, SYNTH_B, SYNTH_SHAPE, dev).seg.data.to(torch.float32)
+    contour = tio.Contour()(tio.SubjectsBatch.from_subjects(
+        [tio.Subject(seg=tio.LabelMap(e)) for e in seg])).seg.data
+    t1 = ixi_volumes(torch, IXI_B, IXI_SHAPE, dev, IXI_SEED)
+    ik = (INDEX_PAD, INDEX_PAD, 0, 0, INDEX_PAD, INDEX_PAD)
+    padded = pad_tensor(t1, (INDEX_PAD,) * 6, "reflect", 0.0)
+    sj, pj = t1.shape[3], padded.shape[3]
+    index = _border_index(sj, INDEX_PAD, INDEX_PAD, "reflect", "cpu").numpy()
+    report = {}
+    for parts in PARALLEL_LAYOUTS:
+        ranges = [shard_range(sj, parts, s) for s in range(parts)]
+        out_ranges = [shard_range(pj, parts, s) for s in range(parts)]
+        needs = [index[a:b] for a, b in out_ranges]
+        # each shard's block padded along I and K (its own work), then the
+        # J columns its pad reads from itself and the shards that hold them
+        blocks = [pad_tensor(t1[:, :, :, a:b], ik, "reflect", 0.0) for a, b in ranges]
+        contour_ok, pad_ok = True, True
+        for s, (j0, j1) in enumerate(ranges):
+            left = seg[:, :, :, j0 - 1:j0] if j0 > 0 else None
+            right = seg[:, :, :, j1:j1 + 1] if j1 < sj else None
+            got = contour_block(seg[:, :, :, j0:j1], left, right)
+            contour_ok &= torch.equal(got, contour[:, :, :, j0:j1])
+            _, want, _, takes = halo_mod.column_routes(sj, needs, parts, s)
+            pieces = {}
+            for p, at in takes.items():
+                p0, _, sends, _ = halo_mod.column_routes(sj, needs, parts, p)
+                cols = want[at] - p0 if p == s else sends[s] - p0
+                pieces[p] = (at, blocks[p].index_select(3, torch.as_tensor(cols, device=dev)))
+            assembled = halo_mod.assemble_columns(blocks[s], want, pieces, needs[s])
+            a, b = out_ranges[s]
+            pad_ok &= torch.equal(assembled, padded[:, :, :, a:b])
+        if not (contour_ok and pad_ok):
+            fail(f"simulated label planes on (1, {parts}): Contour equal {contour_ok},"
+                 f" reflect Pad equal {pad_ok}")
+        report[f"(1, {parts})"] = {"contour": bool(contour_ok), "pad_reflect": bool(pad_ok)}
+    print(
+        f"simulated label planes (each shard's local program fed its neighbours' planes):"
+        f" Contour on synthseg's B={SYNTH_B} x {SYNTH_SHAPE[0]}^3 labels and the reflect Pad"
+        f" ({INDEX_PAD}) along J on ixi's B={IXI_B} x {IXI_SHAPE} t1, bit-equal to the"
+        f" unsharded stage: {report}; card: {smi}"
+    )
+    del seg, contour, t1, padded, blocks
+    torch.cuda.empty_cache()
+    return report
+
+
 def bias_noise(tio):
     """The headline's pointwise stages: BiasField + Noise, fused."""
     return tio.Compose([tio.BiasField(std=0.5), tio.Noise(std=0.1)], fuse=True)
@@ -5621,10 +6086,12 @@ GLOO_REFUSES_CUDA = (
 )
 
 
-def shard_processes(world: int, timeout: float = 240.0, prelude: str = ""):
-    """``world`` processes of :func:`shard_worker` on the one card; their
-    JSON lines, and for each process that failed its error: the tail of
-    its standard error, or the time it outlived (every process
+def shard_processes(world: int, timeout: float = 240.0, prelude: str = "",
+                    worker: str = "shard_worker", extra: str = ""):
+    """``world`` processes of ``worker`` (:func:`shard_worker`, or
+    :func:`label_shard_worker` with ``extra`` arguments) on the one card;
+    their JSON lines, and for each process that failed its error: the tail
+    of its standard error, or the time it outlived (every process
     stopped). ``prelude``: Python run in each process before the
     worker."""
     import socket
@@ -5633,7 +6100,7 @@ def shard_processes(world: int, timeout: float = 240.0, prelude: str = ""):
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     here = Path(__file__).resolve().parent
-    code = prelude + f"\nimport chip_smoke as cs; cs.shard_worker({{}}, {world}, {port})"
+    code = prelude + f"\nimport chip_smoke as cs; cs.{worker}({{}}, {world}, {port}{extra})"
     procs = [
         subprocess.Popen([sys.executable, "-c", code.format(rank)], cwd=here,
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -5756,7 +6223,11 @@ def phase_parallel(torch, np, tio, tr, tk, kl, smi):
     and the headline's Noise draw as J slabs; configs 1 and 2 and
     brats-preprocess-fused sharded with no gather; the headline's
     BiasField + Noise on each shard of (1, 2) and (1, 4), as processes
-    sharing the card in a gloo group (or each shard's local program)."""
+    sharing the card in a gloo group (or each shard's local program); the
+    label and index pipelines sharded with no gather, the
+    collective-free label stages as processes at (2, 1), (1, 2) and
+    (1, 4), and Contour's and the reflect Pad's J planes as each shard's
+    local program."""
     import torch.distributed as dist
 
     from torchio_tpu_torch.parallel import halo as halo_mod
@@ -5782,13 +6253,18 @@ def phase_parallel(torch, np, tio, tr, tk, kl, smi):
         counter = counter_base(torch, tr, tk)
         strided = strided_segments(torch, tr, tk, kl, smi)
         pipelines = parallel_pipelines(torch, tio, kl, mesh, smi)
+        label_pipelines = parallel_label_pipelines(torch, np, tio, kl, mesh, smi)
     finally:
         dist.destroy_process_group()
     local_programs = parallel_local_programs(torch, tio, smi)
+    label_processes = parallel_label_processes(torch, tio, smi)
+    label_planes = simulate_label_planes(torch, tio, smi)
     print(f"parallel: {time.perf_counter() - t0:.1f} s; card: {smi}")
     return {"halo_launches": halo_launches, "simulated_launches": simulated,
             "step": step_launches, "counter_base": counter, "strided": strided,
-            "pipelines": pipelines, "local_programs": local_programs}
+            "pipelines": pipelines, "local_programs": local_programs,
+            "label_pipelines": label_pipelines, "label_processes": label_processes,
+            "label_planes": label_planes}
 
 
 def main() -> int:
@@ -5961,7 +6437,10 @@ def main() -> int:
             " Motion (2 moves each); parallel (the halo program of Spatial on the headline"
             f" sharded over J, mesh (1, 1)): {parallel['halo_launches']} a call; the sharded"
             f" step: {parallel['step']['resample_coords']} a call; the simulated shards of"
-            f" (1, 2) and (1, 4): {parallel['simulated_launches']}, one a shard",
+            f" (1, 2) and (1, 4): {parallel['simulated_launches']}, one a shard; the sharded"
+            " labels pipeline (Spatial's halo program on synthseg's J-sharded label maps):"
+            f" {parallel['label_pipelines']['labels']['launches'].get('resample_coords', 0)}"
+            " a call",
             "path": "kspace-motion-ghosting",
             "halo_launches": parallel["halo_launches"],
         },

@@ -4,17 +4,19 @@ the arrays it pulls to the host.
 
 Runs the JAX package (the reference, never the port) on 8 virtual CPU
 devices, ``make_mesh()`` = (data 4, space 2), B=4 subjects of
-(1, 16, 32, 16) sharded over B and J (``shard_(mesh, spatial=True)``).
-For each stage, in a process of its own, XLA dumps every program it
-compiles after optimisation; the stage's programs are those dumped
-during its call, and their collective ops (all-gather, all-reduce,
-collective-permute, all-to-all, reduce-scatter) are counted. A host pull
-of a sharded array (``np.asarray``) is counted too: it gathers the array
-to the host, which is no device's region either. A stage is local where
-both counts are zero.
+(1, 16, 32, 16) sharded over B and J (``shard_(mesh, spatial=True)``),
+or over B only (``--batch-only``: ``shard_(mesh)``). For each stage, in
+a process of its own, XLA dumps every program it compiles after
+optimisation; the stage's programs are those dumped during its call,
+and their collective ops (all-gather, all-reduce, collective-permute,
+all-to-all, reduce-scatter) are counted, each with the shape it moves.
+A host pull of a sharded array (``np.asarray``) is counted too: it
+gathers the array to the host, which is no device's region either. A
+stage is local where both counts are zero.
 
-    JAX_PLATFORMS=cpu python probes/jax_collectives.py            # every stage
-    JAX_PLATFORMS=cpu python probes/jax_collectives.py Motion     # one stage
+    JAX_PLATFORMS=cpu python probes/jax_collectives.py               # every stage
+    JAX_PLATFORMS=cpu python probes/jax_collectives.py Motion        # one stage
+    JAX_PLATFORMS=cpu python probes/jax_collectives.py --batch-only  # B split only
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ COLLECTIVES = ("all-gather", "all-reduce", "collective-permute", "all-to-all",
 #: the stages that gather in the port, then the pointwise stages it keeps
 #: on each rank's region
 STAGES = ("Motion", "Ghosting", "Spike", "Swap", "LabelsToImage", "HistogramStandardization",
-          "OneHot", "Contour", "KeepLargestComponent", "RemapLabels", "RemoveLabels",
-          "SequentialLabels", "Resize", "Anisotropy",
+          "OneHot", "OneHot3", "Contour", "KeepLargestComponent", "RemapLabels", "RemoveLabels",
+          "SequentialLabels", "Resize", "Anisotropy", "Crop", "Pad", "PadReflect", "CropOrPad",
+          "Transpose", "Reorient", "PCA",
           "Noise", "BiasField", "Gamma", "Clamp", "Flip", "ZNormalization", "Mask",
           "RescaleIntensity")
 
@@ -60,6 +63,20 @@ def stage(tj, name, np):
         return tj.Resize((16, 24, 16))
     if name == "Anisotropy":
         return tj.Anisotropy(downsampling=(2.0, 3.0))
+    if name == "OneHot3":
+        return tj.OneHot(num_classes=3)
+    if name == "Crop":
+        return tj.Crop(cropping=(2, 3, 1))
+    if name == "Pad":
+        return tj.Pad(padding=(2, 3, 1))
+    if name == "PadReflect":
+        return tj.Pad(padding=(2, 3, 1), padding_mode="reflect")
+    if name == "CropOrPad":
+        return tj.CropOrPad((12, 40, 16))
+    if name == "Reorient":
+        return tj.Reorient("PLI")
+    if name == "PCA":
+        return tj.PCA(num_components=1)
     if name == "Noise":
         return tj.Noise(std=0.1)
     if name == "Gamma":
@@ -75,7 +92,19 @@ def stage(tj, name, np):
     return getattr(tj, name)()
 
 
-def run_one(name: str) -> dict:
+def collectives(text: str) -> dict:
+    """Each collective op of an HLO module's text with the shapes it moves
+    (``%x = <shape> op(...)``: the shape may be a tuple with spaces; its
+    layouts dropped)."""
+    found = {}
+    for op in COLLECTIVES:
+        shapes = re.findall(rf"= (\S.*?) {op}(?:-start)?\(", text)
+        if shapes:
+            found[op] = [re.sub(r"\{[^}]*\}", "", shape) for shape in shapes]
+    return found
+
+
+def run_one(name: str, spatial: bool = True) -> dict:
     """The probe of one stage, in this process (XLA_FLAGS set by the caller)."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import jax
@@ -95,7 +124,7 @@ def run_one(name: str) -> dict:
         )
         for _ in range(4)
     ]
-    batch = SubjectsBatch.from_subjects(subjects).shard_(make_mesh(), spatial=True)
+    batch = SubjectsBatch.from_subjects(subjects).shard_(make_mesh(), spatial=spatial)
     transform = stage(tj, name, np)
     pulls = []
     real = ArrayImpl.__array__
@@ -114,21 +143,24 @@ def run_one(name: str) -> dict:
             jax.block_until_ready(ib.data)
     finally:
         ArrayImpl.__array__ = real
-    counts = {op: 0 for op in COLLECTIVES}
+    shapes: dict = {}
     programs = sorted(set(dump.glob("*after_optimizations.txt")) - before)
     for path in programs:
-        text = path.read_text()
-        for op in COLLECTIVES:
-            # "%x = <shape> op(...)": the shape may be a tuple with spaces
-            counts[op] += len(re.findall(rf" {op}(?:-start)?\(", text))
+        for op, found in collectives(path.read_text()).items():
+            shapes.setdefault(op, []).extend(found)
     return {"stage": name, "programs": len(programs),
-            "collectives": {k: v for k, v in counts.items() if v}, "host_pulls": pulls}
+            "collectives": {op: len(found) for op, found in shapes.items()},
+            "shapes": shapes, "host_pulls": pulls}
 
 
 def main(argv: list[str]) -> int:
     if argv and argv[0] == "--one":
-        print(json.dumps(run_one(argv[1])))
+        print(json.dumps(run_one(argv[1], spatial=argv[2:] != ["--batch-only"])))
         return 0
+    layout = [a for a in argv if a == "--batch-only"]
+    argv = [a for a in argv if a != "--batch-only"]
+    print(f"layout: mesh (data 4, space 2), B=4 x (1, 16, 32, 16) sharded over"
+          f" {'B only' if layout else 'B and J'}", flush=True)
     results = []
     for name in argv or STAGES:
         with tempfile.TemporaryDirectory(prefix="jax_collectives_") as dump:
@@ -136,7 +168,7 @@ def main(argv: list[str]) -> int:
                 "--xla_force_host_platform_device_count=8 --xla_dump_hlo_as_text"
                 f" --xla_dump_to={dump} --xla_dump_hlo_pass_re=^$"
             ))
-            proc = subprocess.run([sys.executable, __file__, "--one", name], env=env,
+            proc = subprocess.run([sys.executable, __file__, "--one", name, *layout], env=env,
                                   capture_output=True, text=True,
                                   cwd=Path(__file__).resolve().parents[1])
             lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]

@@ -716,6 +716,104 @@ def job_region_draws(key, shape, spatial):
     }
 
 
+def label_recipe(pkg, recipe: str) -> list:
+    """The transforms of a label or index stage recipe in ``pkg`` (this
+    port or the JAX package)."""
+    recipes = {
+        "remap": lambda: [pkg.RemapLabels({1: 2, 2: 1})],
+        "remove": lambda: [pkg.RemoveLabels([2])],
+        "onehot": lambda: [pkg.OneHot()],
+        "onehot3": lambda: [pkg.OneHot(num_classes=3)],
+        "contour": lambda: [pkg.Contour()],
+        "sequential": lambda: [pkg.SequentialLabels()],
+        "swap": lambda: [pkg.Swap(patch_size=4, num_iterations=4, p=0.7)],
+        "pca": lambda: [pkg.PCA(num_components=2)],
+        "resize": lambda: [pkg.Resize((16, 24, 16))],
+        "resize-up": lambda: [pkg.Resize((12, 44, 20))],
+        "anisotropy": lambda: [pkg.Anisotropy(downsampling=(2.0, 3.0), p=0.7)],
+        "anisotropy-j": lambda: [
+            pkg.Anisotropy(axes=(1,), downsampling=(2.0, 3.0), per_instance=False)
+        ],
+        "crop": lambda: [pkg.Crop(cropping=(2, 3, 1))],
+        "pad": lambda: [pkg.Pad(padding=(2, 3, 1))],
+        "pad-reflect": lambda: [pkg.Pad(padding=(2, 3, 1), padding_mode="reflect")],
+        "pad-reflect-wide": lambda: [
+            pkg.Pad(padding=(2, 3, 9, 10, 1, 0), padding_mode="reflect")
+        ],
+        "pad-replicate": lambda: [pkg.Pad(padding=(0, 1, 3, 2, 1, 1), padding_mode="replicate")],
+        "pad-circular": lambda: [pkg.Pad(padding=(1, 0, 5, 9, 0, 3), padding_mode="circular")],
+        "pad-median": lambda: [pkg.Pad(padding=(1, 1, 2, 3, 0, 0), padding_mode="median")],
+        "croporpad": lambda: [pkg.CropOrPad((12, 40, 16))],
+        "croporpad-ik": lambda: [pkg.CropOrPad((12, 32, 20))],
+        "transpose": lambda: [pkg.Transpose()],
+        "reorient": lambda: [pkg.Reorient("LPI")],
+        "reorient-move": lambda: [pkg.Reorient("PLI")],
+        "labels-chain": lambda: [
+            pkg.RemapLabels({3: 1}), pkg.Anisotropy(axes=(1,), downsampling=(1.5, 5.0)),
+            pkg.SequentialLabels(), pkg.Contour(), pkg.OneHot(),
+        ],
+    }
+    return recipes[recipe]()
+
+
+#: the layouts of the label and index stages: (data, space) -> (space,
+#: whether J is split)
+LABEL_LAYOUTS = {"(4, 1)": (1, False), "(2, 2)": (2, True), "(1, 4)": (4, True)}
+
+
+def job_labels(recipe, images, classes, seed):
+    """``recipe`` on this rank's whole batch and on the batch sharded at
+    each of :data:`LABEL_LAYOUTS`: each run's whole images and affines,
+    its history, the next host draw, its warnings, how often a stage
+    entered ``gathered``, and its collectives."""
+    import copy
+
+    import torchio_tpu_torch as tt
+    from torchio_tpu_torch.parallel.mesh import is_dtensor
+    from torchio_tpu_torch.transforms import transform as transform_mod
+
+    base = _subjects_batch(images, classes)
+    real = transform_mod.gathered
+    entered = []
+
+    def spy_gathered(batch):
+        entered.append(type(batch).__name__)
+        return real(batch)
+
+    out = {}
+    for layout in (None, *LABEL_LAYOUTS):
+        batch = copy.deepcopy(base)
+        coordinate = None
+        if layout is not None:
+            space, spatial = LABEL_LAYOUTS[layout]
+            batch.shard_(mesh(space), spatial=spatial)
+            coordinate = tuple(mesh(space).get_coordinate())
+        pipeline = tt.Compose(label_recipe(tt, recipe), fuse=False)
+        tt.seed(seed)
+        entered.clear()
+        transform_mod.gathered = spy_gathered
+        try:
+            with warnings.catch_warnings(record=True) as caught, CollectiveSpy() as spy:
+                warnings.simplefilter("always")
+                result = pipeline(batch)
+        finally:
+            transform_mod.gathered = real
+        out[layout] = {
+            "images": {n: _whole(ib.data) for n, ib in result.images.items()},
+            "affines": {n: np.stack([a.data for a in ib.affines])
+                        for n, ib in result.images.items()},
+            "sharded": {n: ib.sharding is not None and is_dtensor(ib.data)
+                        for n, ib in result.images.items()},
+            "history": _history(result),
+            "draw": float(tt.random.random()),
+            "warnings": [str(w.message) for w in caught],
+            "gathered": len(entered),
+            "coordinate": coordinate,
+            "spy": spy.counts,
+        }
+    return out
+
+
 JOBS = {
     name[4:]: fn for name, fn in dict(globals()).items() if name.startswith("job_")
 }

@@ -16,9 +16,11 @@ package shares its immutable arrays) and copies only the metadata.
 ``shard_`` places a batch on a :mod:`torch.distributed` device mesh
 (:mod:`..parallel.mesh`): its data becomes a ``DTensor`` of the global
 shape, and every stage's output is placed the same way until the batch
-size changes or ``unshard_`` is called. Stages with a sharded path
-(Spatial's halo resample, Blur's halo taps) take the DTensors; every
-other stage runs on the whole tensors inside :func:`gathered`.
+size changes or ``unshard_`` is called; a stage that changes C or a
+spatial extent keeps B and J placed (a new J extent by ``torch.chunk``'s
+split). Stages with a sharded path (``Transform.takes_sharded``: the
+halo stencils, the pointwise, label and index stages) take the DTensors;
+every other stage runs on the whole tensors inside :func:`gathered`.
 """
 
 from __future__ import annotations

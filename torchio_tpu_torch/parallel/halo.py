@@ -161,6 +161,96 @@ def mirror_columns(x: torch.Tensor, size: int, group, dim: int = 3) -> torch.Ten
     return torch.cat(pieces, dim=dim)
 
 
+#: P2P tag of the column move (apart from the halos' and the mirror's)
+_TAG_MOVE = 3
+
+
+def column_routes(size: int, needs, parts: int, shard: int):
+    """Where shard ``shard`` of ``parts`` (``torch.chunk``'s split of a
+    global extent ``size``) gets the columns ``needs[shard]`` and where it
+    sends its own (``needs[p]``: the global columns shard ``p`` reads):
+    ``(start, want, sends, takes)``: its first column, the distinct
+    columns it needs, for each other shard the distinct columns of its own
+    that shard needs, and for each shard (itself too) the positions in
+    ``want`` of the columns that shard holds."""
+    ranges = [shard_range(size, parts, p) for p in range(parts)]
+    start, stop = ranges[shard]
+    want = np.unique(np.asarray(needs[shard], np.int64))
+    sends, takes = {}, {}
+    for p, (p0, p1) in enumerate(ranges):
+        held = np.flatnonzero((want >= p0) & (want < p1))
+        if held.size:
+            takes[p] = held
+        if p != shard:
+            theirs = np.unique(np.asarray(needs[p], np.int64))
+            mine = theirs[(theirs >= start) & (theirs < stop)]
+            if mine.size:
+                sends[p] = mine
+    return start, want, sends, takes
+
+
+def assemble_columns(x: torch.Tensor, want, pieces: dict, order, dim: int = 3):
+    """The columns ``order`` (global indices, repeats allowed) along
+    ``dim``, from ``pieces`` (shard -> (positions in ``want``, those
+    columns: the shard's own, or what another shard sent)) placed at their
+    positions of ``want`` (the distinct needed columns, sorted; ``x``, the
+    shard's block, gives the type and device): a shard's local program
+    after the exchange."""
+    columns = None
+    for at, piece in pieces.values():
+        if len(at) == len(want):
+            columns = piece
+    if columns is None:
+        shape = list(x.shape)
+        shape[dim] = len(want)
+        columns = x.new_empty(shape)
+        for at, piece in pieces.values():
+            columns.index_copy_(dim, torch.as_tensor(at, device=x.device), piece)
+    order = np.searchsorted(want, np.asarray(order, np.int64))
+    if len(order) == len(want) and (order == np.arange(len(want))).all():
+        return columns
+    return columns.index_select(dim, torch.as_tensor(order, device=x.device))
+
+
+def move_columns(x: torch.Tensor, size: int, needs, group, dim: int = 3) -> torch.Tensor:
+    """The columns along ``dim`` that this rank needs, from the ranks that
+    hold them: ``x`` holds columns ``[start, stop)`` of a global extent
+    ``size`` split over ``group`` (``torch.chunk``'s split), and
+    ``needs[p]`` lists the global columns rank ``p`` of ``group`` needs, in
+    the order it reads them (repeats allowed). Returns this rank's
+    ``needs`` columns in that order. Each pair of ranks exchanges the
+    distinct columns one holds and the other needs, once: one
+    ``batch_isend_irecv`` on ``group`` (a crop, a pad or an index resample
+    along a split axis); none where every rank holds what it needs."""
+    import torch.distributed as dist
+
+    n, s = dist.get_world_size(group), dist.get_rank(group)
+    start, want, sends, takes = column_routes(size, needs, n, s)
+    pieces, ops = {}, []
+    for p in range(n):
+        peer = dist.get_global_rank(group, p)
+        if p in sends:
+            index = torch.as_tensor(sends[p] - start, device=x.device)
+            ops.append(dist.P2POp(dist.isend, x.index_select(dim, index).contiguous(), peer,
+                                  group, _TAG_MOVE))
+        if p not in takes:
+            continue
+        at = takes[p]
+        if p == s:
+            pieces[p] = (at, x.index_select(dim, torch.as_tensor(want[at] - start,
+                                                                 device=x.device)))
+            continue
+        shape = list(x.shape)
+        shape[dim] = len(at)
+        piece = torch.empty(shape, dtype=x.dtype, device=x.device)
+        ops.append(dist.P2POp(dist.irecv, piece, peer, group, _TAG_MOVE))
+        pieces[p] = (at, piece)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return assemble_columns(x, want, pieces, needs[s], dim)
+
+
 def _local_of(x, sharding: NamedSharding) -> torch.Tensor:
     """This rank's region of ``x`` (a DTensor or a whole tensor) placed by
     ``sharding``."""

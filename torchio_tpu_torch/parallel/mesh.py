@@ -286,13 +286,114 @@ class Region:
             raise ValueError(f"a per-element value has {len(value)} entries for a batch of {b}")
         return value if int(self.local.shape[0]) == b else value[self.rows]
 
-    def wrap(self, local: torch.Tensor):
+    def wrap(self, local: torch.Tensor, shape=None):
         """The global tensor (a DTensor placed as this region's) whose
-        block here is ``local`` (of this region's shape); ``local`` itself
-        for a region without a sharding."""
+        block here is ``local``: of this region's shape, or this rank's
+        block of a result of global ``shape`` (B and J placed as this
+        region's: its rows, and :meth:`columns` of the new J extent);
+        ``local`` itself for a region without a sharding."""
         if self.sharding is None:
             return local
-        return from_local(local, self.sharding, self.shape)
+        return from_local(local, self.sharding, self.shape if shape is None else shape)
+
+    def parts(self, dim: int) -> int:
+        """The number of blocks the mesh splits ``dim`` into: 1 where no
+        mesh axis splits it, or where that axis has one rank."""
+        group = self.group(dim)
+        if group is None:
+            return 1
+        import torch.distributed as dist
+
+        return dist.get_world_size(group)
+
+    def columns(self, size: int) -> tuple[int, int]:
+        """This rank's J columns ``[start, stop)`` of a result whose J
+        extent is ``size``, placed as this region's (the whole extent where
+        J is whole)."""
+        parts = self.parts(3)
+        if parts == 1:
+            return 0, int(size)
+        import torch.distributed as dist
+
+        return shard_range(int(size), parts, dist.get_rank(self.space_group))
+
+    def reduce_max(self, value: torch.Tensor) -> torch.Tensor:
+        """A partial maximum of this rank's block reduced over the whole
+        mesh: one ``all_reduce(MAX)`` over each mesh axis that splits B or
+        J into more than one block (none where the region is whole)."""
+        import torch.distributed as dist
+
+        value = value.contiguous()
+        for dim in (0, 3):
+            if self.parts(dim) > 1:
+                dist.all_reduce(value, op=dist.ReduceOp.MAX, group=self.group(dim))
+        return value
+
+    def fetch_columns(self, x: torch.Tensor, size: int, need) -> torch.Tensor:
+        """For this rank's columns ``[start, stop)`` of a result whose J
+        extent is ``size`` (:meth:`columns`), the input columns ``need(start,
+        stop)`` (global J indices into this region's extent, in the order
+        the result reads them) of ``x``, this rank's J block (any B, C, I
+        and K): its own by an index select, the others' point to point
+        from the ranks that hold them (one ``batch_isend_irecv`` on the
+        group of the mesh axis that splits J, and none where no rank needs
+        another's columns). Every rank of that group calls it alike: each
+        computes every rank's ``need`` to know what to send."""
+        from ..core.dtypes import movable
+
+        parts = self.parts(3)
+        moved = movable(x)
+        if parts == 1:
+            index = torch.as_tensor(np.asarray(need(0, int(size)), np.int64), device=x.device)
+            return moved.index_select(3, index).view(x.dtype)
+        from .halo import move_columns
+
+        needs = [np.asarray(need(*shard_range(int(size), parts, p)), np.int64)
+                 for p in range(parts)]
+        return move_columns(moved, int(self.shape[3]), needs, self.space_group).view(x.dtype)
+
+    def fetch_index_columns(self, x: torch.Tensor, size: int, indices) -> list[torch.Tensor]:
+        """For each array of ``indices`` (the input column each output
+        column of a J extent ``size`` reads, one entry an output column),
+        the columns of ``x`` this rank's output columns read, all in one
+        :meth:`fetch_columns` of the distinct columns they name."""
+        def need(start, stop):
+            return np.unique(np.concatenate([np.asarray(i[start:stop], np.int64)
+                                             for i in indices]))
+
+        start, stop = self.columns(size)
+        columns = self.fetch_columns(x, size, need)
+        mine = need(start, stop)
+        return [
+            columns.index_select(3, torch.as_tensor(
+                np.searchsorted(mine, np.asarray(i[start:stop], np.int64)), device=x.device))
+            for i in indices
+        ]
+
+    def gather_columns(self, rows: torch.Tensor | None = None) -> torch.Tensor:
+        """This rank's rows whole along J: ``rows`` (this rank's (bl, C, I,
+        jl, K) block, or a tensor of its layout; the local block where
+        None) gathered over the mesh axis that splits J (one
+        ``all_gather`` of the rows' columns, never over ``data``; nothing
+        where J is one block). Every rank of that group calls it alike."""
+        rows = self.local if rows is None else rows
+        if self.parts(3) == 1:
+            return rows
+        import torch.distributed as dist
+
+        group = self.space_group
+        parts = dist.get_world_size(group)
+        sj = int(self.shape[3])
+        widths = [stop - start for start, stop in
+                  (shard_range(sj, parts, p) for p in range(parts))]
+        wide = max(widths)
+        padded = rows
+        if rows.shape[3] < wide:
+            pad = rows.new_zeros((*rows.shape[:3], wide - rows.shape[3], *rows.shape[4:]))
+            padded = torch.cat([rows, pad], dim=3)
+        pieces = [torch.empty_like(padded) for _ in range(parts)]
+        dist.all_gather(pieces, padded.contiguous(), group=group)
+        return torch.cat([piece[:, :, :, :w] for piece, w in zip(pieces, widths)], dim=3)
 
     def share_first(self, value: torch.Tensor) -> torch.Tensor:
         """``value`` as the ranks holding element 0 computed it, on every
@@ -306,6 +407,28 @@ class Region:
             value = value.contiguous()
             dist.broadcast(value, src=dist.get_global_rank(group, 0), group=group)
         return value
+
+    def share_first_labels(self, labels: list[int] | None) -> list[int]:
+        """A list of ints as the ranks holding element 0 computed it
+        (``labels``; None on the other ranks), on every rank: its length,
+        then its values, each one ``broadcast`` over the mesh axis that
+        splits B (nothing where B is one block)."""
+        if self.parts(0) == 1:
+            return labels
+        import torch.distributed as dist
+
+        group = self.data_group
+        src = dist.get_global_rank(group, 0)
+        device = self.local.device
+        count = torch.tensor([0 if labels is None else len(labels)], dtype=torch.int64,
+                             device=device)
+        dist.broadcast(count, src=src, group=group)
+        if labels is None:
+            values = torch.empty(int(count[0]), dtype=torch.int64, device=device)
+        else:
+            values = torch.tensor(labels, dtype=torch.int64, device=device)
+        dist.broadcast(values, src=src, group=group)
+        return [int(v) for v in values.tolist()]
 
     def reduce_columns(self, value: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """A partial statistic of this rank's J columns reduced over the
@@ -324,27 +447,9 @@ class Region:
         """Element 0 whole, (1, C, I, J, K), on the ranks that hold it: its
         J columns (``first``, this rank's (1, C, I, jl, K) columns of it or
         of a tensor of its layout; the local block's where None) gathered
-        over the mesh axis that splits J (one ``all_gather`` of one
-        element; nothing where J is whole). Only the ranks of
-        :attr:`holds_first` may call it."""
-        first = self.local[:1] if first is None else first
-        group = self.space_group
-        if group is None:
-            return first
-        import torch.distributed as dist
-
-        parts = dist.get_world_size(group)
-        sj = int(self.shape[3])
-        widths = [stop - start for start, stop in
-                  (shard_range(sj, parts, p) for p in range(parts))]
-        wide = max(widths)
-        padded = first
-        if first.shape[3] < wide:
-            pad = first.new_zeros((*first.shape[:3], wide - first.shape[3], *first.shape[4:]))
-            padded = torch.cat([first, pad], dim=3)
-        pieces = [torch.empty_like(padded) for _ in range(parts)]
-        dist.all_gather(pieces, padded.contiguous(), group=group)
-        return torch.cat([piece[:, :, :, :w] for piece, w in zip(pieces, widths)], dim=3)
+        over the mesh axis that splits J (:meth:`gather_columns` of one
+        element). Only the ranks of :attr:`holds_first` may call it."""
+        return self.gather_columns(self.local[:1] if first is None else first)
 
 
 def region_of(value) -> Region:
@@ -370,6 +475,20 @@ def map_region(fn, value, *per_element):
     batch-wide value goes into ``fn``'s closure, never here."""
     region = region_of(value)
     return region.wrap(fn(region.local, *(region.take(v) for v in per_element)))
+
+
+def map_rows(fn, value):
+    """``fn(rows)`` on this rank's rows whole along J (gathered over the
+    mesh axis that splits J, :meth:`Region.gather_columns`; no
+    communication where J is one block); the result, of any C, I, J and
+    K, placed as ``value`` is: each rank keeps its columns of the result's
+    J extent. The path of a stage that reads a whole element along J (an
+    element's statistics)."""
+    region = region_of(value)
+    out = fn(region.gather_columns())
+    start, stop = region.columns(int(out.shape[3]))
+    shape = (int(region.shape[0]), *(int(n) for n in out.shape[1:]))
+    return region.wrap(out[:, :, :, start:stop], shape)
 
 
 def shard_batch(data, mesh):

@@ -12,6 +12,11 @@ it gives the JAX package's eigenvectors with their signs, where
 ``torch.linalg.eigh`` picks the other sign for some grams and so flips
 components of the output. A gram is C x C floats: one small copy to the
 host an element, and the eigenvectors back.
+
+A sharded batch projects each rank's rows: over B with no collective
+(each element's statistics are its own); along J each rank's rows are
+gathered whole along J over ``space`` (one ``all_gather``, never over
+``data``) and each rank keeps its columns of the result.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import scipy.linalg
 import torch
 
 from ...data.batch import SubjectsBatch
+from ...parallel.mesh import map_rows
 from ..transform import IntensityTransform
 
 
@@ -34,6 +40,8 @@ def gram_eigh(gram: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 class PCA(IntensityTransform):
     r"""Project the channel dimension onto its leading principal components."""
+
+    takes_sharded = True
 
     def __init__(
         self,
@@ -58,11 +66,13 @@ class PCA(IntensityTransform):
         self, batch: SubjectsBatch, params: dict[str, Any]
     ) -> SubjectsBatch:
         for img_batch in self._get_images(batch).values():
-            data = img_batch.data
-            img_batch.data = torch.stack(
-                [self._pca_single(data[i]) for i in range(data.shape[0])]
-            )
+            img_batch.data = map_rows(self._pca_rows, img_batch.data)
         return batch
+
+    def _pca_rows(self, data: torch.Tensor) -> torch.Tensor:
+        if data.shape[0] == 0:
+            return data.new_empty((0, self.num_components, *data.shape[2:]), dtype=torch.float32)
+        return torch.stack([self._pca_single(data[i]) for i in range(data.shape[0])])
 
     def _pca_single(self, tensor: torch.Tensor) -> torch.Tensor:
         c, si, sj, sk = tensor.shape

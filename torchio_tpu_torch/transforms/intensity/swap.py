@@ -9,7 +9,11 @@ over every element at once, in the JAX package's order (the first
 patch's location takes the second patch, then the second's takes the
 first, so an overlap ends up holding the first patch): four launches a
 step. An element with fewer steps than the batch's longest swaps a
-patch with itself in the steps it lacks.
+patch with itself in the steps it lacks. A sharded batch swaps on each
+rank's region: over B with no collective (the patches are each
+element's own); along J each step's two patches are read in parts, one
+``all_reduce`` over ``space`` gives every rank both whole, and each rank
+writes its part.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from ... import random as tio_random
 from ...core.dtypes import movable
 from ...data.batch import SubjectsBatch
 from ...data.image import LabelMap
+from ...parallel.mesh import Region, region_of
 from ..parameter_range import to_nonneg_range
 from ..transform import IntensityTransform
 
@@ -86,8 +91,72 @@ def swap_patches(
     return acc.reshape(data.shape).view(data.dtype)
 
 
+#: the integer type of each element width: the patches are summed as bits
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _sum_bits(parts: torch.Tensor, group) -> torch.Tensor:
+    """``parts`` summed over ``group`` as integers of their bits (one
+    ``all_reduce``): where one rank holds a value and every other rank
+    zeros, the sum is that value's bits exactly (a float sum would turn a
+    -0.0 into +0.0)."""
+    import torch.distributed as dist
+
+    bits = parts.view(_BITS[parts.element_size()])
+    wide = bits.to(torch.int64)
+    dist.all_reduce(wide, op=dist.ReduceOp.SUM, group=group)
+    return wide.to(bits.dtype).view(parts.dtype)
+
+
+def swap_region(data: torch.Tensor, origins_a: np.ndarray, origins_b: np.ndarray, patch_size):
+    """:func:`swap_patches` of ``data`` (a DTensor on each rank's region:
+    its rows' corners taken to the region; along a J split, a step's
+    patches summed over ``space``)."""
+    region = region_of(data)
+    origins_a, origins_b = region.take(origins_a), region.take(origins_b)
+    if region.parts(3) == 1:
+        return region.wrap(swap_patches(region.local, origins_a, origins_b, patch_size))
+    return region.wrap(_swap_columns(region, origins_a, origins_b, patch_size))
+
+
+def _swap_columns(region: Region, origins_a, origins_b, patch_size) -> torch.Tensor:
+    """The swaps on this rank's J columns: each step reads its rows' parts
+    of both patches, sums them over ``space`` (every rank's zeros where it
+    holds no column), and writes its part of the first patch's place from
+    the second patch, then of the second's from the first, in the whole
+    map's order."""
+    acc = torch.clone(movable(region.local), memory_format=torch.contiguous_format)
+    rows, c, _, jl, _ = acc.shape
+    pi, pj, pk = patch_size
+    j0 = region.j0
+
+    def parts(corner):
+        i, j, k = (int(v) for v in corner)
+        lo, hi = max(j, j0), min(j + pj, j0 + jl)
+        return i, j, k, lo, hi
+
+    for step in range(origins_a.shape[1]):
+        corners = [[parts(origins[r, step]) for r in range(rows)]
+                   for origins in (origins_a, origins_b)]
+        read = acc.new_zeros((2, rows, c, pi, pj, pk))
+        for which, places in enumerate(corners):
+            for r, (i, j, k, lo, hi) in enumerate(places):
+                if hi > lo:
+                    read[which, r, :, :, lo - j:hi - j] = acc[r, :, i:i + pi, lo - j0:hi - j0,
+                                                              k:k + pk]
+        whole = _sum_bits(read, region.space_group)
+        for which, places in enumerate(corners):
+            for r, (i, j, k, lo, hi) in enumerate(places):
+                if hi > lo:
+                    acc[r, :, i:i + pi, lo - j0:hi - j0, k:k + pk] = whole[1 - which, r, :, :,
+                                                                           lo - j:hi - j]
+    return acc.view(region.local.dtype)
+
+
 class Swap(IntensityTransform):
     """Exchange random same-size patch pairs within each image."""
+
+    takes_sharded = True
 
     def __init__(
         self,
@@ -173,5 +242,5 @@ class Swap(IntensityTransform):
             patch_size = tuple(
                 params.get("patch_size", getattr(self, "patch_size", None))
             )
-            img_batch.data = swap_patches(data, origins_a, origins_b, patch_size)
+            img_batch.data = swap_region(data, origins_a, origins_b, patch_size)
         return batch

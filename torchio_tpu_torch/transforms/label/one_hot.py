@@ -3,7 +3,9 @@
 Counterpart of ``torchio_tpu/transforms/label/one_hot.py``. The
 encoding is ``labels == arange(n)`` in float32, which gives a row of
 zeros to a label outside ``[0, n)`` as ``jax.nn.one_hot`` does
-(``F.one_hot`` raises on one).
+(``F.one_hot`` raises on one). A sharded batch is encoded on each rank's
+region; with ``num_classes=-1`` the largest label is each rank's, then
+one ``all_reduce(MAX)`` over each mesh axis that splits the batch.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ...data.batch import SubjectsBatch
 from ...data.image import LabelMap
+from ...parallel.mesh import region_of
 from ..transform import Transform
 
 
@@ -25,6 +28,8 @@ def one_hot(labels: torch.Tensor, n: int) -> torch.Tensor:
 
 class OneHot(Transform):
     r"""One-hot encode each LabelMap: (1, I, J, K) -> (K, I, J, K)."""
+
+    takes_sharded = True
 
     def __init__(self, *, num_classes: int = -1, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -40,11 +45,15 @@ class OneHot(Transform):
         for img_batch in batch.images.values():
             if not issubclass(img_batch.image_class, LabelMap):
                 continue
-            data = img_batch.data.to(torch.int32)
+            region = region_of(img_batch.data)
+            data = region.local.to(torch.int32)
             n = num_classes
             if n == -1:
-                n = int(data.max()) + 1  # scalar pull only
-            img_batch.data = one_hot(data[:, 0:1], n)
+                top = data.amax() if data.numel() else torch.tensor(
+                    torch.iinfo(torch.int32).min, device=data.device)
+                n = int(region.reduce_max(top.reshape(1))[0]) + 1  # scalar pull only
+            b, _, si, sj, sk = region.shape
+            img_batch.data = region.wrap(one_hot(data[:, 0:1], n), (b, n, si, sj, sk))
         return batch
 
     @property

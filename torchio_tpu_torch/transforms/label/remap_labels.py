@@ -4,7 +4,8 @@ Counterpart of ``torchio_tpu/transforms/label/remap_labels.py``. The
 JAX package compares with ``float(old)`` and writes ``float(new)``, then
 casts back to the data's dtype (its weak-type promotion); here
 an integer map is compared and written in float32, a float map in its
-own dtype, as JAX promotes them.
+own dtype, as JAX promotes them. A sharded batch is remapped on each
+rank's region, with no collective.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from ...data.batch import SubjectsBatch
 from ...data.image import LabelMap
+from ...parallel.mesh import map_region
 from ..transform import Transform
 
 def _remap(data: torch.Tensor, remapping: dict, out: torch.Tensor | None = None):
@@ -29,8 +31,20 @@ def _remap(data: torch.Tensor, remapping: dict, out: torch.Tensor | None = None)
     return result.to(data.dtype)
 
 
+def remap(data: torch.Tensor, remapping: dict, zero_others: bool = False):
+    """:func:`_remap` of ``data`` (a DTensor on each rank's region); labels
+    the map does not name become 0 with ``zero_others``."""
+
+    def local(block):
+        return _remap(block, remapping, out=torch.zeros_like(block) if zero_others else None)
+
+    return map_region(local, data)
+
+
 class RemapLabels(Transform):
     r"""Replace label values per a ``{old: new}`` dict (others unchanged)."""
+
+    takes_sharded = True
 
     def __init__(self, remapping: dict[int, int], **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -46,7 +60,7 @@ class RemapLabels(Transform):
         for img_batch in batch.images.values():
             if not issubclass(img_batch.image_class, LabelMap):
                 continue
-            img_batch.data = _remap(img_batch.data, remapping)
+            img_batch.data = remap(img_batch.data, remapping)
         return batch
 
     @property
@@ -60,6 +74,8 @@ class RemapLabels(Transform):
 
 class RemoveLabels(Transform):
     """Set the given labels to ``background_label``."""
+
+    takes_sharded = True
 
     def __init__(
         self,
@@ -79,5 +95,5 @@ class RemoveLabels(Transform):
         for img_batch in batch.images.values():
             if not issubclass(img_batch.image_class, LabelMap):
                 continue
-            img_batch.data = _remap(img_batch.data, remapping)
+            img_batch.data = remap(img_batch.data, remapping)
         return batch

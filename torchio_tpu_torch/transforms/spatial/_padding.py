@@ -6,14 +6,24 @@ mean/median/minimum, one value per batch element), with ``jnp.pad``'s
 semantics: a reflect or circular pad wider than its axis reflects or
 wraps again, so each mode gathers its border voxels at computed indices
 (``F.pad`` refuses pads as wide as the axis).
+
+A sharded batch is padded on each rank's region (:func:`pad_region`):
+along B, I and K in place; along a J split each rank's output columns
+take their input columns (the shifted ones, or the mirrored, edge or
+wrapped ones) from the ranks that hold them, point to point, and the
+result is placed by the new J extent. The statistics modes read whole
+elements: along a J split each rank's rows are gathered whole along J
+over ``space`` first.
 """
 
 from __future__ import annotations
 
 import warnings
 
+import numpy as np
 import torch
 
+from ...parallel.mesh import is_dtensor, map_rows, region_of
 from .._statistics import median_rows
 
 PADDING_MODES = (
@@ -94,7 +104,7 @@ def pad_tensor(data: torch.Tensor, padding, padding_mode: str, fill: float) -> t
     if padding_mode == "constant":
         # the fill takes the data's type as jnp.pad casts it (float ->
         # integer truncates)
-        value = torch.tensor(float(fill), dtype=torch.float64).to(data.dtype).item()
+        value = _fill_value(fill, data.dtype)
         out = torch.full(
             (*data.shape[:-3], *out_spatial), value, dtype=data.dtype, device=data.device
         )
@@ -108,3 +118,37 @@ def pad_tensor(data: torch.Tensor, padding, padding_mode: str, fill: float) -> t
         out = out[0] if unbatched else out
     out[..., i0 : i0 + spatial[0], j0 : j0 + spatial[1], k0 : k0 + spatial[2]] = data
     return out
+
+
+def _fill_value(fill: float, dtype: torch.dtype):
+    """The constant fill in the data's type, as ``jnp.pad`` casts it
+    (float -> integer truncates)."""
+    return torch.tensor(float(fill), dtype=torch.float64).to(dtype).item()
+
+
+def pad_region(data: torch.Tensor, padding, padding_mode: str, fill: float) -> torch.Tensor:
+    """:func:`pad_tensor` of a (B, C, I, J, K) tensor; a DTensor on each
+    rank's region (see the module's docstring)."""
+    if not is_dtensor(data):
+        return pad_tensor(data, padding, padding_mode, fill)
+    i0, i1, j0, j1, k0, k1 = (int(v) for v in padding)
+    region = region_of(data)
+    if padding_mode in _STATISTIC_MODES and region.parts(3) > 1:
+        return map_rows(lambda rows: pad_tensor(rows, padding, padding_mode, fill), data)
+    b, c, si, sj, sk = region.shape
+    shape = (b, c, si + i0 + i1, sj + j0 + j1, sk + k0 + k1)
+    if region.parts(3) == 1 or not (j0 or j1):
+        return region.wrap(pad_tensor(region.local, padding, padding_mode, fill), shape)
+    local = pad_tensor(region.local, (i0, i1, 0, 0, k0, k1), padding_mode, fill)
+    if padding_mode == "constant":
+        start, stop = region.columns(shape[3])
+        first, last = max(start, j0), min(stop, j0 + sj)
+        out = torch.full((*local.shape[:3], stop - start, local.shape[4]),
+                         _fill_value(fill, data.dtype), dtype=data.dtype, device=local.device)
+        inner = region.fetch_columns(
+            local, shape[3], lambda a, z: np.arange(max(a, j0), min(z, j0 + sj)) - j0)
+        if last > first:
+            out[:, :, :, first - start:last - start] = inner
+        return region.wrap(out, shape)
+    index = _border_index(sj, j0, j1, padding_mode, "cpu").numpy()
+    return region.wrap(region.fetch_columns(local, shape[3], lambda a, z: index[a:z]), shape)

@@ -1,28 +1,55 @@
 """Crop: remove voxels from the volume borders (the affine origin shifts).
 
-Counterpart of ``torchio_tpu/transforms/spatial/crop.py``.
+Counterpart of ``torchio_tpu/transforms/spatial/crop.py``. A sharded
+batch is cropped on each rank's region: along B, I and K in place;
+along a J split each rank's output columns come from the ranks that
+hold them (one ``batch_isend_irecv`` over ``space``), placed by the new
+J extent.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
+
 from ...data.batch import SubjectsBatch
+from ...parallel.mesh import is_dtensor, region_of
 from ..transform import SpatialTransform
 from .pad import parse_six, shift_origin
 
 
-def crop_tensor(data, cropping):
-    """The (..., I, J, K) tensor without its ``cropping`` border voxels."""
+def _check_cropping(spatial, cropping) -> None:
     i0, i1, j0, j1, k0, k1 = cropping
-    si, sj, sk = data.shape[-3:]
-    for axis, (size, lo, hi) in enumerate(zip((si, sj, sk), (i0, j0, k0), (i1, j1, k1))):
+    for axis, (size, lo, hi) in enumerate(zip(spatial, (i0, j0, k0), (i1, j1, k1))):
         if size - lo - hi < 1:
             raise ValueError(
                 f"Cropping ({lo}, {hi}) removes all {size} voxels"
                 f" of spatial axis {axis}"
             )
+
+
+def crop_tensor(data, cropping):
+    """The (..., I, J, K) tensor without its ``cropping`` border voxels (a
+    DTensor on each rank's region)."""
+    if is_dtensor(data):
+        return _crop_region(data, cropping)
+    i0, i1, j0, j1, k0, k1 = cropping
+    si, sj, sk = data.shape[-3:]
+    _check_cropping((si, sj, sk), cropping)
     return data[..., i0 : si - i1 or None, j0 : sj - j1 or None, k0 : sk - k1 or None]
+
+
+def _crop_region(data, cropping):
+    i0, i1, j0, j1, k0, k1 = (int(v) for v in cropping)
+    region = region_of(data)
+    b, c, si, sj, sk = region.shape
+    _check_cropping((si, sj, sk), cropping)
+    shape = (b, c, si - i0 - i1, sj - j0 - j1, sk - k0 - k1)
+    local = region.local[:, :, i0 : si - i1, :, k0 : sk - k1]
+    if j0 or j1:
+        local = region.fetch_columns(local, shape[3], lambda a, z: np.arange(a, z) + j0)
+    return region.wrap(local, shape)
 
 
 class Crop(SpatialTransform):
@@ -30,6 +57,8 @@ class Crop(SpatialTransform):
 
     Invertible (-> Pad with zero fill).
     """
+
+    takes_sharded = True
 
     def __init__(self, *, cropping, **kwargs: Any) -> None:
         super().__init__(**kwargs)

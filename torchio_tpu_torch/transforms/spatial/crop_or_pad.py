@@ -13,7 +13,8 @@ loaded yet (read from a file) gets deferred views instead
 :class:`..io.backends.CroppedBackend`), so no voxel is read until the
 data is used, and then only the region the views select; a loaded image
 (or a pad mode that needs the data) is cropped and padded eagerly, with
-the same result.
+the same result. A sharded batch is cropped and padded on each rank's
+region (see :mod:`.pad` and :mod:`.crop`).
 """
 
 from __future__ import annotations
@@ -110,6 +111,8 @@ class CropOrPad(SpatialTransform):
     """
 
     _records_history = False
+    #: its Pad and Crop take a sharded batch's DTensors
+    takes_sharded = True
 
     def __init__(
         self,
@@ -274,6 +277,7 @@ class EnsureShapeMultiple(SpatialTransform):
     (delegates to :class:`CropOrPad`)."""
 
     _records_history = False
+    takes_sharded = True
 
     def __init__(
         self,

@@ -1,6 +1,7 @@
 """Pad: add voxels at the volume borders (the affine origin shifts back).
 
-Counterpart of ``torchio_tpu/transforms/spatial/pad.py``.
+Counterpart of ``torchio_tpu/transforms/spatial/pad.py``. A sharded
+batch is padded on each rank's region (:func:`._padding.pad_region`).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import numpy as np
 
 from ...data.batch import SubjectsBatch
 from ..transform import SpatialTransform
-from ._padding import pad_tensor, parse_padding_mode
+from ._padding import pad_region, parse_padding_mode
 
 
 def parse_six(value, name: str) -> tuple[int, int, int, int, int, int]:
@@ -42,6 +43,8 @@ class Pad(SpatialTransform):
     Invertible (-> Crop).
     """
 
+    takes_sharded = True
+
     def __init__(
         self,
         *,
@@ -67,7 +70,7 @@ class Pad(SpatialTransform):
     ) -> SubjectsBatch:
         i0, i1, j0, j1, k0, k1 = params["padding"]
         for img_batch in self._get_images(batch).values():
-            img_batch.data = pad_tensor(
+            img_batch.data = pad_region(
                 img_batch.data,
                 (i0, i1, j0, j1, k0, k1),
                 params["padding_mode"],

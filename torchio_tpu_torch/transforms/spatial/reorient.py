@@ -7,11 +7,18 @@ orientation transform from the first element's affine to the target code
 reorienting back to the recorded original orientation. The permuted
 tensor is a view: the kernel wrappers make their inputs contiguous where
 they need it.
+
+A sharded batch is reoriented on each rank's region: the flips through
+:func:`.flip.flip` (along a J split from the mirror ranks' columns), the
+permutation of the block; a permutation that moves a split J to another
+axis runs on the whole tensor (one gather, with a warning).
 """
 
 from __future__ import annotations
 
 from typing import Any
+
+import warnings
 
 import numpy as np
 import torch
@@ -19,6 +26,7 @@ import torch
 from ...core.affine import orientation_codes
 from ...core.orientation import axcodes2ornt, inv_ornt_aff, io_orientation, ornt_transform
 from ...data.batch import SubjectsBatch
+from ...parallel.mesh import is_dtensor, region_of
 from ..transform import SpatialTransform
 from .flip import flip
 
@@ -43,6 +51,17 @@ def _validate_orientation(orientation: str) -> str:
     return orientation
 
 
+def permuted(data: torch.Tensor, perm) -> torch.Tensor:
+    """``data.permute(perm)``; a DTensor's block permuted on each rank (a
+    split J must stay the J axis)."""
+    if not is_dtensor(data):
+        return data.permute(perm)
+    region = region_of(data)
+    if perm[0] != 0 or (region.parts(3) > 1 and perm[3] != 3):
+        raise ValueError(f"the permutation {tuple(perm)} moves a split axis of a sharded batch")
+    return region.wrap(region.local.permute(perm), tuple(region.shape[p] for p in perm))
+
+
 def _apply_ornt(data: torch.Tensor, ornt: np.ndarray) -> torch.Tensor:
     """Flip the spatial axes ``ornt`` marks -1, then move each to its
     output axis (the last three dims of ``data``)."""
@@ -51,11 +70,19 @@ def _apply_ornt(data: torch.Tensor, ornt: np.ndarray) -> torch.Tensor:
     if flips:
         data = flip(data, flips)
     perm = list(range(lead)) + [int(p) + lead for p in np.argsort(ornt[:, 0])]
-    return data.permute(perm)
+    return permuted(data, perm)
+
+
+def moves_split_j(data: torch.Tensor, ornt: np.ndarray) -> bool:
+    """Whether reorienting ``data`` by ``ornt`` moves a split J axis."""
+    return (is_dtensor(data) and region_of(data).parts(3) > 1
+            and int(np.argsort(ornt[:, 0])[1]) != 1)
 
 
 class Reorient(SpatialTransform):
     r"""Align voxel axes with a target orientation code (default RAS)."""
+
+    takes_sharded = True
 
     def __init__(self, orientation: str = "RAS", **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -75,8 +102,19 @@ class Reorient(SpatialTransform):
         if np.array_equal(ornt[:, 0], [0, 1, 2]) and np.all(ornt[:, 1] == 1):
             return batch
         for img_batch in self._get_images(batch).values():
-            original_shape = tuple(img_batch.data.shape[-3:])
-            img_batch.data = _apply_ornt(img_batch.data, ornt)
+            data = img_batch.data
+            original_shape = tuple(data.shape[-3:])
+            if moves_split_j(data, ornt):
+                # the batch keeps one placement, J over 'space': the result
+                # is gathered whole and each rank keeps its region
+                warnings.warn(
+                    f"Reorient to {self.orientation} moves the J axis that the mesh splits;"
+                    " the batch is gathered for it",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+                data = data.full_tensor()
+            img_batch.data = _apply_ornt(data, ornt)
             inv_aff = inv_ornt_aff(ornt, original_shape)
             for affine in img_batch.affines:
                 affine._matrix = affine.data @ inv_aff

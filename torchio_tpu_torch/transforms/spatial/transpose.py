@@ -3,7 +3,8 @@ CopyAffine (every image takes a target image's affines).
 
 Counterpart of ``torchio_tpu/transforms/spatial/transpose.py``. The
 transposed tensor is a view: the kernel wrappers make their inputs
-contiguous where they need it.
+contiguous where they need it. A sharded batch is transposed on each
+rank's block (J stays the J axis).
 """
 
 from __future__ import annotations
@@ -12,16 +13,19 @@ from typing import Any
 
 from ...data.batch import SubjectsBatch
 from ..transform import SpatialTransform
+from .reorient import permuted
 
 
 class Transpose(SpatialTransform):
     r"""(C, I, J, K) -> (C, K, J, I); affine columns 0 and 2 swap."""
 
+    takes_sharded = True
+
     def apply_transform(
         self, batch: SubjectsBatch, params: dict[str, Any]
     ) -> SubjectsBatch:
         for img_batch in batch.images.values():
-            img_batch.data = img_batch.data.permute(0, 1, 4, 3, 2)
+            img_batch.data = permuted(img_batch.data, (0, 1, 4, 3, 2))
             for affine in img_batch.affines:
                 m = affine.data.copy()
                 affine._matrix[:, 0] = m[:, 2]

@@ -14,9 +14,17 @@ Execution contract:
   torch ops and the package's kernels.
 
 On a batch sharded over a device mesh (``SubjectsBatch.shard_``), a
-transform whose ``takes_sharded`` is True (Spatial, Blur) takes the
-DTensors and exchanges halos itself; every other transform draws and
-applies inside :func:`..data.batch.gathered`, on the whole tensors.
+transform whose ``takes_sharded`` is True takes the DTensors and
+computes on each rank's region, with the JAX package's partitioned
+programs' collectives at most: Spatial, Resample and Blur (halos); the
+pointwise stages (Noise, BiasField, Gamma, Clamp, Flip, the rescales,
+ZNormalization, Standardize, Mask); the label stages (RemapLabels,
+RemoveLabels, OneHot, Contour, SequentialLabels); Swap and PCA; and the
+index stages (Resize, Anisotropy, Crop, Pad, CropOrPad,
+EnsureShapeMultiple, Reorient, Transpose). Every other transform
+(Motion, Ghosting, Spike, LabelsToImage, HistogramStandardization,
+KeepLargestComponent, ...) draws and applies inside
+:func:`..data.batch.gathered`, on the whole tensors.
 """
 
 from __future__ import annotations
@@ -265,7 +273,8 @@ class Transform:
     _records_history = True
 
     #: True where ``make_params``/``apply_transform`` take a sharded
-    #: batch's DTensors (Spatial's halo resample, Blur's halo taps)
+    #: batch's DTensors and compute on each rank's region (see the
+    #: module's docstring for the stages)
     takes_sharded = False
 
     # --- Per-instance machinery ---
