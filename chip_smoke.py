@@ -5619,7 +5619,11 @@ LABEL_CLASSES = 8
 LABEL_SEED = 7
 INDEX_PAD, INDEX_RESIZE = 2, (160, 160, 128)
 FREE_CROP = (224, SYNTH_SHAPE[1], 240)
-LABEL_REPS = 2
+LABEL_REPS = 3
+#: launches a call of the sharded cells: the grid-spec resample of ixi's
+#: Resample on each rank's columns (t1 and seg); config 4's halo programs
+#: (ElasticDeformation and its inverse, each of t1 and seg)
+IXI_COLUMN_LAUNCHES, CONFIG4_HALO_LAUNCHES = 2, 4
 
 
 def label_classes():
@@ -5659,11 +5663,11 @@ def index_pipeline(tio, orientation):
     ])
 
 
-def timed_call(torch, make_pipeline, tio, make_batch, reps=LABEL_REPS):
-    """The best of ``reps`` calls of a fresh pipeline on a fresh batch
-    (host clock, synchronised), the seed set before each; the largest
-    peak of the card's memory in a call and the bytes resident before it
-    (the input batch)."""
+def timed_call(torch, tio, call, make_batch, reps=LABEL_REPS):
+    """The median of ``reps`` calls of ``call`` (a fresh pipeline's call)
+    on a fresh batch (host clock, synchronised), the seed set before each;
+    the largest peak of the card's memory in a call and the bytes resident
+    before it (the input batch)."""
     runs, peaks = [], []
     for _ in range(reps):
         batch = make_batch()
@@ -5673,12 +5677,12 @@ def timed_call(torch, make_pipeline, tio, make_batch, reps=LABEL_REPS):
         torch.cuda.reset_peak_memory_stats()
         tio.seed(LABEL_SEED)
         t0 = time.perf_counter()
-        make_pipeline(tio)(batch)
+        call(batch)
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated())
         del batch
-    return min(runs), max(peaks), resident
+    return statistics.median(runs), max(peaks), resident
 
 
 def peak_call(torch, tio, pipeline, batch):
@@ -5706,10 +5710,10 @@ def spatial_ties(torch, np, rs, batch):
     return ~coord_tie_mask(torch, rs, maps, fields, shape)
 
 
-def compare_outputs(torch, tio, name, out, want, ties=None):
+def compare_outputs(torch, tio, name, out, want, ties=None, atol=PARALLEL_ATOL):
     """Each image of ``out`` (a DTensor on the mesh) against ``want``'s:
-    label maps bit for bit (off ``ties``), images within PARALLEL_ATOL;
-    the differing voxels or max abs of each."""
+    label maps bit for bit (off ``ties``), images within ``atol``; the
+    differing voxels or max abs of each."""
     from torchio_tpu_torch.parallel.mesh import is_dtensor
 
     errs = {}
@@ -5730,7 +5734,7 @@ def compare_outputs(torch, tio, name, out, want, ties=None):
                      f" {off_ties} voxels" + (" off near ties" if ties is not None else ""))
         else:
             errs[image] = float((got.double() - ref.double()).abs().max())
-            if not errs[image] <= PARALLEL_ATOL:
+            if not errs[image] <= atol:
                 fail(f"parallel {name}: {image} max abs {errs[image]} against the unsharded call")
     if [t.name for t in out.applied_transforms] != [t.name for t in want.applied_transforms]:
         fail(f"parallel {name}: histories differ")
@@ -5738,45 +5742,48 @@ def compare_outputs(torch, tio, name, out, want, ties=None):
 
 
 def sharded_stages(torch, np, tio, kl, mesh, smi, name, make_pipeline, make_batch, spatial,
-                   lead=0, launches=None):
-    """One pipeline of label or index stages on ``shard_(mesh,
-    spatial=...)``: no gather and no stage in ``gathered`` in the call,
-    each output a DTensor on the mesh, the same history as the unsharded
-    call on the same seed. Its first ``lead`` stages (a Spatial of the
-    label maps) run the halo program, whose nearest labels may differ
-    from the grid-spec kernel's at near ties: their output is held to the
-    unsharded call off near ties, and the later stages to the unsharded
-    stages on that same output (label maps bit for bit, images within
-    PARALLEL_ATOL). The sharded call launches the kernels ``launches``
-    names, as often, and no other. The call times and peaks of both."""
+                   lead=0, launches=None, inverse=False, rest_ties=None, exact=False):
+    """One pipeline on ``shard_(mesh, spatial=...)`` (then, with
+    ``inverse``, ``apply_inverse_transform()`` of its result): no gather
+    and no stage in ``gathered`` in the call, each output a DTensor on the
+    mesh, the same history as the unsharded call on the same seed. Its
+    first ``lead`` stages (a Spatial) run the halo program, whose nearest
+    labels may differ from the grid-spec kernel's at near ties: their
+    output is held to the unsharded call off near ties
+    (:func:`spatial_ties`), and the later stages to the unsharded stages
+    on that same output (label maps bit for bit, off ``rest_ties(batch,
+    lead output)`` where given: an inverse that resamples too; images
+    within PARALLEL_ATOL, bit for bit where ``exact``). The sharded call
+    launches the kernels ``launches`` names (a dict, or a function of the
+    sharded output that gives it), as often, and no other. The median
+    call times and the peaks of both."""
     rs = importlib.import_module("torchio_tpu_torch.ops.resample")
     t0 = time.perf_counter()
     batch = make_batch()
     stages = make_pipeline(tio).transforms
     first, rest = tio.Compose(stages[:lead]), tio.Compose(stages[lead:])
 
-    def whole(b):
-        return rest(first(b))
+    def after(b):
+        out = rest(b)
+        return out.apply_inverse_transform() if inverse else out
 
     sharded = copy.deepcopy(batch).shard_(mesh, spatial=spatial)
     kl.reset_launches()
-    with warnings.catch_warnings(record=True) as caught, GatherSpy(torch, tio, stages) as spy:
-        warnings.simplefilter("always")
+    with GatherSpy(torch, tio, stages) as spy:
         tio.seed(LABEL_SEED)
         led = first(sharded)
-        out = rest(led)
+        out = after(led)
         torch.cuda.synchronize()
     launched = {kernel: n for kernel, n in kl.LAUNCHES.items() if n}
-    if launched != (launches or {}):
-        fail(f"parallel {name}: launches {launched}, expected {launches or {}}")
+    expected = (launches(out) if callable(launches) else launches) or {}
+    if launched != expected:
+        fail(f"parallel {name}: launches {launched}, expected {expected}")
     if spy.gathers or spy.entered:
         fail(f"parallel {name}: gathers {spy.gathers}, stages in gathered {spy.entered}")
-    moved = [str(w.message) for w in caught if "moves the J axis" in str(w.message)]
-    if moved:
-        fail(f"parallel {name}: {moved}")
     tio.seed(LABEL_SEED)
-    ref = whole(copy.deepcopy(batch))
+    ref = after(first(copy.deepcopy(batch)))
     errs = {}
+    atol = 0.0 if exact else PARALLEL_ATOL
     if lead:
         # the lead against the unsharded lead off near ties; the rest
         # against the unsharded stages on the lead's own output
@@ -5787,19 +5794,23 @@ def sharded_stages(torch, np, tio, kl, mesh, smi, name, make_pipeline, make_batc
         del ref_led
         errs["whole"] = {
             image: int((ib.data.full_tensor() != ref.images[image].data).sum())
-            for image, ib in out.images.items()
+            for image, ib in out.images.items() if issubclass(ib.image_class, tio.LabelMap)
         }
         same_lead = copy.deepcopy(led).unshard_()
         del ref
-        ref = rest(same_lead)
-    errs["output"] = compare_outputs(torch, tio, name, out, ref)
+        ref = after(same_lead)
+        errs["output"] = compare_outputs(torch, tio, name, out, ref,
+                                         rest_ties and rest_ties(batch, same_lead), atol)
+    else:
+        errs["output"] = compare_outputs(torch, tio, name, out, ref, None, atol)
     shapes = {image: list(ib.data.shape) for image, ib in out.images.items()}
     del ref, out, led, sharded
     torch.cuda.empty_cache()
     sharded_ms, peak, resident = timed_call(
-        torch, make_pipeline, tio, lambda: copy.deepcopy(batch).shard_(mesh, spatial=spatial))
+        torch, tio, lambda b: after(first(b)),
+        lambda: copy.deepcopy(batch).shard_(mesh, spatial=spatial))
     whole_ms, whole_peak, whole_resident = timed_call(
-        torch, make_pipeline, tio, lambda: copy.deepcopy(batch))
+        torch, tio, lambda b: after(first(b)), lambda: copy.deepcopy(batch))
     times = {"sharded": sharded_ms, "unsharded": whole_ms}
     del batch
     torch.cuda.empty_cache()
@@ -5808,16 +5819,18 @@ def sharded_stages(torch, np, tio, kl, mesh, smi, name, make_pipeline, make_batc
     print(
         f"parallel {name} on shard_(mesh (1, 1), spatial={spatial}): outputs {shapes}, launches"
         f" {launched}, no gather and no stage in gathered; against the unsharded call {errs} (labels: differing"
-        f" voxels; images: max abs; 'lead': Spatial against the grid-spec kernel, differing"
+        f" voxels; images: max abs; 'lead': the halo program against the grid-spec kernel, differing"
         f" only at near ties; 'whole': the pipeline's labels against the unsharded pipeline's;"
         f" 'output': the stages after the lead against the unsharded stages on the same input);"
         f" a call {times['sharded'] * 1e3:.1f} ms sharded, {times['unsharded'] * 1e3:.1f} ms"
-        f" unsharded (best of {LABEL_REPS}, host clock); peak {peak / mib:.0f} MiB on the shard"
-        f" (resident {resident / mib:.0f} MiB), {whole_peak / mib:.0f} MiB unsharded (resident"
+        f" unsharded (median of {LABEL_REPS}, host clock); peak {(peak - resident) / mib:.0f} MiB"
+        f" over the input on the shard (resident {resident / mib:.0f} MiB),"
+        f" {(whole_peak - whole_resident) / mib:.0f} MiB unsharded (resident"
         f" {whole_resident / mib:.0f} MiB); {seconds:.1f} s; card: {smi}"
     )
     return {"errors": errs, "launches": launched, "ms": {k: v * 1e3 for k, v in times.items()},
-            "peak_mib": peak / mib, "unsharded_peak_mib": whole_peak / mib, "s": seconds}
+            "peak_over_input_mib": (peak - resident) / mib,
+            "unsharded_peak_over_input_mib": (whole_peak - whole_resident) / mib, "s": seconds}
 
 
 def parallel_label_pipelines(torch, np, tio, kl, mesh, smi):
@@ -5842,6 +5855,70 @@ def parallel_label_pipelines(torch, np, tio, kl, mesh, smi):
     for name, make_pipeline, make, spatial, lead, launches in cases:
         report[name] = sharded_stages(torch, np, tio, kl, mesh, smi, name, make_pipeline, make,
                                       spatial, lead, launches)
+    return report
+
+
+def inverse_ties(torch, np, rs, tio, batch, led):
+    """(B, 1, *shape) True where the nearest labels of the inverse of
+    ``led``'s first record (config 4's ElasticDeformation) may differ
+    between the halo program and the grid-spec kernel."""
+    seg = led.seg.data
+    shape = tuple(seg.shape[2:])
+    maps, fields = inverse_grids(np, rs, tio, led.applied_transforms[0].params,
+                                 batch.seg.affines[0], shape, seg.device)
+    return ~coord_tie_mask(torch, rs, maps, fields, shape)
+
+
+def kspace_launches(out):
+    """One dense resample launch where Motion kept an element (its
+    record), none where it gated out every element."""
+    return {"resample_coords": 1} if any(
+        t.name == "Motion" for t in out.applied_transforms) else {}
+
+
+def parallel_gather_free_cells(torch, np, tio, kl, mesh, smi):
+    """The cells whose last stages used to gather, whole at full
+    width on ``shard_(mesh, spatial=True)``: synthseg-labels-to-image
+    (Spatial's halo program on the label maps, then LabelsToImage's 32
+    labels drawn on the region), ixi-preprocess-histstd from "PLI"
+    (Reorient("RAS") moves J; Resample on each rank's output columns; the
+    histogram's quantiles; bit for bit), kspace-motion-ghosting (also on
+    ``shard_(mesh)``, a B split; bit for bit) and config4-elastic-inverse
+    (the halo program forward and in the inverse, whose t1 is held within
+    PARALLEL_ATOL, its labels off the inverse's near ties): no gather, no
+    stage in ``gathered``."""
+    rs = importlib.import_module("torchio_tpu_torch.ops.resample")
+    dev = torch.device(DEVICE)
+    landmarks = ixi_landmarks(tio, torch, IXI_SHAPE, dev, IXI_SEED)
+    cases = {
+        "synthseg-labels-to-image": dict(
+            make_pipeline=synthseg_pipeline, lead=1,
+            make_batch=lambda: make_synth_batch(tio, torch, SYNTH_B, SYNTH_SHAPE, dev),
+            launches=lambda out: {"resample_coords": 1,
+                                  "threefry_normal": synth_launches(out.applied_transforms)}),
+        "ixi-preprocess-histstd": dict(
+            make_pipeline=lambda t: ixi_pipeline(t, landmarks, IXI_CROP),
+            make_batch=lambda: make_ixi_batch(tio, torch, np, IXI_B, IXI_SHAPE, dev, IXI_SEED),
+            launches={"resample": IXI_COLUMN_LAUNCHES}),
+        "kspace-motion-ghosting": dict(
+            make_pipeline=kspace_pipeline, launches=kspace_launches,
+            make_batch=lambda: make_kspace_batch(tio, torch, B, (S, S, S), dev, 0)),
+        "kspace-motion-ghosting (B split)": dict(
+            make_pipeline=kspace_pipeline, launches=kspace_launches, spatial=False,
+            make_batch=lambda: make_kspace_batch(tio, torch, B, (S, S, S), dev, 0)),
+        "config4-elastic-inverse": dict(
+            make_pipeline=config4_forward, lead=1, inverse=True,
+            make_batch=lambda: make_suite_batch(tio, torch, B, {"t1": 1}, (S, S, S), (1, 1, 1),
+                                                dev, 4),
+            launches={"resample_coords": CONFIG4_HALO_LAUNCHES}, exact=False,
+            rest_ties=lambda batch, led: inverse_ties(torch, np, rs, tio, batch, led)),
+    }
+    report = {}
+    for name, case in cases.items():
+        case.setdefault("exact", True)
+        report[name] = sharded_stages(torch, np, tio, kl, mesh, smi, name,
+                                      case.pop("make_pipeline"), case.pop("make_batch"),
+                                      case.pop("spatial", True), **case)
     return report
 
 
@@ -5967,6 +6044,152 @@ def parallel_label_processes(torch, tio, smi):
         ) + f"; card: {smi}"
     )
     return report
+
+
+def inverse_forward(tio):
+    """Pointwise stages whose recorded inverses need no collective on any
+    layout (the rescale's, the standardisation's, the bias field's, the
+    gamma's, the one-hot's)."""
+    return tio.Compose([
+        tio.RescaleIntensity(out_min=(0.0, 0.2), out_max=1.0),
+        tio.ZNormalization(),
+        tio.BiasField(std=0.3),
+        tio.Gamma(log_gamma=(-0.3, 0.3)),
+        tio.OneHot(),
+    ])
+
+
+def free_parts(torch, tio, mesh, world, space, dev):
+    """The collective-free parts on this rank's block at (world / space,
+    space), each against its block of the unsharded call, with the bytes
+    resident before its sharded call and its peak: LabelsToImage given the
+    unsharded call's label set and draws (synthseg's label maps), the
+    recorded pointwise inverses (:func:`inverse_forward`'s history on the
+    k-space batch) and, where J is whole, Motion + Ghosting."""
+    from torchio_tpu_torch.parallel.mesh import shard_range
+
+    data, column = mesh.get_coordinate()
+
+    def block(x):
+        rows = slice(*shard_range(x.shape[0], world // space, data))
+        cols = slice(*shard_range(x.shape[3], space, column))
+        return x[rows][:, :, :, cols].cpu()  # off the card: not in the peak
+
+    def entry(out, want, resident, peak):
+        local = {n: ib.data.to_local() for n, ib in out.images.items() if n in want}
+        return {"equal": all(torch.equal(local[n].cpu(), w) for n, w in want.items()),
+                "local_shape": list(next(iter(local.values())).shape),
+                "resident": resident, "peak": peak}
+
+    report = {}
+    batch = make_synth_batch(tio, torch, SYNTH_B, SYNTH_SHAPE, dev)
+    stage = tio.LabelsToImage(label_key="seg")
+    tio.seed(LABEL_SEED)
+    params = stage.make_params(batch)
+    want = {"image_from_labels": block(
+        stage.apply_transform(copy.deepcopy(batch), params).image_from_labels.data)}
+    batch.shard_(mesh, spatial=space > 1)
+    out, resident, peak = peak_call(torch, tio, lambda b: stage.apply_transform(b, params), batch)
+    report["labels-to-image"] = entry(out, want, resident, peak)
+    del batch, out, want
+    batch = make_kspace_batch(tio, torch, B, (S, S, S), dev, 0)
+    tio.seed(LABEL_SEED)
+    forward = inverse_forward(tio)(batch)
+    ref = forward.apply_inverse_transform()
+    want = {n: block(ib.data) for n, ib in ref.images.items()}
+    del ref
+    sharded = copy.deepcopy(forward).shard_(mesh, spatial=space > 1)
+    del forward
+    out, resident, peak = peak_call(torch, tio, lambda b: b.apply_inverse_transform(), sharded)
+    report["pointwise-inverses"] = entry(out, want, resident, peak)
+    del sharded, out
+    if space == 1:
+        tio.seed(LABEL_SEED)
+        want = {"t1": block(kspace_pipeline(tio)(copy.deepcopy(batch)).t1.data)}
+        batch.shard_(mesh)
+        out, resident, peak = peak_call(torch, tio, kspace_pipeline(tio), batch)
+        report["kspace"] = entry(out, want, resident, peak)
+        del out
+    del batch
+    torch.cuda.empty_cache()
+    return report
+
+
+def free_shard_worker(rank: int, world: int, port: int, space: int) -> None:
+    """One of ``world`` processes sharing the card in a gloo group:
+    :func:`free_parts` at the layout (world / space, space); prints one
+    JSON line."""
+    import json as json_mod
+
+    import torch
+    import torch.distributed as dist
+
+    import torchio_tpu_torch as tio
+    from torchio_tpu_torch.parallel import make_mesh
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(DEVICE, space=space)
+        parts = free_parts(torch, tio, mesh, world, space, torch.device(DEVICE))
+        print(json_mod.dumps({"rank": rank, "parts": parts}))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_free_processes(torch, tio, smi):
+    """:func:`free_parts` on each block of (2, 1), (1, 2) and (1, 4) as 2
+    and 4 processes sharing the card in a gloo group (k-space at (2, 1)
+    only: a J split gathers its rows), every block bit-equal to the
+    unsharded call's, with each part's peak over its input; the unsharded
+    calls' peaks over their input beside them."""
+    dev = torch.device(DEVICE)
+    unsharded = {}
+    batch = make_synth_batch(tio, torch, SYNTH_B, SYNTH_SHAPE, dev)
+    stage = tio.LabelsToImage(label_key="seg")
+    tio.seed(LABEL_SEED)
+    params = stage.make_params(batch)
+    _, resident, peak = peak_call(torch, tio, lambda b: stage.apply_transform(b, params), batch)
+    unsharded["labels-to-image"] = peak - resident
+    batch = make_kspace_batch(tio, torch, B, (S, S, S), dev, 0)
+    tio.seed(LABEL_SEED)
+    forward = inverse_forward(tio)(copy.deepcopy(batch))
+    _, resident, peak = peak_call(torch, tio, lambda b: b.apply_inverse_transform(), forward)
+    unsharded["pointwise-inverses"] = peak - resident
+    del forward
+    _, resident, peak = peak_call(torch, tio, kspace_pipeline(tio), batch)
+    unsharded["kspace"] = peak - resident
+    del batch, stage
+    torch.cuda.empty_cache()
+    report = {}
+    for world, space in LABEL_PROCESS_LAYOUTS:
+        layout = f"({world // space}, {space})"
+        results, errors = shard_processes(world, worker="free_shard_worker", extra=f", {space}")
+        if errors or len(results) != world:
+            fail(f"the collective-free parts as {world} processes at {layout}: {len(results)}"
+                 f" of {world} gave a result; their errors:\n" + "\n---\n".join(errors))
+        bad = [(r["rank"], part) for r in results for part, e in r["parts"].items()
+               if not e["equal"]]
+        if bad:
+            fail(f"the collective-free parts on {layout}: blocks {bad} differ")
+        report[layout] = results
+    mib = 2**20
+    peaks = {
+        layout: {part: [round((r["parts"][part]["peak"] - r["parts"][part]["resident"]) / mib)
+                        for r in results] for part in results[0]["parts"]}
+        for layout, results in report.items()
+    }
+    print(
+        "LabelsToImage given the label set, the recorded pointwise inverses (Rescale,"
+        " Standardize, BiasField, Gamma, OneHot) and k-space on a B split, on each block as"
+        " processes sharing the card (equal to the unsharded call's block): peaks over the"
+        f" input, MiB a process, {peaks}; unsharded"
+        f" {({k: round(v / mib) for k, v in unsharded.items()})}; card: {smi}"
+    )
+    return {"peaks_over_input_mib": peaks,
+            "unsharded_mib": {k: v / mib for k, v in unsharded.items()}}
 
 
 def simulate_label_planes(torch, tio, smi):
@@ -6227,7 +6450,10 @@ def phase_parallel(torch, np, tio, tr, tk, kl, smi):
     label and index pipelines sharded with no gather, the
     collective-free label stages as processes at (2, 1), (1, 2) and
     (1, 4), and Contour's and the reflect Pad's J planes as each shard's
-    local program."""
+    local program; synthseg-labels-to-image, ixi-preprocess-histstd (from
+    "PLI"), kspace-motion-ghosting and config4-elastic-inverse sharded
+    with no gather, and LabelsToImage given its label set, the recorded
+    pointwise inverses and k-space on a B split as processes."""
     import torch.distributed as dist
 
     from torchio_tpu_torch.parallel import halo as halo_mod
@@ -6254,17 +6480,19 @@ def phase_parallel(torch, np, tio, tr, tk, kl, smi):
         strided = strided_segments(torch, tr, tk, kl, smi)
         pipelines = parallel_pipelines(torch, tio, kl, mesh, smi)
         label_pipelines = parallel_label_pipelines(torch, np, tio, kl, mesh, smi)
+        cells = parallel_gather_free_cells(torch, np, tio, kl, mesh, smi)
     finally:
         dist.destroy_process_group()
     local_programs = parallel_local_programs(torch, tio, smi)
     label_processes = parallel_label_processes(torch, tio, smi)
+    free_processes = parallel_free_processes(torch, tio, smi)
     label_planes = simulate_label_planes(torch, tio, smi)
     print(f"parallel: {time.perf_counter() - t0:.1f} s; card: {smi}")
     return {"halo_launches": halo_launches, "simulated_launches": simulated,
             "step": step_launches, "counter_base": counter, "strided": strided,
             "pipelines": pipelines, "local_programs": local_programs,
             "label_pipelines": label_pipelines, "label_processes": label_processes,
-            "label_planes": label_planes}
+            "label_planes": label_planes, "cells": cells, "free_processes": free_processes}
 
 
 def main() -> int:

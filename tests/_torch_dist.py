@@ -388,8 +388,8 @@ def pipeline(recipe: str):
         return tt.Affine(degrees=(-8.0, 8.0), label_interpolation="label")
     if recipe == "noise":
         return tt.Noise(std=0.1)
-    if recipe == "motion":
-        return tt.Motion(degrees=5.0, translation=2.0)
+    if recipe == "lambda":
+        return tt.Lambda(lambda x: 2.0 * x)
     raise KeyError(recipe)
 
 
@@ -748,12 +748,56 @@ def label_recipe(pkg, recipe: str) -> list:
         "transpose": lambda: [pkg.Transpose()],
         "reorient": lambda: [pkg.Reorient("LPI")],
         "reorient-move": lambda: [pkg.Reorient("PLI")],
+        "reorient-back": lambda: [pkg.Reorient("PLI"), pkg.Reorient("RAS")],
+        "resample-space": lambda: [pkg.Resample(target=(1.0, 1.5, 0.75))],
         "labels-chain": lambda: [
             pkg.RemapLabels({3: 1}), pkg.Anisotropy(axes=(1,), downsampling=(1.5, 5.0)),
             pkg.SequentialLabels(), pkg.Contour(), pkg.OneHot(),
         ],
+        # the last gathering stages (the synth and k-space test files)
+        "labels-to-image": lambda: [pkg.LabelsToImage(label_key="seg")],
+        "labels-to-image-shared": lambda: [
+            pkg.LabelsToImage(label_key="seg", ignore_background=True, per_instance=False)
+        ],
+        "histstd": lambda: [pkg.HistogramStandardization(LANDMARKS, include=["t1"])],
+        "keep-largest": lambda: [pkg.KeepLargestComponent()],
+        "metadata": lambda: [
+            pkg.CopyAffine("t1"),
+            pkg.ToReferenceSpace(pkg.ScalarImage(np.zeros((1, 8, 16, 8), np.float32),
+                                                 affine=np.diag([2.0, 2.0, 2.0, 1.0]))),
+            pkg.To(np.float16),
+        ],
+        "motion": lambda: [pkg.Motion(degrees=5.0, translation=2.0, p=0.7)],
+        "ghosting": lambda: [pkg.Ghosting(intensity=(0.3, 0.7), p=0.7)],
+        "ghosting-shared": lambda: [pkg.Ghosting(intensity=0.5, axes=(1,), per_instance=False)],
+        "spike": lambda: [pkg.Spike(intensity=(1.0, 3.0), p=0.7)],
+        "kspace": lambda: [
+            pkg.Motion(degrees=5.0, translation=3.0, num_transforms=1, p=0.5),
+            pkg.Ghosting(intensity=(0.3, 0.7), p=0.5),
+        ],
+        # forward stages whose recorded inverses the inverse jobs replay
+        "pointwise-inverses": lambda: [
+            pkg.Flip(axes=(0, 1, 2), flip_probability=0.5),
+            pkg.RescaleIntensity(out_min=(0.0, 0.2), out_max=1.0),
+            pkg.ZNormalization(),
+            pkg.BiasField(std=(0.2, 0.5), p=0.7),
+            pkg.Gamma(log_gamma=(-0.3, 0.3), p=0.7),
+            pkg.OneHot(),
+        ],
+        "shared-inverses": lambda: [
+            pkg.Flip(axes=(1,), per_instance=False),
+            pkg.RescaleIntensity(out_min=0.0, out_max=1.0, per_instance=False),
+            pkg.BiasField(std=0.3, per_instance=False),
+            pkg.Gamma(log_gamma=0.2, per_instance=False),
+        ],
     }
     return recipes[recipe]()
+
+
+#: HistogramStandardization's landmarks of the ``histstd`` recipe: one a
+#: default quantile, increasing
+LANDMARKS = np.asarray([0.0, 4.0, 11.0, 18.0, 24.0, 33.0, 45.0, 52.0, 60.0, 71.0, 77.0, 90.0,
+                        100.0], np.float32)
 
 
 #: the layouts of the label and index stages: (data, space) -> (space,
@@ -761,11 +805,14 @@ def label_recipe(pkg, recipe: str) -> list:
 LABEL_LAYOUTS = {"(4, 1)": (1, False), "(2, 2)": (2, True), "(1, 4)": (4, True)}
 
 
-def job_labels(recipe, images, classes, seed):
+def job_labels(recipe, images, classes, seed, inverse=False):
     """``recipe`` on this rank's whole batch and on the batch sharded at
     each of :data:`LABEL_LAYOUTS`: each run's whole images and affines,
     its history, the next host draw, its warnings, how often a stage
-    entered ``gathered``, and its collectives."""
+    entered ``gathered``, and its collectives. With ``inverse``, the
+    recipe's result then goes through ``apply_inverse_transform()``: the
+    images are the inverse's, the history the forward's, and the
+    collectives the inverse's alone."""
     import copy
 
     import torchio_tpu_torch as tt
@@ -793,9 +840,14 @@ def job_labels(recipe, images, classes, seed):
         entered.clear()
         transform_mod.gathered = spy_gathered
         try:
-            with warnings.catch_warnings(record=True) as caught, CollectiveSpy() as spy:
+            with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                result = pipeline(batch)
+                with CollectiveSpy() as spy:
+                    result = pipeline(batch)
+                history = _history(result)
+                if inverse:
+                    with CollectiveSpy() as spy:
+                        result = result.apply_inverse_transform()
         finally:
             transform_mod.gathered = real
         out[layout] = {
@@ -804,7 +856,7 @@ def job_labels(recipe, images, classes, seed):
                         for n, ib in result.images.items()},
             "sharded": {n: ib.sharding is not None and is_dtensor(ib.data)
                         for n, ib in result.images.items()},
-            "history": _history(result),
+            "history": history,
             "draw": float(tt.random.random()),
             "warnings": [str(w.message) for w in caught],
             "gathered": len(entered),
@@ -812,6 +864,37 @@ def job_labels(recipe, images, classes, seed):
             "spy": spy.counts,
         }
     return out
+
+
+def job_composer_placement(images, classes, seed):
+    """A per-instance OneOf and SomeOf on a batch sharded over B and J at
+    (2, 2): whether each image keeps a sharding (``ImagesBatch.sharding``)
+    and a DTensor after the call, and its whole images."""
+    import copy
+
+    import torchio_tpu_torch as tt
+    from torchio_tpu_torch.parallel.mesh import is_dtensor
+
+    out = {}
+    for name in ("OneOf", "SomeOf"):
+        batch = _subjects_batch(images, classes).shard_(mesh(2), spatial=True)
+        composer = composer_recipe(tt, name)
+        tt.seed(seed)
+        result = composer(copy.deepcopy(batch))
+        out[name] = {
+            "sharding": {n: ib.sharding is not None for n, ib in result.images.items()},
+            "dtensor": {n: is_dtensor(ib.data) for n, ib in result.images.items()},
+            "images": {n: _whole(ib.data) for n, ib in result.images.items()},
+        }
+    return out
+
+
+def composer_recipe(pkg, name: str):
+    """A per-instance OneOf or SomeOf of pointwise stages in ``pkg``."""
+    stages = [pkg.Noise(std=0.1), pkg.Gamma(log_gamma=(-0.3, 0.3)), pkg.Flip(axes=(1,))]
+    if name == "OneOf":
+        return pkg.OneOf(stages)
+    return pkg.SomeOf(stages, num_transforms=(1, 2))
 
 
 JOBS = {

@@ -541,10 +541,11 @@ def test_sharded_blur_axes_and_no_gather(pool):
 
 
 def test_collective_spy_sees_a_gather(pool):
-    """The spy itself: a public stage without a sharded path (Motion's
-    k-space) gathers, and the spy counts it with the batch's elements (so
-    an empty count above means no gather)."""
+    """The spy itself: a public stage without a sharded path (Lambda: the
+    user's function sees whole tensors) gathers, and the spy counts it
+    with the batch's elements (so an empty count above means no
+    gather)."""
     images = {"t1": np.random.default_rng(3).random((4, 1, 6, 8, 6)).astype(np.float32)}
-    for r in pool.run("public", "motion", images, {}, 1, True, None):
+    for r in pool.run("public", "lambda", images, {}, 1, True, None):
         assert "DTensor.full_tensor" in r["spy"]["gathers"]
         assert 4 * 6 * 8 * 6 in r["spy"]["gather_elements"]

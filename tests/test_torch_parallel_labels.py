@@ -288,19 +288,24 @@ def test_gating_keeps_some_elements(pool, recipe):
 
 def test_reorient_moving_j_gathers_with_a_warning(pool):
     """A Reorient whose permutation moves J: B only, on each rank's rows
-    with no collective; on a J split the whole tensor, gathered with a
-    warning (the batch keeps one placement, J over ``space``)."""
+    with no collective; on a J split an all-to-all over ``space`` (each
+    rank's new J columns, whole along the old J, from every other rank:
+    one ``batch_isend_irecv`` an image, as the JAX package's one
+    collective-permute an image), with no gather and no warning, equal
+    to the whole call bit for bit and left on the mesh."""
     images, classes = inputs("reorient-move")
     want = run_jax("reorient-move", images, classes, SEED)
     for result in pool.run("labels", "reorient-move", images, classes, SEED):
         for name, ref in want["images"].items():
             np.testing.assert_array_equal(result[None]["images"][name], ref)
-        for layout, (_, split_j) in LABEL_LAYOUTS.items():
+        for layout, (space, split_j) in LABEL_LAYOUTS.items():
             run = result[layout]
             for name, got in run["images"].items():
                 np.testing.assert_array_equal(got, result[None]["images"][name])
-            moved = [w for w in run["warnings"] if "moves the J axis" in w]
+            assert run["warnings"] == [] and run["gathered"] == 0, (layout, run["warnings"])
+            assert all(run["sharded"].values()), layout
             if split_j:
-                assert len(moved) == len(images) and run["spy"]["gathers"], run["spy"]
+                assert run["spy"]["p2p"] == [2 * (space - 1)] * len(images), run["spy"]
+                assert run["spy"]["gathers"] == run["spy"]["all_reduce"] == [], run["spy"]
             else:
-                assert moved == [] and run["spy"] == EMPTY, (layout, run["spy"])
+                assert run["spy"] == EMPTY, (layout, run["spy"])

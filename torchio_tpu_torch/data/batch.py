@@ -18,9 +18,11 @@ package shares its immutable arrays) and copies only the metadata.
 shape, and every stage's output is placed the same way until the batch
 size changes or ``unshard_`` is called; a stage that changes C or a
 spatial extent keeps B and J placed (a new J extent by ``torch.chunk``'s
-split). Stages with a sharded path (``Transform.takes_sharded``: the
-halo stencils, the pointwise, label and index stages) take the DTensors;
-every other stage runs on the whole tensors inside :func:`gathered`.
+split). Stages with a sharded path (``Transform.takes_sharded``: every
+stage but Lambda and the MONAI/Cornucopia adapters) take the DTensors;
+those run on the whole tensors inside :func:`gathered`. ``to`` casts a
+sharded batch on each rank's block; a move to another device gathers it
+and drops the sharding.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from ..config import as_tensor
 from ..core.affine import AffineMatrix
-from ..parallel.mesh import NamedSharding, is_dtensor, mesh_device, place
+from ..parallel.mesh import NamedSharding, is_dtensor, mesh_device, place, region_of
 from .image import Image, ScalarImage
 from .invertible import Invertible
 from .subject import Subject
@@ -173,13 +175,26 @@ class ImagesBatch(Invertible):
         return np.stack([a.data for a in self._affines]).astype(dtype)
 
     def to(self, device: Any = None, dtype: Any = None) -> "ImagesBatch":
-        """Move or cast ``data``; a sharded batch stays sharded on its
-        mesh's device and drops the sharding elsewhere."""
+        """Move or cast ``data``. A sharded batch cast on its mesh's device
+        stays sharded, each rank casting its block (no communication); one
+        moved elsewhere is gathered and drops the sharding."""
+        if self._sharding is not None and is_dtensor(self._data) and self._on_mesh(device):
+            region = region_of(self._data)
+            self._data = region.wrap(region.local.to(dtype=dtype))
+            return self
         data = self._whole().to(device=device, dtype=dtype)
         if self._sharding is not None and data.device != mesh_device(self._sharding.mesh):
             self._sharding = None
         self.data = data
         return self
+
+    def _on_mesh(self, device: Any) -> bool:
+        """Whether ``device`` (None: where the data is) is the device of
+        this rank's shards."""
+        if device is None:
+            return True
+        device, here = torch.device(device), mesh_device(self._sharding.mesh)
+        return device.type == here.type and device.index in (None, here.index)
 
     def __getitem__(self, index: int) -> Image:
         """Element ``index`` as an Image: a view of the batch's (whole)

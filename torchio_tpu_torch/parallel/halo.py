@@ -251,6 +251,47 @@ def move_columns(x: torch.Tensor, size: int, needs, group, dim: int = 3) -> torc
     return assemble_columns(x, want, pieces, needs[s], dim)
 
 
+#: P2P tag of the split-axis move
+_TAG_SWAP = 4
+
+
+def move_split(x: torch.Tensor, size: int, src: int, dst: int, group) -> torch.Tensor:
+    """The block of a tensor split along ``dst`` and whole along ``src``,
+    from ``x``, this rank's block of it split along ``src`` (columns
+    ``torch.chunk``'s split of a global extent ``size`` over ``group``)
+    and whole along ``dst``: each rank sends every other rank the part of
+    its block that falls in that rank's ``dst`` range (``torch.chunk``'s
+    split of ``x.shape[dst]``) and receives the other ranks' parts of its
+    own range, which it lays along ``src`` in rank order. An all-to-all:
+    one ``batch_isend_irecv`` on ``group`` (a Reorient that moves a split
+    J); an empty part is neither sent nor received."""
+    import torch.distributed as dist
+
+    n, s = dist.get_world_size(group), dist.get_rank(group)
+    srcs = [shard_range(int(size), n, p) for p in range(n)]
+    dsts = [shard_range(int(x.shape[dst]), n, p) for p in range(n)]
+    lo, hi = dsts[s]
+    pieces, ops = [], []
+    for p in range(n):
+        if p == s:
+            pieces.append(x.narrow(dst, lo, hi - lo))
+            continue
+        peer = dist.get_global_rank(group, p)
+        part = x.narrow(dst, dsts[p][0], dsts[p][1] - dsts[p][0])
+        if part.numel():
+            ops.append(dist.P2POp(dist.isend, part.contiguous(), peer, group, _TAG_SWAP))
+        shape = list(x.shape)
+        shape[src], shape[dst] = srcs[p][1] - srcs[p][0], hi - lo
+        piece = torch.empty(shape, dtype=x.dtype, device=x.device)
+        if piece.numel():
+            ops.append(dist.P2POp(dist.irecv, piece, peer, group, _TAG_SWAP))
+        pieces.append(piece)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return torch.cat(pieces, dim=src)
+
+
 def _local_of(x, sharding: NamedSharding) -> torch.Tensor:
     """This rank's region of ``x`` (a DTensor or a whole tensor) placed by
     ``sharding``."""

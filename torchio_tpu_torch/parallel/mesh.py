@@ -321,13 +321,32 @@ class Region:
         """A partial maximum of this rank's block reduced over the whole
         mesh: one ``all_reduce(MAX)`` over each mesh axis that splits B or
         J into more than one block (none where the region is whole)."""
+        return self._reduce(value, "max")
+
+    def reduce_sum(self, value: torch.Tensor) -> torch.Tensor:
+        """A partial sum of this rank's block reduced over the whole mesh,
+        as :meth:`reduce_max` (``all_reduce(SUM)``)."""
+        return self._reduce(value, "sum")
+
+    def _reduce(self, value: torch.Tensor, op: str) -> torch.Tensor:
         import torch.distributed as dist
 
         value = value.contiguous()
+        reduce_op = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
         for dim in (0, 3):
             if self.parts(dim) > 1:
-                dist.all_reduce(value, op=dist.ReduceOp.MAX, group=self.group(dim))
+                dist.all_reduce(value, op=reduce_op, group=self.group(dim))
         return value
+
+    def check_rows(self) -> None:
+        """Raise unless the region is split along B and J only: a stage
+        that reads each element whole (a draw of one strided segment, an
+        element's J columns gathered) has no path for a split C, I or K."""
+        if any(self.split(d) for d in (1, 2, 4)):
+            raise ValueError(
+                f"a region of {self.shape} at {self.starts} is split along C, I or K:"
+                " shard the batch over B and J only"
+            )
 
     def fetch_columns(self, x: torch.Tensor, size: int, need) -> torch.Tensor:
         """For this rank's columns ``[start, stop)`` of a result whose J
@@ -485,6 +504,7 @@ def map_rows(fn, value):
     J extent. The path of a stage that reads a whole element along J (an
     element's statistics)."""
     region = region_of(value)
+    region.check_rows()
     out = fn(region.gather_columns())
     start, stop = region.columns(int(out.shape[3]))
     shape = (int(region.shape[0]), *(int(n) for n in out.shape[1:]))

@@ -411,15 +411,13 @@ def region_normals(keys: list[Key], region, scales=None) -> torch.Tensor:
     tensor, split along B and J only) and no other: one strided segment a
     key (:func:`slab_span`), all of them in one :func:`normals` call (one
     launch on a card), concatenated flat."""
-    if any(region.split(d) for d in (1, 2, 4)):
-        raise ValueError(
-            f"a region of {region.shape} at {region.starts} is split along C, I or K:"
-            " its draws are not one strided segment"
-        )
+    region.check_rows()  # a split C, I or K is not one strided segment
     local = region.local
     start, count, run, pitch = slab_span(
         region.shape, region.b0, int(local.shape[0]), region.j0, int(local.shape[3])
     )
+    if count == 0:  # a rank that holds no rows or no columns draws nothing
+        return torch.empty(0, dtype=torch.float32, device=local.device)
     n = len(keys)
     return normals(keys, [(count,)] * n, scales, local.device, starts=[start] * n,
                    runs=[run] * n, pitches=[pitch] * n)

@@ -9,7 +9,7 @@ import torch
 
 from ..config import as_tensor
 from ..core.dtypes import movable
-from ..parallel.mesh import from_local, is_dtensor, local_slices, sharding_of
+from ..parallel.mesh import Region, from_local, is_dtensor, local_slices, region_of, sharding_of
 
 __all__ = ["as_tensor", "broadcast_param", "restore_gated", "unique_labels"]
 
@@ -45,10 +45,56 @@ def unique_labels(data: torch.Tensor) -> list[int]:
     """Sorted unique labels as ints. An integer map with labels in
     [0, 65535] is counted by a ``bincount`` on its device, so only the
     histogram reaches the host; anything else goes through ``np.unique``
-    (float labels are truncated to int, as in the JAX package)."""
+    (float labels are truncated to int, as in the JAX package). A
+    DTensor's labels are counted on each rank's region
+    (:func:`region_labels`)."""
+    if is_dtensor(data):
+        return region_labels(region_of(data))
     if not data.dtype.is_floating_point and data.dtype != torch.bool:
         lo, hi = int(data.min()), int(data.max())
         if 0 <= lo and hi <= 65535:
             counts = torch.bincount(data.reshape(-1).to(torch.int32), minlength=hi + 1)
             return [int(i) for i in torch.nonzero(counts).reshape(-1).tolist()]
     return sorted(int(v) for v in np.unique(data.detach().cpu().numpy()))
+
+
+#: the widest label range a sharded map's labels are counted over
+_LABEL_SPAN = 65536
+
+
+def region_labels(region: Region) -> list[int]:
+    """The sorted labels of the whole tensor a :class:`Region` is part of,
+    from its block alone: the block's largest label, its negated smallest
+    and whether it holds a non-integral value, reduced to the mesh's by
+    one ``all_reduce(MAX)`` over each mesh axis that splits B or J; then
+    the block's ``bincount`` over that range, summed over the same axes
+    (one ``all_reduce`` each), and only the histogram reaches the host.
+    Labels spanning more than 65536 values, or non-integral float
+    labels, raise: their set is not a histogram's."""
+    local = region.local
+    device = local.device
+    floor = -(2**62)
+    stats = torch.full((3,), floor, dtype=torch.int64, device=device)
+    if local.numel():
+        values = local.reshape(-1)
+        if values.dtype == torch.bool:
+            values = values.to(torch.int64)
+        if values.dtype.is_floating_point:
+            stats[2] = (values != torch.trunc(values)).any().to(torch.int64)
+        stats[0], stats[1] = values.max().to(torch.int64), -values.min().to(torch.int64)
+    hi, lo, fractional = (int(v) for v in region.reduce_max(stats).tolist())
+    lo = -lo
+    if hi == floor:
+        return []
+    if fractional > 0 or hi - lo >= _LABEL_SPAN:
+        raise ValueError(
+            f"a sharded label map's labels are counted by a histogram: integral values"
+            f" spanning at most {_LABEL_SPAN}, got [{lo}, {hi}]"
+            + (" with fractional values" if fractional > 0 else "")
+        )
+    length = hi - lo + 1
+    counts = torch.zeros(length, dtype=torch.int64, device=device)
+    if local.numel():
+        counts = torch.bincount(local.reshape(-1).to(torch.int64) - lo, minlength=length)
+    counts = region.reduce_sum(counts)
+    return [int(i) + lo for i in torch.nonzero(counts).reshape(-1).tolist()]

@@ -214,7 +214,10 @@ class BiasField(IntensityTransform):
 
 
 class _BiasFieldInverse(IntensityTransform):
-    """Divides by the regenerated field."""
+    """Divides by the regenerated field (on a sharded batch, each rank's
+    region of it, as the forward)."""
+
+    takes_sharded = True
 
     def __init__(self, *, std, seed, scale: float, **kwargs: Any) -> None:
         super().__init__(**kwargs)

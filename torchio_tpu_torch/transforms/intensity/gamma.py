@@ -100,6 +100,8 @@ class Gamma(IntensityTransform):
 class _GammaInverse(IntensityTransform):
     """Applies gamma with the negated log-exponent."""
 
+    takes_sharded = True
+
     def __init__(self, *, log_gamma, **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self._log_gamma = log_gamma

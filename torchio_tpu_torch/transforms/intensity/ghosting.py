@@ -9,7 +9,10 @@ The line masks are built on the host and ifftshifted there, so the
 spectrum is masked unshifted (:func:`_apply_mask`: ``torch.fft`` forward,
 multiply, inverse, real part, where the JAX package uses XLA's FFT). Per
 element, only the B * (I + J + K) floats of the three axis lines reach the
-device; their outer product is the (B, 1, I, J, K) mask.
+device; their outer product is the (B, 1, I, J, K) mask. A sharded
+batch stays on each rank's region: each rank takes its rows whole along
+J (gathered over ``space`` only, :func:`..parallel.mesh.map_rows`), with
+their own lines, and keeps its columns of the result.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from ... import random as tio_random
 from ...core.dtypes import cast_like_jax
 from ...data.batch import SubjectsBatch
+from ...parallel.mesh import map_rows, region_of
 from .._utils import restore_gated
 from ..parameter_range import to_nonneg_range
 from ..transform import IntensityTransform
@@ -50,6 +54,8 @@ class Ghosting(IntensityTransform):
         restore: width, as a fraction of the axis, of the central band
             left untouched (None: no band).
     """
+
+    takes_sharded = True
 
     def __init__(
         self,
@@ -132,13 +138,15 @@ class Ghosting(IntensityTransform):
                     lines[axis][i] = np.fft.ifftshift(
                         _line_mask(spatial[axis], ghosts, strength, restore)
                     )
-                li, lj, lk = (torch.as_tensor(line, device=data.device) for line in lines)
+                region = region_of(data)
+                li, lj, lk = (torch.as_tensor(region.take(line), device=data.device)
+                              for line in lines)
                 mask = (
                     li[:, None, :, None, None]
                     * lj[:, None, None, :, None]
                     * lk[:, None, None, None, :]
                 )
-                out = _apply_mask(data, mask)
+                out = map_rows(lambda rows: _apply_mask(rows, mask), data)
                 img_batch.data = restore_gated(out, data, active)
             else:
                 ghosts = params["num_ghosts"]
@@ -151,7 +159,7 @@ class Ghosting(IntensityTransform):
                 shape = [1, 1, 1, 1, 1]
                 shape[axis + 2] = size
                 mask = torch.as_tensor(line.reshape(shape), device=data.device)
-                img_batch.data = _apply_mask(data, mask)
+                img_batch.data = map_rows(lambda rows: _apply_mask(rows, mask), data)
         return batch
 
 
@@ -159,6 +167,8 @@ def _apply_mask(data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Multiply the unshifted spectrum by a host-pre-ifftshifted mask
     (fftshift -> mask -> ifftshift without the rolls); returns the real
     part of the inverse FFT in ``data``'s dtype."""
+    if data.shape[0] == 0:  # a rank that holds no rows of a sharded batch
+        return data
     spectrum = torch.fft.fftn(data.to(torch.float32), dim=_SPATIAL)
     spectrum *= mask  # in place: the spectrum is this function's own buffer
     return cast_like_jax(torch.fft.ifftn(spectrum, dim=_SPATIAL).real.contiguous(), data.dtype)

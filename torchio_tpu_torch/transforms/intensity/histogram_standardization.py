@@ -7,7 +7,10 @@ training corpus mapped to [0, 100] by linear regression (host numpy);
 onto the landmarks. The element's exact quantiles are computed on its
 device and only those scalars reach the host, which computes each
 segment's slope and intercept; ``torch.searchsorted`` picks each voxel's
-segment on the device.
+segment on the device. A sharded batch stays on each rank's region: its
+rows are gathered whole along J over ``space`` only
+(:meth:`..parallel.mesh.Region.gather_columns`), for their quantiles,
+and each rank maps its own block.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from ...data.batch import SubjectsBatch
 from ...data.image import Image, ScalarImage
+from ...parallel.mesh import region_of
 from .._statistics import quantiles_on_device
 from ..transform import IntensityTransform
 
@@ -119,6 +123,8 @@ class HistogramStandardization(IntensityTransform):
     for multi-modal subjects.
     """
 
+    takes_sharded = True
+
     def __init__(
         self,
         landmarks,
@@ -134,17 +140,22 @@ class HistogramStandardization(IntensityTransform):
         self, batch: SubjectsBatch, params: dict[str, Any]
     ) -> SubjectsBatch:
         for img_batch in self._get_images(batch).values():
-            data = img_batch.data
+            region = region_of(img_batch.data)
+            region.check_rows()
+            local, rows = region.local, region.gather_columns()
             out = [
-                _standardize(data[i], self.landmarks, self.cutoff)
-                for i in range(data.shape[0])
+                _standardize(local[i], self.landmarks, self.cutoff, rows[i])
+                for i in range(local.shape[0])
             ]
-            img_batch.data = torch.stack(out)
+            img_batch.data = region.wrap(torch.stack(out) if out else local.to(torch.float32))
         return batch
 
 
-def _standardize(tensor: torch.Tensor, landmarks: np.ndarray, cutoff) -> torch.Tensor:
-    """One (C, I, J, K) element mapped onto ``landmarks``, in float32."""
+def _standardize(tensor: torch.Tensor, landmarks: np.ndarray, cutoff,
+                 element: torch.Tensor) -> torch.Tensor:
+    """``tensor`` (a (C, I, J, K) element, or its J columns) mapped onto
+    ``landmarks`` by the quantiles of ``element`` (the whole element), in
+    float32."""
     quantiles = _build_quantiles(cutoff)
     percentiles = [100.0 * q for q in quantiles]
     if len(landmarks) != len(percentiles):
@@ -156,7 +167,8 @@ def _standardize(tensor: torch.Tensor, landmarks: np.ndarray, cutoff) -> torch.T
     data = tensor.to(torch.float32)
     flat = data.reshape(-1)
     # only the landmark scalars leave the device
-    input_landmarks = quantiles_on_device(flat, quantiles).cpu().numpy()
+    whole = element.to(torch.float32).reshape(-1)
+    input_landmarks = quantiles_on_device(whole, quantiles).cpu().numpy()
     lm = landmarks.astype(np.float32)
     diff_lm = np.diff(lm)
     diff_in = np.diff(input_landmarks)

@@ -11,6 +11,12 @@ the threefry kernel on a card. A label whose means and standard
 deviations are all zero draws nothing and does not split the key. One
 label is drawn at a time, so that only one label's field is held at
 once.
+
+A sharded batch stays on each rank's region: the label set is counted
+on the blocks and reduced (:func:`.._utils.region_labels`: two
+``all_reduce`` over each split axis), each label's field is drawn at the
+region only (:func:`torchio_tpu_torch.random.region_normals`, one
+strided segment), and the new image is placed as the label map is.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from ... import random as tio_random
 from ...data.batch import ImagesBatch, SubjectsBatch
 from ...data.image import LabelMap, ScalarImage
+from ...parallel.mesh import Region, region_of
 from .._utils import unique_labels
 from ..parameter_range import to_range
 from ..transform import Transform
@@ -36,6 +43,8 @@ def _per_element(values: list[dict], label: int) -> list[float]:
 class LabelsToImage(Transform):
     """Generate Gaussian tissue per label and sum into a synthetic image.
 
+    A sharded batch stays on each rank's region.
+
     Args:
         label_key: name of the LabelMap to use (first LabelMap if None).
         image_key: name for the generated ScalarImage.
@@ -43,6 +52,8 @@ class LabelsToImage(Transform):
             order); fall back to ``default_mean`` / ``default_std``.
         ignore_background: leave label 0 at zero intensity.
     """
+
+    takes_sharded = True
 
     def __init__(
         self,
@@ -122,31 +133,39 @@ class LabelsToImage(Transform):
         self, batch: SubjectsBatch, params: dict[str, Any]
     ) -> SubjectsBatch:
         label_batch = self._find_label_batch(batch)
-        data = label_batch.data
-        b = data.shape[0]
-        dev = data.device
+        region = region_of(label_batch.data)
+        b = int(region.shape[0])
         if self._is_per_instance_params(params):
             means_list, stds_list = params["means"], params["stds"]
         else:
             means_list, stds_list = [params["means"]] * b, [params["stds"]] * b
         labels = sorted({int(k) for means in means_list for k in means})
         key = tio_random.prng_key(params["seed"])
-        shape = (b, 1) + tuple(data.shape[2:])
-        result = torch.zeros(shape, dtype=torch.float32, device=dev)
+        data = region.local[:, 0:1]
+        dev = data.device
+        # the fields' region: the label map's block of a (B, 1, I, J, K) draw
+        field = Region(data, (b, 1, *region.shape[2:]), region.starts, region.sharding)
+        result = torch.zeros(data.shape, dtype=torch.float32, device=dev)
         for label in labels:
             means = _per_element(means_list, label)
             stds = _per_element(stds_list, label)
             if not any(means) and not any(stds):
                 continue
             key, sub = tio_random.split(key)
-            tissue = tio_random.normal(sub, shape, dev)
-            tissue = tissue * _column(stds, dev) + _column(means, dev)
+            if field.whole:
+                tissue = tio_random.normal(sub, field.shape, dev)
+            else:
+                tissue = tio_random.region_normals([sub], field).reshape(data.shape)
+            tissue = tissue * _column(field.take(stds), dev) + _column(field.take(means), dev)
             # labels are disjoint: each voxel takes its own label's tissue
             # (the JAX package adds tissue * mask over the labels)
-            result = torch.where(data[:, 0:1] == label, tissue, result)
-        batch.images[self.image_key] = ImagesBatch(
-            result, [a.clone() for a in label_batch.affines], image_class=ScalarImage
+            result = torch.where(data == label, tissue, result)
+        image = ImagesBatch(
+            field.wrap(result), [a.clone() for a in label_batch.affines], image_class=ScalarImage
         )
+        if region.sharding is not None:
+            image._sharding = label_batch.sharding
+        batch.images[self.image_key] = image
         return batch
 
 

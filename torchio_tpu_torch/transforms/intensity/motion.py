@@ -12,7 +12,10 @@ quirks (:func:`_rigid_voxel_matrix`). Each move is resampled at a dense
 coordinate grid (:func:`torchio_tpu_torch.ops.resample.build_coords`)
 through the dense branch of the spatial dispatch, which runs the
 dense-coordinate CUDA kernel on a CUDA batch. The FFTs are ``torch.fft``,
-where the JAX package uses XLA's.
+where the JAX package uses XLA's. A sharded batch stays on each rank's
+region: each rank takes its rows whole along J (gathered over ``space``
+only, :func:`..parallel.mesh.map_rows`), with their own moves, and keeps
+its columns of the result.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from ...core.dtypes import cast_like_jax
 from ...data.batch import SubjectsBatch
 from ...ops.resample import build_coords
+from ...parallel.mesh import map_rows, region_of
 from .._utils import restore_gated
 from ..parameter_range import to_range
 from ..transform import IntensityTransform
@@ -99,6 +103,8 @@ class Motion(IntensityTransform):
             first.
     """
 
+    takes_sharded = True
+
     def __init__(
         self,
         *,
@@ -163,7 +169,8 @@ class Motion(IntensityTransform):
                 num_transforms = len(transforms)
                 per_element = [transforms] * data.shape[0]
                 keep = None
-            out = _apply_motion(data, per_element, num_transforms)
+            mine = region_of(data).take(per_element)
+            out = map_rows(lambda rows: _apply_motion(rows, mine, num_transforms), data)
             img_batch.data = restore_gated(out, data, keep)
         return batch
 
@@ -172,6 +179,8 @@ def _apply_motion(data: torch.Tensor, per_element_transforms, num_transforms: in
     """Splice the spectra of the moved copies into the image's spectrum
     along the first spatial axis; returns the real part in ``data``'s
     dtype. Elements without transforms move by the identity."""
+    if data.shape[0] == 0:  # a rank that holds no rows of a sharded batch
+        return data
     result = data.to(torch.float32)
     num_segments = num_transforms + 1
     first_size = result.shape[2]

@@ -28,11 +28,12 @@ from __future__ import annotations
 import warnings
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ...data.batch import ImagesBatch, SubjectsBatch
 from ...data.image import LabelMap
-from ...parallel.mesh import region_of
+from ...parallel.mesh import map_region, region_of
 from .._statistics import quantiles_on_device
 from .._utils import broadcast_param
 from ..fuse import finalize_range_warn
@@ -383,7 +384,10 @@ def first_range(data, mask_data, pct_low: float, pct_high: float, name: str) -> 
 
 
 class _RescaleInverse(IntensityTransform):
-    """Inverse of Normalize for history replay."""
+    """Inverse of Normalize for history replay (a sharded batch on each
+    rank's region, per-element output bounds taken to its rows)."""
+
+    takes_sharded = True
 
     def __init__(
         self,
@@ -415,23 +419,31 @@ class _RescaleInverse(IntensityTransform):
             in_range = in_max - in_min
             if in_range == 0:
                 continue
-            data = img_batch.data.to(torch.float32)
-            out_min = broadcast_param(self._out_min, data)
-            out_max = broadcast_param(self._out_max, data)
-            out_range = out_max - out_min
-            if isinstance(out_range, float):
-                if out_range == 0:
-                    continue
-                img_batch.data = (data - out_min) / out_range * in_range + in_min
-            else:
-                zero = out_range == 0
-                safe = torch.where(zero, torch.ones_like(out_range), out_range)
-                restored = (data - out_min) / safe * in_range + in_min
-                img_batch.data = torch.where(zero, data, restored)
+            bounds = (self._out_min, self._out_max)
+            scalar = not any(isinstance(v, (list, np.ndarray, torch.Tensor)) for v in bounds)
+            if scalar and self._out_max - self._out_min == 0:
+                continue
+            img_batch.data = map_region(
+                lambda local, lo, hi: _restore(local, lo, hi, in_min, in_range),
+                img_batch.data, self._out_min, self._out_max)
         return batch
 
     def make_params(self, batch: SubjectsBatch) -> dict[str, Any]:
         return {}
+
+
+def _restore(local: torch.Tensor, out_min, out_max, in_min: float, in_range: float):
+    """``local`` mapped from ``[out_min, out_max]`` back onto the input
+    range in float32 (elements whose output range is zero unchanged)."""
+    data = local.to(torch.float32)
+    out_min = broadcast_param(out_min, data)
+    out_max = broadcast_param(out_max, data)
+    out_range = out_max - out_min
+    if isinstance(out_range, float):
+        return (data - out_min) / out_range * in_range + in_min
+    zero = out_range == 0
+    safe = torch.where(zero, torch.ones_like(out_range), out_range)
+    return torch.where(zero, data, (data - out_min) / safe * in_range + in_min)
 
 
 RescaleIntensity = Normalize

@@ -10,7 +10,10 @@ there, so the impulses go into the unshifted spectrum: ``torch.fft.fftn``
 over the three spatial axes, the per-(b, c) peak ``abs().amax``, one
 ``index_put_(accumulate=True)`` of every impulse, then the real part of
 ``ifftn`` in the data's dtype (the JAX package runs the same steps as one
-XLA program).
+XLA program). A sharded batch stays on each rank's region: each rank
+takes its rows whole along J (gathered over ``space`` only,
+:func:`..parallel.mesh.map_rows`), with their own impulses, and keeps its
+columns of the result.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from ... import random as tio_random
 from ...core.dtypes import cast_like_jax
 from ...data.batch import SubjectsBatch
+from ...parallel.mesh import map_rows, region_of
 from .._utils import restore_gated
 from ..parameter_range import to_nonneg_range, to_range
 from ..transform import IntensityTransform
@@ -38,6 +42,8 @@ class Spike(IntensityTransform):
             at least one is drawn).
         intensity: impulse amplitude relative to the spectrum's peak.
     """
+
+    takes_sharded = True
 
     def __init__(self, *, num_spikes: Any = 1, intensity: Any = 0.0, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -85,7 +91,7 @@ class Spike(IntensityTransform):
         per_instance = self._is_per_instance_params(params)
         for img_batch in self._get_images(batch).values():
             data = img_batch.data
-            b = data.shape[0]
+            b = int(data.shape[0])
             if per_instance:
                 per_element = list(zip(params["positions"], params["intensity"]))
             else:
@@ -93,7 +99,8 @@ class Spike(IntensityTransform):
             active = [bool(p) and i != 0 for p, i in per_element]
             if not any(active):
                 continue
-            out = _add_spikes(data, per_element)
+            mine = region_of(data).take(per_element)
+            out = map_rows(lambda rows: _add_spikes(rows, mine), data)
             img_batch.data = restore_gated(out, data, active if per_instance else None)
         return batch
 
@@ -101,6 +108,8 @@ class Spike(IntensityTransform):
 def _add_spikes(data: torch.Tensor, per_element) -> torch.Tensor:
     """Add each element's impulses to its spectrum: (B, C, I, J, K) in,
     the same shape and dtype out."""
+    if data.shape[0] == 0:  # a rank that holds no rows of a sharded batch
+        return data
     shape = data.shape[2:]
     b_idx, coords, vals = [], [], []
     for b, (positions, intensity) in enumerate(per_element):

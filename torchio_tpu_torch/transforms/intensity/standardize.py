@@ -178,6 +178,11 @@ class Standardize(MaskedStatistic, IntensityTransform):
 
 
 class _StandardizeInverse(IntensityTransform):
+    """``data * std + mean`` from the recorded statistics (a sharded
+    batch on each rank's region)."""
+
+    takes_sharded = True
+
     def __init__(self, *, stats: dict[str, tuple[float, float]], **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self._stats = stats
@@ -189,7 +194,7 @@ class _StandardizeInverse(IntensityTransform):
             if name not in self._stats:
                 continue
             mean, std = self._stats[name]
-            img_batch.data = img_batch.data * std + mean
+            img_batch.data = map_region(lambda local: local * std + mean, img_batch.data)
         return batch
 
 

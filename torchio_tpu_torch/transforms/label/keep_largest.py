@@ -4,7 +4,10 @@ Counterpart of ``torchio_tpu/transforms/label/keep_largest.py``.
 Connected components are labelled on the host by
 ``scipy.ndimage.label``, as in the JAX package: the batch's label maps
 go to the host in one copy and the filtered maps come back to the device
-they came from, with their dtype, in one copy.
+they came from, with their dtype, in one copy. A sharded batch stays
+on each rank's region: each rank takes its rows whole along J (gathered
+over ``space`` only, :func:`..parallel.mesh.map_rows`) to the host and
+keeps its columns of the result.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from scipy import ndimage
 
 from ...data.batch import SubjectsBatch
 from ...data.image import LabelMap
+from ...parallel.mesh import map_rows
 from ..transform import Transform
 
 
@@ -43,6 +47,8 @@ def _keep_largest(volume: np.ndarray, labels, background_label: int, fully: bool
 class KeepLargestComponent(Transform):
     """Keep only the largest connected component of each label value."""
 
+    takes_sharded = True
+
     def __init__(
         self,
         labels: Sequence[int] | None = None,
@@ -63,19 +69,23 @@ class KeepLargestComponent(Transform):
             if not issubclass(img_batch.image_class, LabelMap):
                 continue
             data = img_batch.data
-            b, c = data.shape[:2]
+            c = data.shape[1]
             if c != 1:
                 raise RuntimeError(
                     f"KeepLargestComponent requires single-channel label maps,"
                     f" got {c} channels"
                 )
-            arr = data.detach().cpu().numpy().copy()
-            for i in range(b):
-                arr[i, 0] = _keep_largest(
-                    arr[i, 0],
-                    self.labels,
-                    self.background_label,
-                    self.fully_connected,
-                )
-            img_batch.data = torch.from_numpy(arr).to(data.device)
+            img_batch.data = map_rows(self._filter, data)
         return batch
+
+    def _filter(self, rows: torch.Tensor) -> torch.Tensor:
+        """Each element of ``rows`` (whole label maps) filtered on the host."""
+        arr = rows.detach().cpu().numpy().copy()
+        for i in range(arr.shape[0]):
+            arr[i, 0] = _keep_largest(
+                arr[i, 0],
+                self.labels,
+                self.background_label,
+                self.fully_connected,
+            )
+        return torch.from_numpy(arr).to(rows.device)

@@ -5,7 +5,8 @@ encoding is ``labels == arange(n)`` in float32, which gives a row of
 zeros to a label outside ``[0, n)`` as ``jax.nn.one_hot`` does
 (``F.one_hot`` raises on one). A sharded batch is encoded on each rank's
 region; with ``num_classes=-1`` the largest label is each rank's, then
-one ``all_reduce(MAX)`` over each mesh axis that splits the batch.
+one ``all_reduce(MAX)`` over each mesh axis that splits the batch. The
+inverse takes the argmax over C of each rank's block.
 """
 
 from __future__ import annotations
@@ -65,7 +66,10 @@ class OneHot(Transform):
 
 
 class _OneHotInverse(Transform):
-    """argmax back to single-channel labels."""
+    """argmax back to single-channel labels (a sharded batch: over C of
+    each rank's block, which holds every channel)."""
+
+    takes_sharded = True
 
     def apply_transform(
         self, batch: SubjectsBatch, params: dict[str, Any]
@@ -73,7 +77,10 @@ class _OneHotInverse(Transform):
         for img_batch in batch.images.values():
             if not issubclass(img_batch.image_class, LabelMap):
                 continue
-            data = img_batch.data
-            if data.shape[1] > 1:
-                img_batch.data = torch.argmax(data, dim=1, keepdim=True).to(torch.float32)
+            region = region_of(img_batch.data)
+            b, c, si, sj, sk = region.shape
+            if c > 1:
+                region.check_rows()
+                labels = torch.argmax(region.local, dim=1, keepdim=True).to(torch.float32)
+                img_batch.data = region.wrap(labels, (b, 1, si, sj, sk))
         return batch

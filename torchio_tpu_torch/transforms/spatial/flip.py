@@ -233,6 +233,8 @@ class Flip(SpatialTransform):
 class _FlipInverse(SpatialTransform):
     """Inverse of a per-instance Flip (flip is self-inverse per element)."""
 
+    takes_sharded = True
+
     def __init__(self, *, axes_per_element: list[list[int]], **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self._axes_per_element = axes_per_element

@@ -10,21 +10,23 @@ they need it.
 
 A sharded batch is reoriented on each rank's region: the flips through
 :func:`.flip.flip` (along a J split from the mirror ranks' columns), the
-permutation of the block; a permutation that moves a split J to another
-axis runs on the whole tensor (one gather, with a warning).
+permutation of the block. A permutation that moves a split J to another
+axis makes that axis the split one: each rank flips its block, sends
+every other rank the part of it that rank's new J columns cover (one
+all-to-all over ``space``, :func:`..parallel.halo.move_split`), flips
+the gathered J where it flips, and permutes.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-import warnings
-
 import numpy as np
 import torch
 
 from ...core.affine import orientation_codes
 from ...core.orientation import axcodes2ornt, inv_ornt_aff, io_orientation, ornt_transform
+from ...core.dtypes import movable
 from ...data.batch import SubjectsBatch
 from ...parallel.mesh import is_dtensor, region_of
 from ..transform import SpatialTransform
@@ -79,6 +81,29 @@ def moves_split_j(data: torch.Tensor, ornt: np.ndarray) -> bool:
             and int(np.argsort(ornt[:, 0])[1]) != 1)
 
 
+def _move_split_j(data, ornt: np.ndarray):
+    """:func:`_apply_ornt` of a DTensor whose split J moves to another
+    axis: the input axis that becomes J is whole on every rank, so each
+    rank flips its block along every axis but J, trades parts with the
+    other ranks of ``space`` (:func:`..parallel.halo.move_split`: this
+    rank's new J columns, whole along the old J), flips the old J where
+    it flips, and permutes; no other collective."""
+    from ...parallel.halo import move_split
+
+    region = region_of(data)
+    region.check_rows()
+    perm = [0, 1] + [int(p) + 2 for p in np.argsort(ornt[:, 0])]
+    local = movable(region.local)
+    flips = tuple(ax + 2 for ax in (0, 2) if ornt[ax, 1] == -1)
+    if flips:
+        local = torch.flip(local, flips)
+    moved = move_split(local, int(region.shape[3]), 3, perm[3], region.space_group)
+    if ornt[1, 1] == -1:
+        moved = torch.flip(moved, (3,))
+    shape = tuple(region.shape[p] for p in perm)
+    return region.wrap(moved.permute(perm).view(data.dtype), shape)
+
+
 class Reorient(SpatialTransform):
     r"""Align voxel axes with a target orientation code (default RAS)."""
 
@@ -105,16 +130,9 @@ class Reorient(SpatialTransform):
             data = img_batch.data
             original_shape = tuple(data.shape[-3:])
             if moves_split_j(data, ornt):
-                # the batch keeps one placement, J over 'space': the result
-                # is gathered whole and each rank keeps its region
-                warnings.warn(
-                    f"Reorient to {self.orientation} moves the J axis that the mesh splits;"
-                    " the batch is gathered for it",
-                    RuntimeWarning,
-                    stacklevel=2,
-                )
-                data = data.full_tensor()
-            img_batch.data = _apply_ornt(data, ornt)
+                img_batch.data = _move_split_j(data, ornt)
+            else:
+                img_batch.data = _apply_ornt(data, ornt)
             inv_aff = inv_ornt_aff(ornt, original_shape)
             for affine in img_batch.affines:
                 affine._matrix = affine.data @ inv_aff

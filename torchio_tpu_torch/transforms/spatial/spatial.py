@@ -56,9 +56,14 @@ JAX package: each rank resamples its J slab from its slab and its
 neighbours' halos with the dense-coordinate kernel, and nothing gathers
 the volume; the "minimum" fill is each rank's minimum reduced over the
 ``space`` group. A halo wider than a slab warns and takes the all-gather
-path. Every other resample of a sharded batch (label maps, orders 2-7,
-a new space, axis-aligned maps) runs on the whole tensor, and the batch
-places the result again.
+path. A linear or nearest resample by maps without a field to a new
+space or along the axes, and any of them where J is whole, runs on each
+rank's region: each rank resamples its rows' output columns from the
+input columns they read (:func:`_column_resample`; one point-to-point
+exchange over ``space`` where J is split, none where it is whole). Every
+other resample of a sharded batch (label maps in "label" mode, orders
+2-7, a field to a new space along a split J) runs on the whole tensor,
+and the batch places the result again.
 """
 
 from __future__ import annotations
@@ -1089,18 +1094,16 @@ def _halo_route(data, maps, fields, out_shape, *, mode: str, fill, sharding):
     take it (after a warning where the halo does not fit)."""
     from ...parallel.halo import HaloUnsupported, halo_resample_spec
 
-    if (
-        sharding is None
-        or isinstance(maps, torch.Tensor)
-        or mode not in ("linear", "nearest")
-        or _spatial_shard_axis(sharding) is None
-    ):
+    if sharding is None or isinstance(maps, torch.Tensor) or mode not in ("linear", "nearest"):
         return None
     same_space = tuple(int(s) for s in out_shape) == tuple(data.shape[-3:])
     # axis-aligned maps shard cleanly in the JAX package (separable
-    # matmuls); here they run on the whole tensor
+    # matmuls); here each rank reads the input columns its output needs
     axis_aligned = all(f is None and _axis_aligned(m) for m, f in zip(maps, fields))
-    if not same_space or axis_aligned:
+    no_field = all(f is None for f in fields)
+    if _spatial_shard_axis(sharding) is None or (no_field and (axis_aligned or not same_space)):
+        return _column_resample(data, maps, fields, out_shape, mode=mode, fill=fill)
+    if not same_space:
         return None
     try:
         return halo_resample_spec(data, maps, fields, sharding=sharding, mode=mode, fill=fill)
@@ -1111,6 +1114,64 @@ def _halo_route(data, maps, fields, out_shape, *, mode: str, fill, sharding):
             stacklevel=3,
         )
         return None
+
+
+def _read_columns(maps, out_shape, start: int, stop: int, size: int) -> tuple[int, int]:
+    """The first and last input J columns (of ``size``) that the output
+    columns ``[start, stop)`` of ``out_shape`` read under the 4x4 maps
+    (no field): the extreme J coordinates of the output slab's corners, a
+    column of margin each side, within the input. ``(0, -1)``: none."""
+    if stop <= start or not maps:
+        return 0, -1
+    si, _, sk = out_shape
+    corners = np.array([[i, j, k, 1.0] for i in (0, si - 1) for j in (start, stop - 1)
+                        for k in (0, sk - 1)])
+    js = np.concatenate([corners @ np.asarray(m, np.float64)[1] for m in maps])
+    lo = int(np.clip(np.floor(js.min()) - 1, 0, size - 1))
+    hi = int(np.clip(np.ceil(js.max()) + 1, 0, size - 1))
+    return lo, max(lo, hi)
+
+
+def _column_resample(data, maps, fields, out_shape, *, mode: str, fill):
+    """A resample of a sharded ``data`` (B and J split only) on each
+    rank's region: its rows' maps, fields and fills; where J is split,
+    its output columns ``[start, stop)`` read the input columns
+    :func:`_read_columns` gives (no field), fetched from the ranks that
+    hold them (:meth:`..parallel.mesh.Region.fetch_columns`, one
+    ``batch_isend_irecv``), and its maps shifted to them. A DTensor of
+    the output, float32, placed as ``data``."""
+    region = region_of(data)
+    region.check_rows()
+    rows = region.rows
+    out_shape = tuple(int(n) for n in out_shape)
+    local, mine = region.local, [np.asarray(m, np.float64) for m in maps[rows]]
+    start, stop = region.columns(out_shape[1])
+    if region.parts(3) > 1:
+        size = int(region.shape[3])
+
+        def need(p0, p1):
+            lo, hi = _read_columns(mine, out_shape, p0, p1, size)
+            return np.arange(lo, hi + 1)
+
+        lo, _ = _read_columns(mine, out_shape, start, stop, size)
+        local = region.fetch_columns(local, out_shape[1], need)
+        # output column jl + start, input column j - lo
+        mine = [m.copy() for m in mine]
+        for m in mine:
+            m[:, 3] += m[:, 1] * start
+            m[1, 3] -= lo
+    if is_dtensor(fill):
+        fill = fill.to_local()
+    elif np.ndim(fill) == 2 and len(fill) == region.shape[0]:
+        fill = fill[rows]
+    local_shape = (out_shape[0], stop - start, out_shape[2])
+    if stop > start and local.shape[0] and local.shape[3]:
+        sampled = _dispatch_resample(local, mine, list(fields[rows]), local_shape, mode=mode,
+                                     fill=fill)
+    else:  # no rows, or no output columns here
+        sampled = torch.zeros((local.shape[0], local.shape[1], *local_shape),
+                              dtype=torch.float32, device=local.device)
+    return region.wrap(sampled, (region.shape[0], region.shape[1], *out_shape))
 
 
 def _dispatch_resample(

@@ -3,7 +3,8 @@
 Counterpart of ``torchio_tpu/transforms/spatial/to_reference_space.py``:
 each image keeps its data and takes an affine, computed on the host in
 float64, that places its grid in the reference's field of view with the
-reference's centre and orientation.
+reference's centre and orientation. A sharded batch keeps its
+DTensors: only the affines change.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ def _reference_space_affine(reference: Image, output_shape) -> AffineMatrix:
 class ToReferenceSpace(SpatialTransform):
     """Replace each image's affine with a reference-space affine
     (data unchanged) — e.g. to give network embeddings real geometry."""
+
+    takes_sharded = True
 
     def __init__(self, reference: Image, **kwargs: Any) -> None:
         super().__init__(**kwargs)

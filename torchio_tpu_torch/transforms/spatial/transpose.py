@@ -4,7 +4,7 @@ CopyAffine (every image takes a target image's affines).
 Counterpart of ``torchio_tpu/transforms/spatial/transpose.py``. The
 transposed tensor is a view: the kernel wrappers make their inputs
 contiguous where they need it. A sharded batch is transposed on each
-rank's block (J stays the J axis).
+rank's block (J stays the J axis); CopyAffine touches affines only.
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ class Transpose(SpatialTransform):
 
 class CopyAffine(SpatialTransform):
     """Copy the affine of a target image to all other images."""
+
+    takes_sharded = True
 
     def __init__(self, target: str, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -4,7 +4,9 @@ Counterpart of ``torchio_tpu/transforms/to.py``. A lone dtype-like
 positional argument is the dtype: a ``torch.dtype`` as well as the numpy
 dtypes and names the JAX package accepts (``np.dtype`` refuses a
 ``torch.dtype``, so the JAX package's test alone would read
-``To(torch.float16)`` as a device).
+``To(torch.float16)`` as a device). A sharded batch cast on its mesh's
+device stays on the mesh (each rank casts its block); a move to another
+device gathers it and drops the sharding (:meth:`..data.batch.ImagesBatch.to`).
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ class To(Transform):
     ``To(torch.float32)``, ``To(np.float16)``, ``To(device, dtype)``): a
     lone dtype-like positional argument is treated as the dtype.
     """
+
+    takes_sharded = True
 
     def __init__(self, device: Any = None, dtype: Any = None, **kwargs: Any) -> None:
         kwargs.setdefault("copy", False)

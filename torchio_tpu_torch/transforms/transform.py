@@ -16,15 +16,20 @@ Execution contract:
 On a batch sharded over a device mesh (``SubjectsBatch.shard_``), a
 transform whose ``takes_sharded`` is True takes the DTensors and
 computes on each rank's region, with the JAX package's partitioned
-programs' collectives at most: Spatial, Resample and Blur (halos); the
-pointwise stages (Noise, BiasField, Gamma, Clamp, Flip, the rescales,
-ZNormalization, Standardize, Mask); the label stages (RemapLabels,
-RemoveLabels, OneHot, Contour, SequentialLabels); Swap and PCA; and the
-index stages (Resize, Anisotropy, Crop, Pad, CropOrPad,
-EnsureShapeMultiple, Reorient, Transpose). Every other transform
-(Motion, Ghosting, Spike, LabelsToImage, HistogramStandardization,
-KeepLargestComponent, ...) draws and applies inside
-:func:`..data.batch.gathered`, on the whole tensors.
+programs' collectives at most: Spatial, Resample and Blur (halos, or the
+input columns an output reads); the pointwise stages (Noise, BiasField,
+Gamma, Clamp, Flip, the rescales, ZNormalization, Standardize, Mask) and
+their recorded inverses; the label stages (RemapLabels, RemoveLabels,
+OneHot and its inverse, Contour, SequentialLabels, KeepLargestComponent);
+LabelsToImage, HistogramStandardization, Swap and PCA; the k-space
+stages (Motion, Ghosting, Spike); the index stages (Resize, Anisotropy,
+Crop, Pad, CropOrPad, EnsureShapeMultiple, Reorient, Transpose); and the
+metadata stages (CopyAffine, ToReferenceSpace, To). Every other
+transform (Lambda and the MONAI/Cornucopia adapters, whose functions see
+whole tensors) draws and applies inside :func:`..data.batch.gathered`,
+on the whole tensors. A per-instance OneOf or SomeOf unbatches its
+elements (one gather of each image) and re-stacks them unsharded, as
+the JAX package's does.
 """
 
 from __future__ import annotations
