@@ -4957,9 +4957,10 @@ def parent_threefry():
 class GatherSpy:
     """While active, records every gather a rank could make (the
     torch.distributed all-gathers, ``DTensor.full_tensor``/``redistribute``)
-    with the transform running when it happened (``inside``: Spatial, or
-    each of ``stages``), and every stage that entered
-    ``data.batch.gathered`` (``entered``)."""
+    with the transform running when it happened (``inside``: Spatial, each
+    of ``stages``, any stage a pipeline applies, or a fused run as its
+    stages' names joined by "+"), and every stage or fused run that
+    entered ``data.batch.gathered`` (``entered``)."""
 
     def __init__(self, torch, tio, stages=()):
         self.torch, self.tio = torch, tio
@@ -5003,6 +5004,7 @@ class GatherSpy:
         for stage in self.stages:
             for hook in ("make_params", "apply_transform"):
                 self._label(stage, hook)
+        from torchio_tpu_torch.transforms import fuse as fuse_mod
         from torchio_tpu_torch.transforms import transform as transform_mod
 
         real_gathered = transform_mod.gathered
@@ -5011,8 +5013,25 @@ class GatherSpy:
             self.entered.append(self.current)
             return real_gathered(batch)
 
-        self._saved.append((transform_mod, "gathered", real_gathered))
-        transform_mod.gathered = gathered
+        def named(owner, name, label):
+            real = getattr(owner, name)
+
+            def call(first, second):
+                outer, self.current = self.current, label(first, second)
+                try:
+                    return real(first, second)
+                finally:
+                    self.current = outer
+
+            self._saved.append((owner, name, real))
+            setattr(owner, name, call)
+
+        for owner in (transform_mod, fuse_mod):
+            self._saved.append((owner, "gathered", real_gathered))
+            owner.gathered = gathered
+        named(transform_mod, "apply_drawn", lambda transform, batch: type(transform).__name__)
+        named(fuse_mod, "run_fused",
+              lambda batch, stages: "+".join(type(t).__name__ for t, _ in stages))
         return self
 
     def _label(self, stage, hook):
@@ -6252,6 +6271,246 @@ def simulate_label_planes(torch, tio, smi):
     return report
 
 
+#: the C, I and K splits of a sharded batch: the tensor dim each splits
+SPLIT_DIMS = {"C": 1, "I": 2, "K": 4}
+#: the splits as processes sharing the card: (split, processes, cells);
+#: brats-preprocess-fused alone on C (config 1's image has one channel)
+SPLIT_PROCESS_RUNS = (("I", 2, ("brats", "config1")), ("K", 4, ("brats", "config1")),
+                      ("C", 2, ("brats",)), ("C", 4, ("brats",)))
+
+
+def split_sharding(mesh, split: str):
+    """B over the mesh's first axis and the ``split`` dim (C, I or K) over
+    its second."""
+    from torchio_tpu_torch.parallel.mesh import NamedSharding
+
+    data, space = mesh.mesh_dim_names
+    spec = [data, None, None, None, None]
+    spec[SPLIT_DIMS[split]] = space
+    return NamedSharding(mesh, tuple(spec))
+
+
+def launch_counts(kl):
+    return {kernel: n for kernel, n in kl.LAUNCHES.items() if n}
+
+
+def parallel_splits(torch, np, tio, kl, mesh, smi):
+    """The headline, brats-preprocess-fused and ixi-preprocess-histstd at
+    full width on the one-rank mesh with I split and with K split
+    (``SubjectsBatch.shard_(NamedSharding)``): a one-rank axis leaves its
+    dim whole, so no stage enters ``gathered`` and nothing is gathered;
+    the launches of the unsharded call, and its outputs by
+    :func:`compare_outputs` (bit for bit where ``exact``); the median
+    call times and peaks over the input of both."""
+    dev = torch.device(DEVICE)
+    landmarks = ixi_landmarks(tio, torch, IXI_SHAPE, dev, IXI_SEED)
+    cases = {
+        "headline": (headline, lambda: make_batch(tio, torch, B, (S, S, S), dev, PARALLEL_SEED),
+                     False),
+        "brats-preprocess-fused": (
+            brats_preprocess, lambda: make_brats_batch(tio, torch, BRATS_B, BRATS_SHAPE, dev, 0),
+            True),
+        "ixi-preprocess-histstd": (
+            lambda t: ixi_pipeline(t, landmarks, IXI_CROP),
+            lambda: make_ixi_batch(tio, torch, np, IXI_B, IXI_SHAPE, dev, IXI_SEED), True),
+    }
+    report = {}
+    mib = 2**20
+    for name, (make_pipeline, make_batch_, exact) in cases.items():
+        batch = make_batch_()
+        kl.reset_launches()
+        tio.seed(PARALLEL_SEED)
+        ref = make_pipeline(tio)(copy.deepcopy(batch))
+        torch.cuda.synchronize()
+        want = launch_counts(kl)
+        for split in ("I", "K"):
+            label = f"{name} ({split} split)"
+            sharding = split_sharding(mesh, split)
+            sharded = copy.deepcopy(batch).shard_(sharding)
+            kl.reset_launches()
+            with GatherSpy(torch, tio) as spy:
+                tio.seed(PARALLEL_SEED)
+                out = make_pipeline(tio)(sharded)
+                torch.cuda.synchronize()
+            launched = launch_counts(kl)
+            if spy.gathers or spy.entered:
+                fail(f"parallel {label}: gathers {spy.gathers}, stages in gathered {spy.entered}"
+                     " on a one-rank axis")
+            if launched != want:
+                fail(f"parallel {label}: launches {launched}, the unsharded call's {want}")
+            errs = compare_outputs(torch, tio, label, out, ref, None,
+                                   0.0 if exact else PARALLEL_ATOL)
+            del out, sharded
+            torch.cuda.empty_cache()
+            sharded_s, peak, resident = timed_call(
+                torch, tio, lambda b: make_pipeline(tio)(b),
+                lambda: copy.deepcopy(batch).shard_(sharding))
+            whole_s, whole_peak, whole_resident = timed_call(
+                torch, tio, lambda b: make_pipeline(tio)(b), lambda: copy.deepcopy(batch))
+            report[label] = {"errors": errs, "launches": launched,
+                             "ms": {"sharded": sharded_s * 1e3, "unsharded": whole_s * 1e3},
+                             "peak_over_input_mib": (peak - resident) / mib,
+                             "unsharded_peak_over_input_mib": (whole_peak - whole_resident) / mib}
+            print(
+                f"parallel {label} on shard_(NamedSharding(mesh (1, 1), {sharding.spec})): no"
+                f" stage in gathered, no gather (a one-rank axis is whole); launches {launched}"
+                f" as unsharded; against the unsharded call {errs}; a call"
+                f" {sharded_s * 1e3:.1f} ms sharded, {whole_s * 1e3:.1f} ms unsharded (median of"
+                f" {LABEL_REPS}, host clock); peak {(peak - resident) / mib:.0f} MiB over the input"
+                f" (resident {resident / mib:.0f} MiB), {(whole_peak - whole_resident) / mib:.0f}"
+                f" MiB unsharded; card: {smi}"
+            )
+        del batch, ref
+        torch.cuda.empty_cache()
+    return report
+
+
+def gloo_full_tensor(dtensor):
+    """``DTensor.full_tensor`` by ``dist.all_gather`` over the group of each
+    mesh axis that shards it (uneven blocks padded to the widest): torch
+    2.11's own, through the functional collectives, crashes on a gloo
+    group of CUDA tensors, where gloo's c10d all-gathers run
+    (``probes/gloo_cuda.py``)."""
+    import torch
+    import torch.distributed as dist
+
+    from torchio_tpu_torch.parallel.mesh import shard_range
+
+    out = dtensor.to_local()
+    mesh = dtensor.device_mesh
+    for mesh_dim, placement in enumerate(dtensor.placements):
+        if not placement.is_shard():
+            continue
+        dim, group = placement.dim, mesh.get_group(mesh_dim)
+        parts, size = dist.get_world_size(group), int(dtensor.shape[placement.dim])
+        widths = [stop - start for start, stop in (shard_range(size, parts, p)
+                                                   for p in range(parts))]
+        pad = list(out.shape)
+        pad[dim] = max(widths) - out.shape[dim]
+        padded = torch.cat([out, out.new_zeros(pad)], dim) if pad[dim] else out
+        pieces = [torch.empty_like(padded) for _ in range(parts)]
+        dist.all_gather(pieces, padded.contiguous(), group=group)
+        out = torch.cat([piece.narrow(dim, 0, w) for piece, w in zip(pieces, widths)], dim)
+    return out
+
+
+def split_shard_worker(rank: int, world: int, port: int, split: str, cells: str) -> None:
+    """One of ``world`` processes sharing the card in a gloo group, on the
+    (1, world) mesh with ``split`` (C, I or K) over its second axis: each
+    cell of ``cells`` ("brats", "config1"; comma-separated) on its block,
+    against its region of the unsharded call, with the stages that entered
+    ``gathered`` and its peak; prints one JSON line."""
+    import json as json_mod
+
+    import torch
+    import torch.distributed as dist
+
+    import torchio_tpu_torch as tio
+    from torchio_tpu_torch.parallel import make_mesh
+    from torchio_tpu_torch.parallel.mesh import local_slices
+
+    if DEVICE == "cuda":
+        from torch.distributed.tensor import DTensor
+
+        torch.cuda.set_device(0)
+        DTensor.full_tensor = gloo_full_tensor
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        dev = torch.device(DEVICE)
+        sharding = split_sharding(make_mesh(DEVICE, space=world), split)
+        makers = {
+            "brats": (brats_preprocess,
+                      lambda: make_brats_batch(tio, torch, BRATS_B, BRATS_SHAPE, dev, 0)),
+            "config1": (config1_pipeline,
+                        lambda: make_batch(tio, torch, B, CONFIG1_SHAPE, dev, 1)),
+        }
+        parts = {}
+        for cell in cells.split(","):
+            make_pipeline, make = makers[cell]
+            batch = make()
+            tio.seed(LABEL_SEED)  # peak_call's seed
+            ref = make_pipeline(tio)(copy.deepcopy(batch))
+            # each image's region, off the card: not in the peak
+            want = {n: ib.data[local_slices(ib.data.shape, sharding)].cpu()
+                    for n, ib in ref.images.items()}
+            del ref
+            batch.shard_(sharding)
+            with GatherSpy(torch, tio) as spy:
+                out, resident, peak = peak_call(torch, tio, make_pipeline(tio), batch)
+            parts[cell] = {
+                "equal": all(torch.equal(ib.data.to_local().cpu(), want[n])
+                             for n, ib in out.images.items()),
+                "entered": [e for e in spy.entered if e],
+                "gathers": sum(g == "DTensor.full_tensor" for g, _ in spy.gathers),
+                "local_shapes": {n: list(ib.data.to_local().shape)
+                                 for n, ib in out.images.items()},
+                "resident": resident, "peak": peak,
+            }
+            del batch, out, want
+            torch.cuda.empty_cache()
+        print(json_mod.dumps({"rank": rank, "parts": parts}))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_split_processes(torch, tio, smi):
+    """brats-preprocess-fused and config 1 split along I as 2 processes
+    and along K as 4, and brats-preprocess-fused split along C as 2 and 4
+    processes, sharing the card in a gloo group (:func:`split_shard_worker`;
+    on the card ``DTensor.full_tensor`` is :func:`gloo_full_tensor`): each
+    stage takes the whole batch (a fused run enters ``gathered`` once, one
+    gather an image), every block equal to its region of the unsharded
+    call; the stages that entered ``gathered`` and each process's peak,
+    beside the unsharded call's."""
+    dev = torch.device(DEVICE)
+    unsharded = {}
+    for cell, make_pipeline, make in (
+            ("brats", brats_preprocess,
+             lambda: make_brats_batch(tio, torch, BRATS_B, BRATS_SHAPE, dev, 0)),
+            ("config1", config1_pipeline, lambda: make_batch(tio, torch, B, CONFIG1_SHAPE, dev, 1))):
+        out, resident, peak = peak_call(torch, tio, make_pipeline(tio), make())
+        unsharded[cell] = {"resident": resident, "peak": peak}
+        del out
+        torch.cuda.empty_cache()
+    report = {}
+    mib = 2**20
+    for split, world, cells in SPLIT_PROCESS_RUNS:
+        layout = f"{split} split, {world} processes"
+        results, errors = shard_processes(world, worker="split_shard_worker",
+                                          extra=f", {split!r}, {','.join(cells)!r}")
+        if errors or len(results) != world:
+            fail(f"the {layout}: {len(results)} of {world} gave a result; their errors:\n"
+                 + "\n---\n".join(errors))
+        bad = [(r["rank"], cell) for r in results for cell, e in r["parts"].items()
+               if not e["equal"]]
+        if bad:
+            fail(f"the {layout}: blocks {bad} differ from their region of the unsharded call")
+        for r in results:
+            for cell, e in r["parts"].items():
+                if not e["entered"] or e["gathers"] != len(e["local_shapes"]) * len(e["entered"]):
+                    fail(f"the {layout}: {cell} on rank {r['rank']} entered gathered"
+                         f" {e['entered']} with {e['gathers']} gathers")
+        report[layout] = results
+        print(
+            f"{layout} sharing the card (gloo; full_tensor by dist.all_gather on the card): every"
+            " block equal to its region of the unsharded call; " + "; ".join(
+                f"{cell}: entered gathered {results[0]['parts'][cell]['entered']}, blocks"
+                f" {results[0]['parts'][cell]['local_shapes']} on rank 0, peaks"
+                f" {[round(r['parts'][cell]['peak'] / mib) for r in results]} MiB a process"
+                f" (resident {[round(r['parts'][cell]['resident'] / mib) for r in results]} MiB)"
+                f" against {round(unsharded[cell]['peak'] / mib)} MiB unsharded (resident"
+                f" {round(unsharded[cell]['resident'] / mib)} MiB)"
+                for cell in cells
+            ) + f"; card: {smi}"
+        )
+    return {"unsharded_mib": {c: {k: v / mib for k, v in u.items()} for c, u in unsharded.items()},
+            "runs": {layout: [{cell: {"entered": e["entered"], "peak_mib": e["peak"] / mib,
+                                      "resident_mib": e["resident"] / mib}
+                               for cell, e in r["parts"].items()} for r in results]
+                     for layout, results in report.items()}}
+
+
 def bias_noise(tio):
     """The headline's pointwise stages: BiasField + Noise, fused."""
     return tio.Compose([tio.BiasField(std=0.5), tio.Noise(std=0.1)], fuse=True)
@@ -6453,7 +6712,11 @@ def phase_parallel(torch, np, tio, tr, tk, kl, smi):
     local program; synthseg-labels-to-image, ixi-preprocess-histstd (from
     "PLI"), kspace-motion-ghosting and config4-elastic-inverse sharded
     with no gather, and LabelsToImage given its label set, the recorded
-    pointwise inverses and k-space on a B split as processes."""
+    pointwise inverses and k-space on a B split as processes; the
+    headline, brats-preprocess-fused and ixi-preprocess-histstd on the
+    one-rank mesh split along I and along K with no stage in ``gathered``,
+    and brats-preprocess-fused and config 1 split along C, I and K as 2
+    and 4 processes, each stage on the whole batch."""
     import torch.distributed as dist
 
     from torchio_tpu_torch.parallel import halo as halo_mod
@@ -6481,18 +6744,21 @@ def phase_parallel(torch, np, tio, tr, tk, kl, smi):
         pipelines = parallel_pipelines(torch, tio, kl, mesh, smi)
         label_pipelines = parallel_label_pipelines(torch, np, tio, kl, mesh, smi)
         cells = parallel_gather_free_cells(torch, np, tio, kl, mesh, smi)
+        splits = parallel_splits(torch, np, tio, kl, mesh, smi)
     finally:
         dist.destroy_process_group()
     local_programs = parallel_local_programs(torch, tio, smi)
     label_processes = parallel_label_processes(torch, tio, smi)
     free_processes = parallel_free_processes(torch, tio, smi)
+    split_processes = parallel_split_processes(torch, tio, smi)
     label_planes = simulate_label_planes(torch, tio, smi)
     print(f"parallel: {time.perf_counter() - t0:.1f} s; card: {smi}")
     return {"halo_launches": halo_launches, "simulated_launches": simulated,
             "step": step_launches, "counter_base": counter, "strided": strided,
             "pipelines": pipelines, "local_programs": local_programs,
             "label_pipelines": label_pipelines, "label_processes": label_processes,
-            "label_planes": label_planes, "cells": cells, "free_processes": free_processes}
+            "label_planes": label_planes, "cells": cells, "free_processes": free_processes,
+            "splits": splits, "split_processes": split_processes}
 
 
 def main() -> int:

@@ -897,6 +897,258 @@ def composer_recipe(pkg, name: str):
     return pkg.SomeOf(stages, num_transforms=(1, 2))
 
 
+# --------------------------------------------------------------------------
+# Splits along C, I and K (tests/test_torch_parallel_splits.py)
+# --------------------------------------------------------------------------
+
+#: the layouts that split C, I or K: name -> (space, spec), ``space``
+#: the size of the mesh axis "space" of the (WORLD // space, space) mesh
+SPLIT_LAYOUTS = {
+    "C": (4, (None, "space", None, None, None)),
+    "I": (4, (None, None, "space", None, None)),
+    "K": (4, (None, None, None, None, "space")),
+    "B+I": (2, ("data", None, "space", None, None)),
+    "B+K": (2, ("data", None, None, None, "space")),
+}
+
+
+def split_spec(spec, shape, sizes) -> tuple:
+    """``spec`` for an image of ``shape``, or ``()`` (replicated) where a
+    dim it splits does not divide by its mesh axis's ranks (``sizes``:
+    axis name -> ranks): the JAX package places only divisible dims, so a
+    one-channel label map beside a C-split image stays whole."""
+    for dim, name in enumerate(spec):
+        if name is not None and shape[dim] % sizes[name]:
+            return ()
+    return tuple(spec)
+
+
+def split_recipe(pkg, recipe: str) -> list:
+    """The transforms of a C, I and K split recipe in ``pkg`` (this port
+    or the JAX package). Every extent a stage leaves on I and K divides
+    by 4, and C stays 4, so the JAX package places each output on the
+    spec it was given."""
+    recipes = {
+        # the regressions: each gave a wrong result or raised on an I, K
+        # or C split of more than one rank
+        "f1-znorm": lambda: [pkg.ZNormalization()],
+        "f1-rescale": lambda: [pkg.RescaleIntensity(out_min=0.0, out_max=1.0)],
+        "f1-contour": lambda: [pkg.Contour()],
+        "f1-noise": lambda: [pkg.Noise(std=0.1)],
+        "f1-resize": lambda: [pkg.Resize((8, 8, 12))],
+        # the pointwise stages no other recipe runs unfused
+        "pointwise": lambda: [
+            pkg.Clamp(out_min=0.05, out_max=1.2),
+            pkg.ZNormalization(masking_method="seg"),
+            pkg.Mask(masking_method="seg", labels=[1, 2], outside_value=-1.0),
+            pkg.Blur(std=(0.5, 1.5)),
+        ],
+        # every fusable stage, for a fused run
+        "pointwise-all": lambda: [
+            pkg.Noise(std=(0.05, 0.2), p=0.7),
+            pkg.BiasField(std=(0.2, 0.5), p=0.7),
+            pkg.Clamp(out_min=0.05, out_max=1.2),
+            pkg.Gamma(log_gamma=(-0.3, 0.3), p=0.7),
+            pkg.Flip(axes=(0, 1, 2), flip_probability=0.5, p=0.8),
+            pkg.RescaleIntensity(out_min=(0.0, 0.2), out_max=1.0, percentile_low=1.0,
+                                 percentile_high=99.0),
+            pkg.ZNormalization(masking_method="seg"),
+            pkg.Mask(masking_method="seg", labels=[1, 2], outside_value=-1.0),
+            pkg.Blur(std=(0.5, 1.5)),
+        ],
+        "spatial": lambda: [
+            pkg.Affine(degrees=(-8.0, 8.0), scales=(0.95, 1.05), default_pad_value="mean"),
+            pkg.Spatial(degrees=(-6.0, 6.0), max_displacement=2.0, num_control_points=5,
+                        default_pad_value="otsu"),
+            pkg.Resample(target=(2.0, 1.0, 0.5)),
+        ],
+        "labels": lambda: [
+            pkg.RemapLabels({1: 2, 2: 1}),
+            pkg.RemoveLabels([4]),
+            pkg.SequentialLabels(),
+            pkg.KeepLargestComponent(),
+            pkg.Contour(),
+            pkg.OneHot(),
+        ],
+        "index": lambda: [
+            pkg.Crop(cropping=(2, 0, 2)),
+            pkg.Pad(padding=(2, 1, 2)),
+            pkg.Resize((8, 12, 12)),
+            pkg.Anisotropy(downsampling=(2.0, 3.0), p=0.7),
+            pkg.CropOrPad((12, 10, 16)),
+            pkg.EnsureShapeMultiple(8),
+            pkg.Reorient("LPI"),
+            pkg.Transpose(),
+            pkg.Reorient("PLI"),
+        ],
+        "synth": lambda: [
+            pkg.LabelsToImage(label_key="seg", image_key="tissue"),
+            pkg.HistogramStandardization(LANDMARKS, include=["t1"]),
+            pkg.Swap(patch_size=4, num_iterations=4, p=0.7),
+            pkg.PCA(num_components=4, include=["t1"]),
+        ],
+        "kspace": lambda: [
+            pkg.Motion(degrees=5.0, translation=2.0, p=0.7),
+            pkg.Ghosting(intensity=(0.3, 0.7), p=0.7),
+            pkg.Spike(intensity=(1.0, 3.0), p=0.7),
+        ],
+        "metadata": lambda: label_recipe(pkg, "metadata"),
+        # forward stages whose recorded inverses the inverse runs replay
+        "inverses": lambda: [
+            *label_recipe(pkg, "pointwise-inverses")[:5],
+            pkg.SequentialLabels(),
+            pkg.Affine(degrees=(-8.0, 8.0), include=["t1"]),
+            pkg.OneHot(),
+        ],
+    }
+    return recipes[recipe]()
+
+
+def job_splits(recipe, images, classes, seed, layouts, fuse=False, inverse=False):
+    """``recipe`` on this rank's whole batch and on the batch with each
+    image placed by :func:`split_spec` of each of ``layouts`` (name ->
+    (space, spec)): each run's whole images, whether each rank's block
+    equals its region of the whole run's, its placements, history, next
+    host draw and warnings, the DTensor images of each stage (or fused
+    run) that entered ``gathered``, and its collectives. With ``inverse``, the result then
+    goes through ``apply_inverse_transform()`` (the images are the
+    inverse's, the history the forward's)."""
+    import copy
+
+    import torch
+
+    import torchio_tpu_torch as tt
+    from torchio_tpu_torch.parallel.mesh import NamedSharding, is_dtensor, local_slices
+    from torchio_tpu_torch.transforms import fuse as fuse_mod
+    from torchio_tpu_torch.transforms import transform as transform_mod
+
+    base = _subjects_batch(images, classes)
+    real = transform_mod.gathered
+    entered = []
+
+    def spy_gathered(batch):
+        entered.append(sum(is_dtensor(ib.data) for ib in batch.images.values()))
+        return real(batch)
+
+    def run(batch):
+        pipeline = tt.Compose(split_recipe(tt, recipe), fuse=fuse)
+        tt.seed(seed)
+        entered.clear()
+        transform_mod.gathered = fuse_mod.gathered = spy_gathered
+        try:
+            with warnings.catch_warnings(record=True) as caught, CollectiveSpy() as spy:
+                warnings.simplefilter("always")
+                result = pipeline(batch)
+                history = _history(result)
+                if inverse:
+                    result = result.apply_inverse_transform()
+        finally:
+            transform_mod.gathered = fuse_mod.gathered = real
+        return result, {
+            "history": history,
+            "draw": float(tt.random.random()),
+            "warnings": [str(w.message) for w in caught],
+            "gathered": list(entered),
+            "spy": spy.counts,
+        }
+
+    whole, out = run(copy.deepcopy(base))
+    wholes = {n: ib.data for n, ib in whole.images.items()}
+    out = {None: {**out, "images": {n: d.numpy() for n, d in wholes.items()}}}
+    for layout, (space, spec) in layouts.items():
+        m = mesh(space)
+        sizes = dict(zip(m.mesh_dim_names, m.shape))
+        batch = copy.deepcopy(base)
+        for ib in batch.images.values():
+            ib.shard_(NamedSharding(m, split_spec(spec, ib.data.shape, sizes)))
+        result, record = run(batch)
+        blocks = {}
+        for n, ib in result.images.items():
+            if is_dtensor(ib.data) and n in wholes and ib.data.shape == wholes[n].shape:
+                region = wholes[n][local_slices(ib.data.shape, ib.sharding)]
+                blocks[n] = bool(torch.equal(ib.data.to_local(), region))
+        out[layout] = {
+            **record,
+            "images": {n: _whole(ib.data) for n, ib in result.images.items()},
+            "blocks": blocks,
+            "placements": {n: _placements(ib.data) if is_dtensor(ib.data) else None
+                           for n, ib in result.images.items()},
+        }
+    return out
+
+
+def job_split_guards(t1, space, spec):
+    """The region code and the placement-taking entries on a tensor placed
+    by ``spec`` on the (WORLD // space, space) mesh: what
+    ``Region.check_rows`` and the sharded "mean" fill raise, whether the
+    region's draws, ``reduce_sum`` and ``reduce_max`` equal the whole
+    tensor's, whether ``_batch_fill_value``, the fused step and the
+    sharded grid inference on it equal their results on the whole
+    tensor, and the
+    error of ``halo_resample_spec``."""
+    import torch
+
+    from torchio_tpu_torch import random as tr
+    from torchio_tpu_torch.parallel import make_augment_step, sharded_grid_inference
+    from torchio_tpu_torch.parallel.halo import halo_resample_spec
+    from torchio_tpu_torch.parallel.mesh import NamedSharding, place, region_of
+    from torchio_tpu_torch.transforms.spatial.spatial import (
+        _batch_fill_value,
+        _sharded_border_fill,
+    )
+
+    def error(call) -> str:
+        try:
+            call()
+        except ValueError as caught:
+            return f"{type(caught).__name__}: {caught}"
+        return ""
+
+    m = mesh(space)
+    sharding = NamedSharding(m, tuple(spec))
+    whole = torch.as_tensor(t1)
+    x = place(whole, sharding)
+    region = region_of(x)
+    key = tr.prng_key(11)
+    drawn = tr.region_normals([key], region).reshape(region.local.shape)
+    box = tuple(slice(s, s + int(w)) for s, w in zip(region.starts, region.local.shape))
+    batch = _subjects_batch({"t1": t1}, {})
+    batch.images["t1"].shard_(sharding)
+    fill = _batch_fill_value(batch.images["t1"], default_pad_value="mean", default_pad_label=0)
+    plain = _batch_fill_value(_subjects_batch({"t1": t1}, {}).images["t1"],
+                              default_pad_value="mean", default_pad_label=0)
+    rng = np.random.default_rng(5)
+    rotations = np.stack([np.eye(3, dtype=np.float32)] * whole.shape[0])
+    shifts = rng.uniform(-0.5, 0.5, (whole.shape[0], 3)).astype(np.float32)
+    step = make_augment_step(m)
+    placed, given_whole = step(x, rotations, shifts, 7), step(whole, rotations, shifts, 7)
+    inference = sharded_grid_inference(x, mesh=m, patch_size=(4, 3, 4), patch_overlap=(2, 0, 2),
+                                       overlap_mode="average")
+    inference_whole = sharded_grid_inference(whole, mesh=m, patch_size=(4, 3, 4),
+                                             patch_overlap=(2, 0, 2), overlap_mode="average")
+    return {
+        "splits": region.splits_c_i_or_k and batch.stages_take_whole,
+        "check_rows": error(region.check_rows),
+        "border_fill": error(lambda: _sharded_border_fill(x, sharding, "mean")),
+        "draws": bool(torch.equal(drawn, tr.normal(key, tuple(whole.shape), "cpu")[box])),
+        "reduce_sum": int(region.reduce_sum(torch.tensor([region.local.numel()]))[0])
+        == whole.numel(),
+        "reduce_max": float(region.reduce_max(region.local.amax().reshape(1))[0])
+        == float(whole.max()),
+        "fill": bool(torch.equal(torch.as_tensor(fill), torch.as_tensor(plain))),
+        "step": bool(torch.equal(_whole_tensor(placed), _whole_tensor(given_whole))),
+        "inference": bool(torch.equal(_whole_tensor(inference), _whole_tensor(inference_whole))),
+        "halo": error(lambda: halo_resample_spec(x, [np.eye(4)] * whole.shape[0],
+                                                 [None] * whole.shape[0], sharding=sharding)),
+    }
+
+
+def _whole_tensor(value):
+    from torchio_tpu_torch.parallel.mesh import is_dtensor
+
+    return value.full_tensor() if is_dtensor(value) else value
+
+
 JOBS = {
     name[4:]: fn for name, fn in dict(globals()).items() if name.startswith("job_")
 }

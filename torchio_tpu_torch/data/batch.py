@@ -17,10 +17,16 @@ package shares its immutable arrays) and copies only the metadata.
 (:mod:`..parallel.mesh`): its data becomes a ``DTensor`` of the global
 shape, and every stage's output is placed the same way until the batch
 size changes or ``unshard_`` is called; a stage that changes C or a
-spatial extent keeps B and J placed (a new J extent by ``torch.chunk``'s
-split). Stages with a sharded path (``Transform.takes_sharded``: every
-stage but Lambda and the MONAI/Cornucopia adapters) take the DTensors;
-those run on the whole tensors inside :func:`gathered`. ``to`` casts a
+spatial extent keeps its placement (a new extent by ``torch.chunk``'s
+split). Splits of B and J stay on each rank's region: stages with a
+sharded path (``Transform.takes_sharded``: every stage but Lambda and
+the MONAI/Cornucopia adapters) take the DTensors, the others run on the
+whole tensors inside :func:`gathered`. A sharding that splits C, I or K
+over a mesh axis of more than one rank
+(``NamedSharding.splits_c_i_or_k``) runs every stage inside
+:func:`gathered`: each rank holds the whole batch while the stage runs
+and keeps its region after it, with the unsharded call's results (a
+spec entry naming a one-rank axis leaves its dim whole). ``to`` casts a
 sharded batch on each rank's block; a move to another device gathers it
 and drops the sharding.
 """
@@ -104,17 +110,32 @@ class ImagesBatch(Invertible):
         """The mesh placement enforced on ``data`` (None: unmanaged)."""
         return self._sharding
 
+    @property
+    def stages_take_whole(self) -> bool:
+        """Whether each stage takes this batch's whole tensor: its sharding
+        splits C, I or K over more than one rank
+        (:attr:`~..parallel.mesh.NamedSharding.splits_c_i_or_k`)."""
+        return self._sharding is not None and self._sharding.splits_c_i_or_k
+
     def shard_(self, mesh_or_sharding: Any, *, spatial: bool = False) -> "ImagesBatch":
         """Place ``data`` on a mesh and keep transform outputs there.
 
         Args:
             mesh_or_sharding: a DeviceMesh (the batch axis goes over its
                 first axis; with ``spatial=True`` the J axis goes over its
-                second) or a :class:`~..parallel.mesh.NamedSharding`.
+                second) or a :class:`~..parallel.mesh.NamedSharding`, any
+                spec of the mesh's axes over (B, C, I, J, K).
             spatial: also shard the J axis (for volumes larger than one
                 card's memory; Spatial and Blur then exchange halos).
 
         Every rank must hold the same whole batch; each keeps its region.
+        Splits of B and J stay on each rank's region while the stages run.
+        A spec that splits C, I or K over a mesh axis of more than one rank
+        (:attr:`stages_take_whole`) gives each stage the whole tensor
+        (gathered once a stage, the counterpart of XLA's all-gather where
+        it cannot partition), and each rank keeps its region of the
+        result: the same results, at the memory of the whole batch on
+        every rank while a stage runs.
         """
         if isinstance(mesh_or_sharding, NamedSharding):
             sharding = mesh_or_sharding
@@ -279,9 +300,18 @@ class SubjectsBatch(Invertible):
             batch.to(device, dtype)
         return self
 
+    @property
+    def stages_take_whole(self) -> bool:
+        """Whether each stage takes the whole tensors: an image's sharding
+        splits C, I or K over more than one rank
+        (:attr:`ImagesBatch.stages_take_whole`)."""
+        return any(ib.stages_take_whole for ib in self._images.values())
+
     def shard_(self, mesh_or_sharding: Any, *, spatial: bool = False) -> "SubjectsBatch":
         """Place every image batch on a mesh; transform outputs stay there
-        (see :meth:`ImagesBatch.shard_`)."""
+        (see :meth:`ImagesBatch.shard_`): B and J splits on each rank's
+        region, and a spec that splits C, I or K over more than one rank
+        gathered for each stage, each rank keeping its region after it."""
         for batch in self._images.values():
             batch.shard_(mesh_or_sharding, spatial=spatial)
         return self
@@ -376,8 +406,9 @@ def gathered(batch: SubjectsBatch):
     Each sharded image's DTensor is gathered (``full_tensor()``, the
     counterpart of the all-gather XLA inserts where it cannot partition),
     the stage reads and assigns whole tensors, and on exit each rank keeps
-    its region of what the stage left. Every rank runs the same program
-    from the same host draws, so the result equals the unsharded one."""
+    its region of what the stage left (of a new image given a sharding
+    too). Every rank runs the same program from the same host draws, so
+    the result equals the unsharded one."""
     images = [
         ib for ib in batch.images.values()
         if ib._sharding is not None and is_dtensor(ib._data)
@@ -390,7 +421,8 @@ def gathered(batch: SubjectsBatch):
     finally:
         for ib in images:
             ib._gathered = False
-            if ib._sharding is not None:
+        for ib in batch.images.values():
+            if ib._sharding is not None and not is_dtensor(ib._data):
                 ib.data = ib._data
 
 

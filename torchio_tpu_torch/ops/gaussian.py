@@ -134,13 +134,20 @@ def gaussian_blur(data, sigmas, truncate: float = 3.0, radii=None) -> torch.Tens
 
 
 def sharded_spatial_axes(data) -> tuple[bool, bool, bool]:
-    """Which of the I, J, K axes a DTensor's placements split (each such
-    axis takes halo taps, never a band product over the whole axis)."""
+    """Which of the I, J, K axes a DTensor's placements split into more
+    than one block (each such axis takes halo taps, never a band product
+    over the whole axis; an axis named for a mesh axis of one rank is
+    whole)."""
     sharding = sharding_of(data)
     if sharding is None or data.ndim != 5:
         return (False, False, False)
     spec = sharding.padded()
-    return tuple(spec[2 + a] is not None for a in range(3))
+    return tuple(_split(sharding, spec[2 + a]) for a in range(3))
+
+
+def _split(sharding, name) -> bool:
+    """Whether the mesh axis ``name`` (None: no axis) has more than one rank."""
+    return name is not None and axis_size(sharding.mesh, name) > 1
 
 
 def _halos_fit(data, kernels) -> bool:
@@ -186,7 +193,7 @@ def _blur_sharded(data, kernels) -> torch.Tensor:
         else:
             kernel = kernel[rows]
         radius = (kernel.shape[-1] - 1) // 2
-        if spec[dim] is not None:
+        if _split(sharding, spec[dim]):
             group = sharding.mesh.get_group(spec[dim])
             padded = _exchange_halo(out, radius, group, dim)
             out = blur_taps(padded, kernel, out.shape[dim], dim)

@@ -81,6 +81,19 @@ class NamedSharding:
         return tuple(self.spec) + (None,) * (ndim - len(self.spec))
 
     @property
+    def splits_c_i_or_k(self) -> bool:
+        """Whether a mesh axis of more than one rank splits C, I or K of the
+        (B, C, I, J, K) batch. The stages' region paths split B and J only,
+        so on such a sharding each stage runs on the whole tensor (gathered
+        for it, then placed again), as XLA all-gathers where it cannot
+        partition. A spec entry naming a one-rank axis leaves its dim whole
+        and counts for nothing."""
+        padded = self.padded()
+        return any(
+            padded[d] is not None and axis_size(self.mesh, padded[d]) > 1 for d in (1, 2, 4)
+        )
+
+    @property
     def placements(self) -> tuple:
         """The DTensor placements: ``Shard(d)`` on the mesh axis named at
         spec entry ``d``, ``Replicate()`` on a mesh axis named nowhere."""
@@ -294,6 +307,8 @@ class Region:
         ``local`` itself for a region without a sharding."""
         if self.sharding is None:
             return local
+        if shape is not None:
+            self.check_rows()  # a new extent is placed along B and J only
         return from_local(local, self.sharding, self.shape if shape is None else shape)
 
     def parts(self, dim: int) -> int:
@@ -310,6 +325,7 @@ class Region:
         """This rank's J columns ``[start, stop)`` of a result whose J
         extent is ``size``, placed as this region's (the whole extent where
         J is whole)."""
+        self.check_rows()
         parts = self.parts(3)
         if parts == 1:
             return 0, int(size)
@@ -333,19 +349,32 @@ class Region:
 
         value = value.contiguous()
         reduce_op = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
-        for dim in (0, 3):
+        for dim in range(len(self.shape)):
             if self.parts(dim) > 1:
                 dist.all_reduce(value, op=reduce_op, group=self.group(dim))
         return value
 
+    @property
+    def splits_c_i_or_k(self) -> bool:
+        """Whether C, I or K of the (B, C, I, J, K) tensor is in more than
+        one block (:attr:`NamedSharding.splits_c_i_or_k`; a region cut by
+        hand: whether it is part of one of them)."""
+        if self.sharding is not None:
+            return self.sharding.splits_c_i_or_k
+        return any(self.split(d) for d in (1, 2, 4))
+
     def check_rows(self) -> None:
-        """Raise unless the region is split along B and J only: a stage
-        that reads each element whole (a draw of one strided segment, an
-        element's J columns gathered) has no path for a split C, I or K."""
-        if any(self.split(d) for d in (1, 2, 4)):
+        """Raise where :attr:`splits_c_i_or_k` holds. Only B and J splits
+        stay on each rank's region: a stage that reads each element whole
+        (a draw of one strided segment, an element's J columns gathered, a
+        statistic over J) has no path for a split C, I or K, and the
+        public entries (``Transform.forward``, a fused run) hand such a
+        stage the whole tensor instead. This guards the region paths."""
+        if self.splits_c_i_or_k:
             raise ValueError(
-                f"a region of {self.shape} at {self.starts} is split along C, I or K:"
-                " shard the batch over B and J only"
+                f"a region of {self.shape} at {self.starts} is split along C, I or K"
+                " (splits_c_i_or_k): its stages run on the whole tensor; only B and J"
+                " splits stay on each rank's region"
             )
 
     def fetch_columns(self, x: torch.Tensor, size: int, need) -> torch.Tensor:
@@ -358,6 +387,7 @@ class Region:
         group of the mesh axis that splits J, and none where no rank needs
         another's columns). Every rank of that group calls it alike: each
         computes every rank's ``need`` to know what to send."""
+        self.check_rows()
         from ..core.dtypes import movable
 
         parts = self.parts(3)
@@ -395,6 +425,7 @@ class Region:
         None) gathered over the mesh axis that splits J (one
         ``all_gather`` of the rows' columns, never over ``data``; nothing
         where J is one block). Every rank of that group calls it alike."""
+        self.check_rows()
         rows = self.local if rows is None else rows
         if self.parts(3) == 1:
             return rows
@@ -419,6 +450,7 @@ class Region:
         rank: one ``broadcast`` over the group of the mesh axis that splits
         B (from its coordinate 0, which holds element 0); nothing where B
         is whole."""
+        self.check_rows()
         group = self.data_group
         if group is not None:
             import torch.distributed as dist
@@ -432,6 +464,7 @@ class Region:
         (``labels``; None on the other ranks), on every rank: its length,
         then its values, each one ``broadcast`` over the mesh axis that
         splits B (nothing where B is one block)."""
+        self.check_rows()
         if self.parts(0) == 1:
             return labels
         import torch.distributed as dist
@@ -453,6 +486,7 @@ class Region:
         """A partial statistic of this rank's J columns reduced over the
         group of the mesh axis that splits J (one ``all_reduce``; nothing
         where J is whole). ``op``: "sum" or "max"."""
+        self.check_rows()
         group = self.space_group
         if group is not None:
             import torch.distributed as dist

@@ -408,11 +408,17 @@ def normals(
 def region_normals(keys: list[Key], region, scales=None) -> torch.Tensor:
     """Each key's ``normal(key, region.shape)`` at the elements of
     ``region`` (a :class:`~.parallel.mesh.Region` of a (B, C, I, J, K)
-    tensor, split along B and J only) and no other: one strided segment a
-    key (:func:`slab_span`), all of them in one :func:`normals` call (one
-    launch on a card), concatenated flat."""
-    region.check_rows()  # a split C, I or K is not one strided segment
+    tensor) and no other: along B and J one strided segment a key
+    (:func:`slab_span`), all of them in one :func:`normals` call (one
+    launch on a card), concatenated flat. A region split along C, I or K
+    (``Region.splits_c_i_or_k``) is no strided segment: each key's whole
+    draw is made and cut to the region."""
     local = region.local
+    if region.splits_c_i_or_k:
+        n = len(keys)
+        whole = normals(keys, [region.shape] * n, scales, local.device)
+        box = (slice(None), *(slice(s, s + int(w)) for s, w in zip(region.starts, local.shape)))
+        return whole.reshape(n, *region.shape)[box].reshape(-1)
     start, count, run, pitch = slab_span(
         region.shape, region.b0, int(local.shape[0]), region.j0, int(local.shape[3])
     )

@@ -25,11 +25,15 @@ along a split axis, Blur takes halo taps there, and Normalize,
 Standardize and Mask read element 0's statistic or mask where it lies
 (one ``all_reduce``, ``broadcast`` or one element's ``all_gather``). A
 run of other stages takes the whole tensors, gathered once, and the
-batch's setter places what the chain leaves.
+batch's setter places what the chain leaves. A batch whose sharding
+splits C, I or K over more than one rank runs the chain inside
+:func:`..data.batch.gathered`: one gather an image for the run, and each
+rank keeps its region of what the chain leaves.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import random as tio_random
+from ..data.batch import gathered
 from ..parallel.mesh import is_dtensor, place
 from .transform import DeferredParam, Transform, record_history
 
@@ -60,33 +65,37 @@ class FusedStage:
 
 
 def run_fused(batch, stages: list[tuple[Transform, FusedStage]]):
-    """Execute a run of fused stages and record their history."""
+    """Execute a run of fused stages and record their history (the whole
+    run inside :func:`..data.batch.gathered` where the batch splits C, I
+    or K over more than one rank)."""
     if not stages:
         return batch
-    names = sorted({n for _, s in stages for n in s.names})
-    datas = {n: batch.images[n].data for n in names}
-    auxes = []
-    for _, stage in stages:
-        datas = _as_stage_takes(batch, datas, stage.takes_sharded)
-        datas, aux = stage.apply(datas, stage.args)
-        auxes.append(aux)
-    for n in names:
-        batch.images[n].data = datas[n]
-    for (transform, stage), aux in zip(stages, auxes):
-        if stage.finish is not None:
-            stage.finish(aux, stage.params)
-        record_history(batch, transform, stage.params)
+    scope = gathered(batch) if batch.stages_take_whole else contextlib.nullcontext()
+    with scope:
+        names = sorted({n for _, s in stages for n in s.names})
+        datas = {n: batch.images[n].data for n in names}
+        auxes = []
+        for _, stage in stages:
+            datas = _as_stage_takes(batch, datas, stage.takes_sharded)
+            datas, aux = stage.apply(datas, stage.args)
+            auxes.append(aux)
+        for n in names:
+            batch.images[n].data = datas[n]
+        for (transform, stage), aux in zip(stages, auxes):
+            if stage.finish is not None:
+                stage.finish(aux, stage.params)
+            record_history(batch, transform, stage.params)
     return batch
 
 
 def _as_stage_takes(batch, datas: dict, takes_sharded: bool) -> dict:
     """Each sharded image's data as the next stage takes it: placed on the
     mesh (no communication) or whole (gathered, once for a run of such
-    stages)."""
+    stages; inside ``gathered`` every stage takes it whole)."""
     out = {}
     for name, data in datas.items():
         sharding = batch.images[name].sharding
-        if sharding is not None and takes_sharded:
+        if sharding is not None and takes_sharded and not batch.stages_take_whole:
             data = place(data, sharding)
         elif sharding is not None and is_dtensor(data):
             data = data.full_tensor()

@@ -43,6 +43,7 @@ def _apply_field(region: Region, coarse: torch.Tensor, divide: bool) -> torch.Te
     """``region.local`` times (or over) ``exp`` of the coarse fields of its
     rows upsampled to the global spatial shape, at the region's J columns
     only (the rows of the global upsample, bit for bit)."""
+    region.check_rows()
     data = region.local
     spatial = region.shape[2:]
     if region.split(3):

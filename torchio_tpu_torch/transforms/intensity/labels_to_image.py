@@ -163,7 +163,9 @@ class LabelsToImage(Transform):
         image = ImagesBatch(
             field.wrap(result), [a.clone() for a in label_batch.affines], image_class=ScalarImage
         )
-        if region.sharding is not None:
+        if label_batch.sharding is not None:
+            # placed as the label map (by ``gathered`` where the stage ran
+            # on the whole tensors)
             image._sharding = label_batch.sharding
         batch.images[self.image_key] = image
         return batch

@@ -113,6 +113,7 @@ def swap_region(data: torch.Tensor, origins_a: np.ndarray, origins_b: np.ndarray
     its rows' corners taken to the region; along a J split, a step's
     patches summed over ``space``)."""
     region = region_of(data)
+    region.check_rows()
     origins_a, origins_b = region.take(origins_a), region.take(origins_b)
     if region.parts(3) == 1:
         return region.wrap(swap_patches(region.local, origins_a, origins_b, patch_size))

@@ -26,6 +26,7 @@ def _extract_contour(data: torch.Tensor) -> torch.Tensor:
     """The contour of a (B, C, I, J, K) map (a DTensor on each rank's
     region; a J split takes one plane from each neighbour)."""
     region = region_of(data)
+    region.check_rows()  # the planes it takes from its neighbours lie along J
     f32 = region.local.to(torch.float32)
     left = right = None
     if region.parts(3) > 1:

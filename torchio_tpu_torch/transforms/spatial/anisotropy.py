@@ -171,6 +171,7 @@ class Anisotropy(Transform):
             is_label = issubclass(img_batch.image_class, LabelMap)
             mode = "nearest" if is_label else self.image_interpolation
             region = region_of(img_batch.data)
+            region.check_rows()
             data = region.local
             if not per_instance:
                 if params["factor"] <= 1.0:

@@ -43,6 +43,7 @@ def crop_tensor(data, cropping):
 def _crop_region(data, cropping):
     i0, i1, j0, j1, k0, k1 = (int(v) for v in cropping)
     region = region_of(data)
+    region.check_rows()
     b, c, si, sj, sk = region.shape
     _check_cropping((si, sj, sk), cropping)
     shape = (b, c, si - i0 - i1, sj - j0 - j1, sk - k0 - k1)

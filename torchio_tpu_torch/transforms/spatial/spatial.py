@@ -86,6 +86,7 @@ from ...ops.gaussian import gaussian_blur
 from ...ops.resample import resample, resample_fused, resample_label_fused
 from ...parallel.mesh import (
     NamedSharding,
+    axis_size,
     from_local,
     is_dtensor,
     local_slices,
@@ -378,10 +379,10 @@ def _sharded_border_fill(data, sharding: NamedSharding, kind: str):
     import torch.distributed as dist
 
     region = region_of(data)
-    if any(region.split(d) for d in (1, 2, 4)):
+    if region.splits_c_i_or_k:
         raise ValueError(
-            f'the "{kind}" fill of a batch split along C, I or K is not supported;'
-            " shard B and J only"
+            f'the sharded "{kind}" fill reads B and J splits only; a batch split along'
+            " C, I or K (splits_c_i_or_k) takes it on the whole tensor"
         )
     local = region.local
     bl, c, si, jl, sk = (int(n) for n in local.shape)
@@ -429,9 +430,10 @@ def _sharded_border_fill(data, sharding: NamedSharding, kind: str):
 
 
 def _sharded_minimum(data, sharding: NamedSharding):
-    """The per-element, per-channel minimum of a sharded batch: each
-    rank's minimum over its region, reduced over the mesh axes that split
-    the spatial axes; a (B, C) DTensor holding each rank's rows."""
+    """The per-element, per-channel minimum of a sharded batch (C whole):
+    each rank's minimum over its region, reduced over the mesh axes of
+    more than one rank that split the spatial axes; a (B, C) DTensor
+    holding each rank's rows."""
     import torch.distributed as dist
 
     local = data.to_local()
@@ -439,7 +441,7 @@ def _sharded_minimum(data, sharding: NamedSharding):
         local = local.to(torch.int64)
     rows = torch.amin(local, dim=(-3, -2, -1))
     spec = sharding.padded()
-    for axis in {a for a in spec[2:] if a is not None}:
+    for axis in {a for a in spec[2:] if a is not None and axis_size(sharding.mesh, a) > 1}:
         dist.all_reduce(rows, op=dist.ReduceOp.MIN, group=sharding.mesh.get_group(axis))
     return from_local(rows, NamedSharding(sharding.mesh, (spec[0],)), data.shape[:2])
 
@@ -450,7 +452,8 @@ def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_
     (B, C) float32 host array of per-element, per-channel float64 border
     statistics ("mean", and "otsu": the mean of the border voxels below
     their Otsu threshold). A sharded batch's statistical fills are (B, C)
-    DTensors of each rank's rows, with no gather of the volume."""
+    DTensors of each rank's rows, with no gather of the volume; one split
+    along C, I or K over more than one rank takes them whole."""
     if issubclass(img_batch.image_class, LabelMap):
         return float(default_pad_label)
     if isinstance(default_pad_value, Number):
@@ -459,8 +462,10 @@ def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_
         raise TypeError(
             f"default_pad_value must be a string or number, got {type(default_pad_value)}"
         )
+    data = img_batch.data
+    if is_dtensor(data) and img_batch.stages_take_whole:
+        data = data.full_tensor()
     if default_pad_value == "minimum":
-        data = img_batch.data
         if is_dtensor(data):
             return _sharded_minimum(data, img_batch.sharding)
         if data.dtype in (torch.uint16, torch.uint32):  # torch has no amin for them
@@ -468,7 +473,6 @@ def _batch_fill_value(img_batch: ImagesBatch, *, default_pad_value, default_pad_
         return torch.amin(data, dim=(-3, -2, -1))
     if default_pad_value not in ("mean", "otsu"):
         raise ValueError(f'Unknown default_pad_value "{default_pad_value}"')
-    data = img_batch.data
     if is_dtensor(data):
         return _sharded_border_fill(data, img_batch.sharding, default_pad_value)
     return _border_fill(_border_values(data), default_pad_value)
@@ -1091,10 +1095,13 @@ def _axis_aligned(matrix) -> bool:
 
 def _halo_route(data, maps, fields, out_shape, *, mode: str, fill, sharding):
     """The halo program's DTensor, or None where the JAX package would not
-    take it (after a warning where the halo does not fit)."""
+    take it (after a warning where the halo does not fit) or where the
+    sharding splits C, I or K over more than one rank (the resample then
+    runs whole)."""
     from ...parallel.halo import HaloUnsupported, halo_resample_spec
 
-    if sharding is None or isinstance(maps, torch.Tensor) or mode not in ("linear", "nearest"):
+    if (sharding is None or sharding.splits_c_i_or_k or isinstance(maps, torch.Tensor)
+            or mode not in ("linear", "nearest")):
         return None
     same_space = tuple(int(s) for s in out_shape) == tuple(data.shape[-3:])
     # axis-aligned maps shard cleanly in the JAX package (separable
@@ -1133,7 +1140,8 @@ def _read_columns(maps, out_shape, start: int, stop: int, size: int) -> tuple[in
 
 
 def _column_resample(data, maps, fields, out_shape, *, mode: str, fill):
-    """A resample of a sharded ``data`` (B and J split only) on each
+    """A resample of a sharded ``data`` (B and J split only:
+    ``Region.check_rows``) on each
     rank's region: its rows' maps, fields and fills; where J is split,
     its output columns ``[start, stop)`` read the input columns
     :func:`_read_columns` gives (no field), fetched from the ranks that

@@ -27,7 +27,10 @@ Crop, Pad, CropOrPad, EnsureShapeMultiple, Reorient, Transpose); and the
 metadata stages (CopyAffine, ToReferenceSpace, To). Every other
 transform (Lambda and the MONAI/Cornucopia adapters, whose functions see
 whole tensors) draws and applies inside :func:`..data.batch.gathered`,
-on the whole tensors. A per-instance OneOf or SomeOf unbatches its
+on the whole tensors. So does every transform on a batch whose sharding
+splits C, I or K over more than one rank
+(``SubjectsBatch.stages_take_whole``): the region paths split B and J
+only. A per-instance OneOf or SomeOf unbatches its
 elements (one gather of each image) and re-stacks them unsharded, as
 the JAX package's does.
 """
@@ -206,8 +209,10 @@ def record_history(batch: SubjectsBatch, transform: "Transform", params: dict) -
 def apply_drawn(transform: "Transform", batch: SubjectsBatch) -> SubjectsBatch:
     """``Transform.forward`` after its p-gate coin: draw the parameters,
     apply them and record the history (on whole tensors unless the
-    transform takes a sharded batch's DTensors)."""
-    scope = contextlib.nullcontext() if transform.takes_sharded else gathered(batch)
+    transform takes a sharded batch's DTensors and the batch splits B and
+    J only: ``SubjectsBatch.stages_take_whole``)."""
+    on_regions = transform.takes_sharded and not batch.stages_take_whole
+    scope = contextlib.nullcontext() if on_regions else gathered(batch)
     with scope:
         params = transform.make_params(batch)
         batch = transform.apply_transform(batch, params)
