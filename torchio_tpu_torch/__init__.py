@@ -62,6 +62,15 @@ traces), ``Image.plot``/``to_gif``/``to_video``/``Subject.plot``
 the notebook cards (``_repr_html_``), the command line
 (``python -m torchio_tpu_torch.cli``) and the MONAI and Cornucopia
 adapters (:class:`MonaiAdapter`, :class:`CornucopiaAdapter`).
+
+Under a ``torch.profiler`` the transform engine marks its host phases
+with spans: ``tio.<Transform>`` around each transform's call, and
+``tio.<Transform>.copy``, ``.draw``, ``.apply`` and ``.record`` around
+the input's deep copy, the host draws, the enqueueing of the device's
+work and the history (``tio.fused.apply`` for a fused run).
+``profiling.trace(dir)`` writes them into its Perfetto/TensorBoard trace
+beside the card's kernels. With no profiler running a span costs one
+flag check.
 """
 
 __version__ = "0.1.0"

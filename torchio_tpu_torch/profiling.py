@@ -1,4 +1,5 @@
-"""Profiling hooks: per-transform wall timing and ``torch.profiler`` traces.
+"""Profiling hooks: per-transform wall timing, ``torch.profiler`` traces
+and the transform engine's spans.
 
 Counterpart of ``torchio_tpu/profiling.py``. Usage::
 
@@ -13,6 +14,26 @@ Counterpart of ``torchio_tpu/profiling.py``. Usage::
 card's work on its result: it synchronises every CUDA device that holds
 one of the result's tensors. A failed synchronisation (a kernel fault
 surfaces there) raises; it is never timed as a success.
+
+The transform engine marks its host phases with :func:`span`, so that a
+profiler shows where a call's host time goes:
+
+- ``tio.<Transform>``: one transform's ``__call__`` (``tio.Compose`` for
+  the composer, ``tio.OneOf`` and ``tio.SomeOf`` for theirs);
+- ``tio.<Transform>.copy``: the deep copy of the input;
+- ``tio.<Transform>.draw``: the host draws (``make_params``; in a fused
+  ``Compose`` the p-gate coin and ``fused_stage``, which draws);
+- ``tio.<Transform>.apply``: ``apply_transform``, the eager ops and
+  kernel launches it enqueues; ``tio.fused.apply`` for a fused run's
+  stages;
+- ``tio.<Transform>.record``: the history (``record_history``, a fused
+  stage's ``finish``, the result's copy of the history).
+
+They are plain host events of the calling thread (``cpu_op``), with no
+device-side twin, so a trace's device timeline holds only the card's
+own work. :func:`trace` writes them into the Perfetto/TensorBoard trace
+beside every aten op, runtime call and kernel. With no profiler running
+a span costs one flag check and builds nothing.
 """
 
 from __future__ import annotations
@@ -24,10 +45,8 @@ from pathlib import Path
 from typing import Any
 
 import torch
-
-from .data.batch import ImagesBatch
-from .data.image import Image
-from .transforms.transform import Transform
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
 _active: list["_Profile"] = []
 _trace: list[Any] = []
@@ -54,9 +73,27 @@ class _Profile:
         return sum(self.records.get(name, []))
 
 
+#: the context every span site gets while no profiler runs
+_OFF = contextlib.nullcontext()
+
+
+def span(owner: Any, phase: str | None = None):
+    """A profiler span named ``tio.<owner>`` or ``tio.<owner>.<phase>``:
+    ``owner`` is a transform (its class name) or a name. While no
+    profiler runs it returns one shared no-op context and builds no
+    name."""
+    if not _profiler_enabled():
+        return _OFF
+    name = owner if isinstance(owner, str) else type(owner).__name__
+    return _RecordFunctionFast(f"tio.{name}" if phase is None else f"tio.{name}.{phase}")
+
+
 def _devices(result: Any) -> set[torch.device]:
     """The devices of the tensors a transform returned (an unloaded image
     holds none and is not loaded)."""
+    from .data.batch import ImagesBatch
+    from .data.image import Image
+
     if hasattr(result, "images"):  # Subject (Images) or SubjectsBatch (ImagesBatches)
         found = {image.device for image in result.images.values()}
     elif isinstance(result, (torch.Tensor, Image, ImagesBatch)):
@@ -79,6 +116,8 @@ def synchronize(result: Any) -> None:
 @contextlib.contextmanager
 def profile():
     """Record synchronised wall time of every transform application."""
+    from .transforms.transform import Transform
+
     prof = _Profile()
     original = Transform.forward
 

@@ -17,6 +17,7 @@ from collections.abc import Mapping, Sequence
 from typing import Any
 
 from .. import random as tio_random
+from ..profiling import span
 from .transform import Transform, apply_drawn
 
 
@@ -63,7 +64,8 @@ class Compose(Transform):
 
     def forward(self, data: Any) -> Any:
         if self.copy:
-            data = _copy.deepcopy(data)
+            with span(self, "copy"):
+                data = _copy.deepcopy(data)
         batch, unwrap = self._wrap(data)
         if self.fuse:
             return unwrap(self._forward_fused(batch))
@@ -80,9 +82,10 @@ class Compose(Transform):
             if t.fusable(batch):
                 # Transform.forward's RNG order: coin, then make_params
                 # (inside fused_stage)
-                if not gate_coin(t, batch):
-                    continue
-                stage = t.fused_stage(batch)
+                with span(t, "draw"):
+                    if not gate_coin(t, batch):
+                        continue
+                    stage = t.fused_stage(batch)
                 if stage is not None:
                     pending.append((t, stage))
                     continue
@@ -117,7 +120,8 @@ class _PerElementComposer(Transform):
 
     def forward(self, data: Any) -> Any:
         if self.copy:
-            data = _copy.deepcopy(data)
+            with span(self, "copy"):
+                data = _copy.deepcopy(data)
         batch, unwrap = self._wrap(data)
         with _disabled_copy(self.transforms):
             if self.per_instance and batch.batch_size > 1:

@@ -43,6 +43,7 @@ import torch
 from .. import random as tio_random
 from ..data.batch import gathered
 from ..parallel.mesh import is_dtensor, place
+from ..profiling import span
 from .transform import DeferredParam, Transform, record_history
 
 
@@ -75,16 +76,18 @@ def run_fused(batch, stages: list[tuple[Transform, FusedStage]]):
         names = sorted({n for _, s in stages for n in s.names})
         datas = {n: batch.images[n].data for n in names}
         auxes = []
-        for _, stage in stages:
-            datas = _as_stage_takes(batch, datas, stage.takes_sharded)
-            datas, aux = stage.apply(datas, stage.args)
-            auxes.append(aux)
-        for n in names:
-            batch.images[n].data = datas[n]
+        with span("fused", "apply"):
+            for _, stage in stages:
+                datas = _as_stage_takes(batch, datas, stage.takes_sharded)
+                datas, aux = stage.apply(datas, stage.args)
+                auxes.append(aux)
+            for n in names:
+                batch.images[n].data = datas[n]
         for (transform, stage), aux in zip(stages, auxes):
-            if stage.finish is not None:
-                stage.finish(aux, stage.params)
-            record_history(batch, transform, stage.params)
+            with span(transform, "record"):
+                if stage.finish is not None:
+                    stage.finish(aux, stage.params)
+                record_history(batch, transform, stage.params)
     return batch
 
 

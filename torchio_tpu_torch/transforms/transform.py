@@ -50,6 +50,7 @@ from .. import random as tio_random
 from ..data.batch import ImagesBatch, SubjectsBatch, gathered
 from ..data.image import Image, ScalarImage
 from ..data.subject import Subject
+from ..profiling import span
 
 
 class AppliedTransform:
@@ -214,9 +215,12 @@ def apply_drawn(transform: "Transform", batch: SubjectsBatch) -> SubjectsBatch:
     on_regions = transform.takes_sharded and not batch.stages_take_whole
     scope = contextlib.nullcontext() if on_regions else gathered(batch)
     with scope:
-        params = transform.make_params(batch)
-        batch = transform.apply_transform(batch, params)
-    record_history(batch, transform, params)
+        with span(transform, "draw"):
+            params = transform.make_params(batch)
+        with span(transform, "apply"):
+            batch = transform.apply_transform(batch, params)
+    with span(transform, "record"):
+        record_history(batch, transform, params)
     return batch
 
 
@@ -261,11 +265,13 @@ class Transform:
     # --- Application ---
 
     def __call__(self, data: Any) -> Any:
-        return self.forward(data)
+        with span(self):
+            return self.forward(data)
 
     def forward(self, data: Any) -> Any:
         if self.copy:
-            data = _copy.deepcopy(data)
+            with span(self, "copy"):
+                data = _copy.deepcopy(data)
         batch, unwrap = self._wrap(data)
         if (
             not self._per_instance_p_active(batch)
@@ -275,7 +281,8 @@ class Transform:
         batch = apply_drawn(self, batch)
         result = unwrap(batch)
         if isinstance(result, (Subject, Image, ImagesBatch)):
-            result.applied_transforms = list(batch.applied_transforms)
+            with span(self, "record"):
+                result.applied_transforms = list(batch.applied_transforms)
         return result
 
     #: False in transforms that delegate to children which record their
