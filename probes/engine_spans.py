@@ -12,6 +12,8 @@ more JSON line:
 - ``idle_by_span_ms``: the same idle time by the innermost span's full
   name (which transform's phase);
 - ``span_ms``: each span's own host time a call (inclusive);
+- ``resolve_per_call``: the ``tio.<T>.resolve`` spans a call (a
+  history's params made JSON: none while nothing reads them);
 - ``runtime_in_spans``: the CUDA runtime calls a call inside the spans,
   by name (the synchronising ones are what ``host_syncs_per_call``
   counts);
@@ -69,6 +71,7 @@ def analyse(line) -> dict:
         "split_minus_exposed_ms": (sum(parts.values()) - exposed) / calls / 1e3,
         "idle_by_span_ms": {k: v / calls / 1e3 for k, v in top},
         "span_ms": {k: v / calls / 1e3 for k, v in own.most_common(24)},
+        "resolve_per_call": sum(name.endswith(".resolve") for _, _, name in program) / calls,
         "runtime_in_spans": {k: v / calls for k, v in runtime.most_common(16)},
         "syncs_per_call": spans.syncs_per_call(line),
         "device_tio_events": sum(1 for e in line.device() if e.name.startswith("tio.")),

@@ -28,6 +28,9 @@ profiler shows where a call's host time goes:
   stages;
 - ``tio.<Transform>.record``: the history (``record_history``, a fused
   stage's ``finish``, the result's copy of the history).
+- ``tio.<Transform>.resolve``: a history record made JSON on the first
+  read of its ``params`` (arrays to lists, deferred statistics to their
+  values), where it holds something to convert.
 
 They are plain host events of the calling thread (``cpu_op``), with no
 device-side twin, so a trace's device timeline holds only the card's

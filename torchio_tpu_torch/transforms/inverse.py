@@ -5,7 +5,9 @@ history backwards; rebuild each invertible transform from its serialized
 params through the class registry (``object.__new__``, so ``__init__``
 never reruns); skip unknown or non-invertible records with a warning;
 optionally drop every intensity transform; give each inverse its
-record's include/exclude scoping.
+record's include/exclude scoping. A record is inverted as drawn where it
+holds no deferred statistic (Spatial's arrays are read as arrays, with
+no JSON round trip).
 """
 
 from __future__ import annotations
@@ -14,7 +16,14 @@ import warnings
 from typing import Any, Iterable
 
 from .compose import Compose
-from .transform import _TRANSFORM_REGISTRY, AppliedTransform, IntensityTransform, Transform
+from .transform import (
+    _TRANSFORM_REGISTRY,
+    AppliedTransform,
+    DeferredParam,
+    IntensityTransform,
+    Transform,
+    _holds,
+)
 
 
 def _invert_one(trace: AppliedTransform, *, warn: bool, skip_intensity: bool):
@@ -34,7 +43,10 @@ def _invert_one(trace: AppliedTransform, *, warn: bool, skip_intensity: bool):
         if warn:
             warnings.warn(f"{trace.name} is not invertible, skipping", stacklevel=3)
         return None
-    inverse = shell.inverse(trace.params)
+    params = trace.raw_params()
+    if _holds(params, DeferredParam):
+        params = trace.params
+    inverse = shell.inverse(params)
     inverse.include = trace.include
     inverse.exclude = trace.exclude
     return inverse

@@ -16,7 +16,11 @@ Counterpart of ``torchio_tpu/transforms/spatial/spatial.py``:
   elements; the input dtype is restored after sampling.
 
 The parameters are drawn by the same host numpy code as the JAX package,
-so the same seed records the same params. Each image is resampled by one
+so the same seed records the same params. Each element's affine (float64
+4x4) and coarse field (float32) stay the read-only arrays drawn: the
+apply reads them without a copy, and the history makes them JSON lists
+on its first read (a replayed JSON history gives lists, read the same
+way). Each image is resampled by one
 call on the batch's device, each with a hand-written CUDA kernel behind
 it: orders 0-1 by :func:`torchio_tpu_torch.ops.resample.resample_fused`,
 orders 2-7 by :func:`torchio_tpu_torch.ops.bspline.bspline_resample_fused`
@@ -545,19 +549,23 @@ def _deserialize_space(data):
     return tuple(data["shape"]), AffineMatrix(data["affine"])
 
 
-def _serialize_matrix(matrix):
-    return None if matrix is None else np.asarray(matrix, np.float64).tolist()
+def _recorded(array):
+    """A drawn affine or field (or None), read-only: the apply and the
+    history share it, and the history makes it JSON when it is read."""
+    if array is not None:
+        array.setflags(write=False)
+    return array
 
 
-def _deserialize_matrix(data):
+def _as_matrix(data):
+    """A recorded 4x4 affine, as drawn (the float64 array itself, no
+    copy) or as JSON lists, in float64."""
     return None if data is None else np.asarray(data, np.float64)
 
 
-def _serialize_control_points(cp):
-    return None if cp is None else np.asarray(cp, np.float32).tolist()
-
-
-def _deserialize_control_points(data):
+def _as_field(data):
+    """A recorded coarse field, as drawn (the float32 array itself, no
+    copy) or as JSON lists, in float32."""
     return None if data is None else np.asarray(data, np.float32)
 
 
@@ -778,8 +786,8 @@ class Spatial(SpatialTransform):
                 self.target, batch, first_shape, first_affine
             )
             params["target"] = _serialize_space(target_space)
-            params["affine_matrix"] = _serialize_matrix(forward)
-            params["control_points"] = _serialize_control_points(cp)
+            params["affine_matrix"] = _recorded(forward)
+            params["control_points"] = _recorded(cp)
             params["max_displacement"] = list(disp) if disp else None
             return params
         keep = self._keep_mask(batch, n)
@@ -793,8 +801,8 @@ class Spatial(SpatialTransform):
                 continue
             forward, cp, disp, has_geometry = self._sample_one(first_shape, first_affine)
             any_geometry = any_geometry or has_geometry
-            affines.append(_serialize_matrix(forward))
-            cps.append(_serialize_control_points(cp))
+            affines.append(_recorded(forward))
+            cps.append(_recorded(cp))
             disps.append(list(disp) if disp else None)
         if any_geometry:
             _check_shared_space(images, first_shape, first_affine)
@@ -826,18 +834,16 @@ class Spatial(SpatialTransform):
         per_sample = None
         if "affine_matrix" in (params.get("_batched_keys") or []):
             per_sample = _PerSampleGeometry(
-                affines=[_deserialize_matrix(m) for m in params["affine_matrix"]],
-                control_points=[
-                    _deserialize_control_points(c) for c in params["control_points"]
-                ],
+                affines=[_as_matrix(m) for m in params["affine_matrix"]],
+                control_points=[_as_field(c) for c in params["control_points"]],
                 max_displacements=[
                     tuple(d) if d else None for d in params["max_displacement"]
                 ],
             )
             affine_matrix = control_points = max_displacement = None
         else:
-            affine_matrix = _deserialize_matrix(params["affine_matrix"])
-            control_points = _deserialize_control_points(params["control_points"])
+            affine_matrix = _as_matrix(params["affine_matrix"])
+            control_points = _as_field(params["control_points"])
             md = params["max_displacement"]
             max_displacement = tuple(md) if md else None
         if (
@@ -889,12 +895,11 @@ class Spatial(SpatialTransform):
         if "affine_matrix" in (params.get("_batched_keys") or []):
             per_sample = _PerSampleGeometry(
                 affines=[
-                    None if m is None else np.linalg.inv(np.asarray(m, np.float64))
+                    None if m is None else np.linalg.inv(_as_matrix(m))
                     for m in params["affine_matrix"]
                 ],
                 control_points=[
-                    None if c is None else -np.asarray(c, np.float32)
-                    for c in params["control_points"]
+                    None if c is None else -_as_field(c) for c in params["control_points"]
                 ],
                 max_displacements=[
                     tuple(d) if d else None for d in params["max_displacement"]
@@ -903,9 +908,9 @@ class Spatial(SpatialTransform):
             return _SpatialInverse(
                 affine_matrix=None, control_points=None, per_sample=per_sample, **common
             )
-        affine_matrix = _deserialize_matrix(params["affine_matrix"])
+        affine_matrix = _as_matrix(params["affine_matrix"])
         inverse_affine = None if affine_matrix is None else np.linalg.inv(affine_matrix)
-        cp = _deserialize_control_points(params["control_points"])
+        cp = _as_field(params["control_points"])
         return _SpatialInverse(
             affine_matrix=inverse_affine,
             control_points=None if cp is None else -cp,

@@ -7,11 +7,17 @@ JSON-serializable params, history recording and the class registry.
 
 Execution contract:
 
-- ``make_params(batch)`` runs on the host and returns concrete,
-  JSON-serializable parameters (numpy/python values), drawn from the same
-  host RNG stream as the JAX package.
+- ``make_params(batch)`` runs on the host and returns concrete
+  parameters, drawn from the same host RNG stream as the JAX package:
+  Python values, and numpy arrays where a draw is an array (Spatial's
+  affines and coarse fields, read-only, shared by the apply and the
+  history).
 - ``apply_transform(batch, params)`` runs on the batch's device with
   torch ops and the package's kernels.
+- The history records the params as drawn. They become JSON (nested
+  lists and Python numbers) on the first read of
+  ``AppliedTransform.params``, once; ``raw_params()`` reads them
+  unconverted.
 
 On a batch sharded over a device mesh (``SubjectsBatch.shard_``), a
 transform whose ``takes_sharded`` is True takes the DTensors and
@@ -54,13 +60,17 @@ from ..profiling import span
 
 
 class AppliedTransform:
-    """History record of one transform application (JSON-serializable).
+    """History record of one transform application.
 
-    ``params`` may initially hold :class:`DeferredParam` device
-    statistics; they resolve (one host transfer, cached) on first access.
+    ``params`` is JSON: the record may hold numpy arrays and
+    :class:`DeferredParam` device statistics as drawn, and the first read
+    of ``params`` replaces them with nested lists and their resolved
+    values (one walk, in the span ``tio.<name>.resolve`` where it converts
+    something; one host transfer a deferred statistic). Later reads
+    return the same dict.
     """
 
-    __slots__ = ("name", "_params", "include", "exclude")
+    __slots__ = ("name", "_params", "_json", "include", "exclude")
 
     def __init__(
         self,
@@ -70,22 +80,27 @@ class AppliedTransform:
         exclude: list[str] | None = None,
     ) -> None:
         self.name = name
-        self._params = {} if params is None else params
+        self.params = {} if params is None else params
         self.include = include
         self.exclude = exclude
 
     @property
     def params(self) -> dict[str, Any]:
-        if _has_deferred(self._params):
-            self._params = resolve_deferred_params(self._params)
+        if not self._json:
+            if _holds(self._params, (DeferredParam, np.ndarray)):
+                with span(self.name, "resolve"):
+                    self._params = json_params(self._params)
+            self._json = True
         return self._params
 
     @params.setter
     def params(self, value: dict[str, Any]) -> None:
         self._params = value
+        self._json = False
 
     def raw_params(self) -> dict[str, Any]:
-        """The params dict WITHOUT resolving deferred statistics."""
+        """The params dict as recorded (arrays and deferred statistics
+        unconverted until ``params`` is first read)."""
         return self._params
 
     def replace_params(self, params: dict[str, Any]) -> "AppliedTransform":
@@ -144,25 +159,29 @@ class DeferredParam:
         return self
 
 
-def resolve_deferred_params(value: Any) -> Any:
-    """Replace every :class:`DeferredParam` in a params tree with its
-    resolved JSON value."""
+def json_params(value: Any) -> Any:
+    """A params tree as JSON: every :class:`DeferredParam` replaced with its
+    resolved value and every numpy array with its nested lists."""
     if isinstance(value, DeferredParam):
         return value.resolve()
+    if isinstance(value, np.ndarray):
+        return value.tolist()
     if isinstance(value, dict):
-        return {k: resolve_deferred_params(v) for k, v in value.items()}
+        return {k: json_params(v) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
-        return type(value)(resolve_deferred_params(v) for v in value)
+        return type(value)(json_params(v) for v in value)
     return value
 
 
-def _has_deferred(value: Any) -> bool:
-    if isinstance(value, DeferredParam):
+def _holds(value: Any, kinds: type | tuple[type, ...]) -> bool:
+    """Whether a params tree holds an instance of ``kinds`` (an array is a
+    leaf: its numbers are not walked)."""
+    if isinstance(value, kinds):
         return True
     if isinstance(value, dict):
-        return any(_has_deferred(v) for v in value.values())
+        return any(_holds(v, kinds) for v in value.values())
     if isinstance(value, (list, tuple)):
-        return any(_has_deferred(v) for v in value)
+        return any(_holds(v, kinds) for v in value)
     return False
 
 
@@ -193,7 +212,7 @@ def _all_elements_gated_out(params: dict[str, Any]) -> bool:
 def record_history(batch: SubjectsBatch, transform: "Transform", params: dict) -> None:
     """Append ``transform``'s record to ``batch``'s history (unless every
     element was gated out)."""
-    if _has_deferred(params):
+    if _holds(params, DeferredParam):
         params = _resolve_eager_deferred(params)
     if not transform._records_history or _all_elements_gated_out(params):
         return
