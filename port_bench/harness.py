@@ -59,12 +59,14 @@ def build_pipeline(tio, traffic: dict):
 
 
 def make_batch(tio, specs: dict, tensors: dict):
+    """The batch of subjects of the inputs (a made image is the
+    pipeline's to write)."""
     classes = {"scalar": tio.ScalarImage, "label": tio.LabelMap}
     batch = len(next(iter(tensors.values())))
     subjects = [
         tio.Subject(**{
             name: classes[spec.kind](tensors[name][b], affine=spec.affine)
-            for name, spec in specs.items()
+            for name, spec in inputs.given(specs).items()
         })
         for b in range(batch)
     ]
@@ -88,6 +90,8 @@ def capture_plan(seed: int, count: int, batch: int, seconds: float):
 class Capture:
     call: int
     element: int
+    #: name -> the element's copy on the host; an image the call did not
+    #: return, or returned in another shape, is left out
     images: dict
 
 
@@ -122,6 +126,18 @@ def _launches() -> dict:
 
 def _history(out) -> list:
     return [(record.name, record.raw_params()) for record in out.applied_transforms]
+
+
+def _capture(out, element: int, buffers: dict) -> dict:
+    """``buffers`` filled with element ``element`` of each image of
+    ``out`` that has their shape; the others are left out, so that
+    ``compare`` reads them as missing."""
+    held = {}
+    for name, buffer in buffers.items():
+        image = out.images.get(name)
+        if image is not None and tuple(image.data.shape[1:]) == tuple(buffer.shape):
+            held[name] = buffer.copy_(image.data[element])
+    return held
 
 
 def drive(call, batch, size: int, specs, seconds, plan, device, work=None) -> Window:
@@ -172,9 +188,7 @@ def drive(call, batch, size: int, specs, seconds, plan, device, work=None) -> Wi
         index = len(window.calls) - 1
         while pending and pending[0][0][0] <= t1 - window.started:
             (_, element), held = pending.pop(0)
-            for name, buffer in held.items():
-                buffer.copy_(out.images[name].data[element])
-            window.captures.append(Capture(index, element, held))
+            window.captures.append(Capture(index, element, _capture(out, element, held)))
         if tracing:
             history = _history(out)
             for kernel, module in work.items():

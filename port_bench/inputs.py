@@ -2,7 +2,10 @@
 scalar image drawn uniform on [0, 1) from one ``torch.Generator`` (in the
 configuration's order, one call an image for the whole batch), every
 label map the same deterministic block pattern for each element. Both
-the program and the reference are given these. The generator follows
+the program and the reference are given these. An image with
+``made_by`` (the transform that writes it, such as ``LabelsToImage``) is
+no input: it is listed as the pipeline leaves it, after every input, and
+nothing is drawn for it. The generator follows
 ``chip_smoke.py``'s ``make_batch``, ``make_brats_batch``, ``suite_labels``
 and ``brats_labels`` at commit fe6a028."""
 
@@ -25,13 +28,18 @@ class ImageSpec:
     dtype: torch.dtype
     affine: np.ndarray
     spec: dict
+    #: the transform whose step writes the image; None for an input
+    made_by: str | None = None
 
 
 def images(config: dict, shape=None) -> dict:
     """name -> ImageSpec of the configuration (``shape`` overrides every
-    image's spatial shape, for the CPU tests)."""
+    image's spatial shape, for the CPU tests). A made image listed before
+    an input is refused: the inputs' draws come first."""
     out = {}
     for name, spec in config["images"].items():
+        if spec.get("made_by") is None and any(i.made_by for i in out.values()):
+            raise ValueError(f"input image {name!r} follows a made image: made images come last")
         spacing = np.asarray(spec.get("spacing", (1.0, 1.0, 1.0)), np.float64)
         out[name] = ImageSpec(
             name=name,
@@ -41,8 +49,14 @@ def images(config: dict, shape=None) -> dict:
             dtype=DTYPES[spec["dtype"]],
             affine=np.diag([*spacing, 1.0]),
             spec=spec,
+            made_by=spec.get("made_by"),
         )
     return out
+
+
+def given(specs: dict) -> dict:
+    """The inputs among ``specs``: every image but the made ones."""
+    return {name: image for name, image in specs.items() if image.made_by is None}
 
 
 def generator_seed(seed: int) -> int:
@@ -59,10 +73,10 @@ def blocks(spec: dict, shape, device) -> torch.Tensor:
 
 
 def make(specs: dict, batch: int, seed: int, device) -> dict:
-    """name -> (B, C, I, J, K) tensor on ``device``."""
+    """name -> (B, C, I, J, K) tensor on ``device``, for each input."""
     gen = torch.Generator(device=device).manual_seed(generator_seed(seed))
     out = {}
-    for name, image in specs.items():
+    for name, image in given(specs).items():
         if image.kind == "scalar":
             out[name] = torch.rand((batch, image.channels, *image.shape), generator=gen,
                                    device=device, dtype=image.dtype)

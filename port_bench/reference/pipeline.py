@@ -32,15 +32,18 @@ class Reference:
     def element(self, drawn: list, inputs: dict, e: int) -> dict:
         """Element ``e`` of a call with parameters ``drawn`` from the
         batch's ``inputs`` (name -> (B, C, I, J, K) on the reference's
-        device): name -> (C, I, J, K)."""
+        device): name -> (C, I, J, K), every image present at the end.
+        Each step sees only the images present before it; a made image
+        appears at the step that writes it."""
         needs_first = any(module.NEEDS_FIRST for _, _, module in self.steps)
         rows = sorted({0, e}) if needs_first else [e]
         index = torch.as_tensor(rows, device=self.ctx.device)
         data = {}
         for name, image in self.ctx.images.items():
-            x = inputs[name].index_select(0, index)
-            data[name] = self.ctx.store(x) if image.kind == "scalar" else x
+            if image.made_by is None:
+                x = inputs[name].index_select(0, index)
+                data[name] = self.ctx.store(x) if image.kind == "scalar" else x
         for params, (_, args, module) in zip(drawn, self.steps):
             if params is not None:
-                data = module.apply(params, args, data, rows, self.ctx)
+                data = module.apply(params, args, data, rows, self.ctx.at(data))
         return {name: data[name][rows.index(e)] for name in data}

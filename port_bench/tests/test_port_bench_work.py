@@ -10,13 +10,17 @@ import pytest
 
 from port_bench import inputs
 from port_bench.registry import work_module, work_modules
-from port_bench.yardstick import bound
+from port_bench.yardstick import THREEFRY_OPS, bound
 
 T1 = {"images": {"t1": {"kind": "scalar", "channels": 1, "shape": [256] * 3, "dtype": "float32"}}}
 BRATS = {"images": {
     "mri": {"kind": "scalar", "channels": 4, "shape": [240, 240, 155], "dtype": "float32"},
     "seg": {"kind": "label", "channels": 1, "shape": [240, 240, 155], "dtype": "int32"},
 }}
+#: an image LabelsToImage makes; a history without that step leaves it out
+MADE = {"kind": "scalar", "channels": 1, "shape": [256] * 3, "dtype": "float32",
+        "made_by": "LabelsToImage"}
+T1_MADE = {"images": {**T1["images"], "image_from_labels": MADE}}
 FIELD = np.zeros((7, 7, 7, 3)).tolist()
 MAP = np.eye(4).tolist()
 
@@ -48,6 +52,9 @@ def least_ms(kernel, history, config, batch):
         "_batched_keys": ["transforms"]})], T1, 0.401, "bytes"),
     ("threefry", [("Noise", {"mean": [0.0] * 4, "std": [0.1] * 4, "seed": 1})], T1, 0.116,
      "operations"),
+    ("resample", [spatial(4, ["t1"])], T1_MADE, 0.160, "bytes"),
+    ("threefry", [("Noise", {"mean": [0.0] * 4, "std": [0.1] * 4, "seed": 1})], T1_MADE, 0.116,
+     "operations"),
 ])
 def test_bounds_of_the_kernel_table(kernel, history, config, want_ms, by):
     got_ms, got_by = least_ms(kernel, history, config, 4)
@@ -78,6 +85,59 @@ def test_a_record_that_draws_nothing_gives_no_work():
     images = inputs.images(BRATS)
     for kernel in ("spline", "prefilter", "label_vote", "resample_coords", "threefry"):
         assert work_module(kernel).work(history, images, 4) == (0, 0)
+
+
+LABELS = {"images": {
+    "seg": {"kind": "label", "channels": 1, "shape": [256] * 3, "dtype": "int32"},
+    "image_from_labels": MADE,
+}}
+NOISE = ("Noise", {"mean": [0.0] * 4, "std": [0.1] * 4, "seed": 1})
+BIAS = ("BiasField", {"std": [0.5] * 4, "seed": [1, 2, 3, 4], "scale": 0.025,
+                      "_batched_keys": ["std", "seed"]})
+
+
+def labels_to_image(means, stds, batch=4):
+    """A per-element record: ``means`` and ``stds`` a list of label ->
+    value, one an element, or one for all."""
+    means, stds = ([dict(v)] * batch if isinstance(v, dict) else v for v in (means, stds))
+    return ("LabelsToImage", {"means": means, "stds": stds, "seed": 7, "_batch_size": batch,
+                              "_batched_keys": ["means", "stds"]})
+
+
+def normals(history):
+    from port_bench.work.threefry import normals as count
+
+    return count(history, inputs.images(LABELS), 4)
+
+
+DRAWN = {label: 0.5 if label < 8 else 0.0 for label in range(32)}
+
+
+@pytest.mark.parametrize("record, drawn", [
+    (labels_to_image({1: 0.5}, {1: 0.05}), 1),
+    (labels_to_image(DRAWN, DRAWN), 8),
+    (labels_to_image(dict.fromkeys(range(32), 0.3), dict.fromkeys(range(32), 0.0)), 32),
+    # a std alone, or a mean in one element only, draws the label
+    (labels_to_image([{0: 0.0, 1: 0.0}] * 3 + [{0: 0.3, 1: 0.0}], {0: 0.0, 1: 0.02}), 2),
+    # ignore_background: label 0 at zero in every element draws nothing
+    (labels_to_image({0: 0.0, 5: 0.4}, {0: 0.0, 5: 0.01}), 1),
+    # a history replayed from JSON has string labels
+    (labels_to_image({"3": 0.2}, {"3": 0.0}), 1),
+])
+def test_labels_to_image_draws_a_field_a_drawn_label(record, drawn):
+    assert normals([record]) == 4 * drawn * 256**3
+
+
+def test_a_made_image_counts_only_after_its_maker():
+    maker = labels_to_image({1: 0.5}, {1: 0.05})
+    field = 4 * 256**3
+    assert normals([NOISE, BIAS]) == 0
+    assert normals([NOISE, maker]) == field
+    assert normals([maker, NOISE]) == field + field
+    assert normals([BIAS, maker, BIAS]) == field + 4 * 6**3
+    # 4 bytes and THREEFRY_OPS operations a normal, as the table's row
+    nbytes, flops = work_module("threefry").work([maker, NOISE], inputs.images(LABELS), 4)
+    assert (nbytes, flops) == (4 * 2 * field, 2 * field * THREEFRY_OPS)
 
 
 NAMES = {

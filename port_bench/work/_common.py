@@ -1,5 +1,6 @@
 """Helpers the work functions share: which elements of a call a
-transform's recorded parameters drew, and the sizes of the images."""
+transform's recorded parameters drew, which images a call holds at each
+of its records, and the sizes of the images."""
 
 from __future__ import annotations
 
@@ -10,6 +11,21 @@ def records(history, name: str):
     """The params of every record of transform ``name`` in a call's
     history (a list of ``(name, params)``)."""
     return [params for record, params in history if record == name]
+
+
+def records_at(history, name: str):
+    """``(position, params)`` of every record of transform ``name`` in a
+    call's history."""
+    return [(i, params) for i, (record, params) in enumerate(history) if record == name]
+
+
+def present(history, images, position: int) -> dict:
+    """The images a call holds at record ``position`` of its history:
+    every input, and each made image (``made_by``) once a record of the
+    transform that makes it came before."""
+    before = {record for record, _ in history[:position]}
+    return {name: image for name, image in images.items()
+            if image.made_by is None or image.made_by in before}
 
 
 def per_element(params: dict, key: str, batch: int) -> list:
