@@ -1,8 +1,10 @@
 """A configuration's inputs, made on the device from the seed: every
 scalar image drawn uniform on [0, 1) from one ``torch.Generator`` (in the
 configuration's order, one call an image for the whole batch), every
-label map the same deterministic block pattern for each element. Both
-the program and the reference are given these. An image with
+label map the same deterministic pattern for each element: ``blocks`` of
+a fixed size, or a ``grid`` of parts that scales with the shape. Every
+declared label has to appear in the map it makes. Both the program and
+the reference are given these. An image with
 ``made_by`` (the transform that writes it, such as ``LabelsToImage``) is
 no input: it is listed as the pipeline leaves it, after every input, and
 nothing is drawn for it. The generator follows
@@ -72,6 +74,37 @@ def blocks(spec: dict, shape, device) -> torch.Tensor:
     return torch.as_tensor(values, dtype=torch.int32, device=device)[index][None]
 
 
+def grid(spec: dict, shape, device) -> torch.Tensor:
+    """(1, I, J, K) labels ``values[(p_i gj gk + p_j gk + p_k) % len(values)]``
+    with ``(gi, gj, gk) = spec["grid"]``: each axis cut into that many
+    equal parts, voxel ``(i, j, k)`` in part ``p_i = i gi // I`` (and so
+    on): the parts scale with the shape."""
+    gi, gj, gk = (int(g) for g in spec["grid"])
+    values = spec["values"]
+    i, j, k = (torch.arange(s, device=device) * g // s for s, g in zip(shape, (gi, gj, gk)))
+    index = (i[:, None, None] * (gj * gk) + j[None, :, None] * gk + k[None, None, :]) % len(values)
+    return torch.as_tensor(values, dtype=torch.int32, device=device)[index][None]
+
+
+LAYOUTS = {"blocks": blocks, "grid": grid}
+
+
+def label_map(image: ImageSpec, device) -> torch.Tensor:
+    """One element's (1, I, J, K) label map. A declared value that the
+    layout leaves out at this shape raises: the program draws only the
+    labels the map holds, the reference every declared one."""
+    layout = LAYOUTS.get(image.spec.get("labels"))
+    if layout is None:
+        raise ValueError(f"no generator for image {image.name!r}: {image.spec}")
+    labels = layout(image.spec, image.shape, device)
+    missing = sorted(set(int(v) for v in image.spec["values"])
+                     - set(torch.unique(labels).tolist()))
+    if missing:
+        raise ValueError(f"label map {image.name!r} at {image.shape} lacks the declared"
+                         f" values {missing}")
+    return labels
+
+
 def make(specs: dict, batch: int, seed: int, device) -> dict:
     """name -> (B, C, I, J, K) tensor on ``device``, for each input."""
     gen = torch.Generator(device=device).manual_seed(generator_seed(seed))
@@ -80,8 +113,6 @@ def make(specs: dict, batch: int, seed: int, device) -> dict:
         if image.kind == "scalar":
             out[name] = torch.rand((batch, image.channels, *image.shape), generator=gen,
                                    device=device, dtype=image.dtype)
-        elif image.spec.get("labels") == "blocks":
-            out[name] = blocks(image.spec, image.shape, device).expand(batch, *([-1] * 4)).contiguous()
         else:
-            raise ValueError(f"no generator for image {name!r}: {image.spec}")
+            out[name] = label_map(image, device).expand(batch, *([-1] * 4)).contiguous()
     return out

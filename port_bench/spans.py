@@ -10,7 +10,10 @@ is idle inside a call wherever none of its operations runs (the gaps of
 holds at its time: a garbage collection of the interpreter
 (``Timeline.collections``), the phase of the innermost open ``tio.*``
 span, else ``other`` (a ``tio.<Transform>`` span with no phase open, or
-no program span). The pieces add up to ``Timeline.host_exposed``.
+no program span). The pieces add up to ``Timeline.host_exposed``. A
+span's owner is the ``<owner>`` of its name: the same split by owner
+gives one transform's share, and the synchronisations may be counted
+inside one owner's spans.
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ def phase_of(name: str) -> str:
     :data:`PHASES`, else ``other``."""
     last = name.rsplit(".", 1)[-1]
     return last if last in PHASES else "other"
+
+
+def owner_of(name: str) -> str:
+    """A span's owner: ``<owner>`` of ``tio.<owner>`` or
+    ``tio.<owner>.<phase>``."""
+    return name[len(PREFIX):].split(".", 1)[0]
 
 
 def innermost(spans: list[tuple[float, float, str]], label=phase_of) -> list:
@@ -136,11 +145,23 @@ def phase_ms_per_call(timeline: Timeline, phase: str) -> float | None:
     return totals.get(phase, 0.0) / len(timeline.calls) / 1e3
 
 
-def syncs_per_call(timeline: Timeline) -> float | None:
+def owner_ms_per_call(timeline: Timeline, owner: str) -> float | None:
+    """Idle device ms a call under an innermost span of ``owner``; None
+    where the window holds no call or no span of ``owner``."""
+    if not any(owner_of(name) == owner for _, _, name in program_spans(timeline)):
+        return None
+    totals = idle_by(timeline, label=owner_of)
+    if totals is None:
+        return None
+    return totals.get(owner, 0.0) / len(timeline.calls) / 1e3
+
+
+def syncs_per_call(timeline: Timeline, owner: str | None = None) -> float | None:
     """The runtime's synchronising calls (:data:`SYNCS`) a call that
-    start inside the union of the program's spans; None where the window
-    holds no call or no program span."""
-    spans = program_spans(timeline)
+    start inside the union of the program's spans (of ``owner``'s spans
+    only, where given); None where the window holds no call or no such
+    span."""
+    spans = [s for s in program_spans(timeline) if owner is None or owner_of(s[2]) == owner]
     if not timeline.calls or not spans:
         return None
     inside = union((start, end) for start, end, _ in spans)

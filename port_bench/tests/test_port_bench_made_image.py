@@ -13,7 +13,7 @@ import time
 import pytest
 
 from port_bench import harness, inputs, registry
-from port_bench.tests.test_port_bench_reference import altered, unchanged
+from port_bench.tests.test_port_bench_reference import altered, half_left_out, unchanged
 
 SHAPE, BATCH, SECONDS, SEED = (32, 30, 28), 4, 1.5, 2**31 + 54321
 MADE = "image_from_labels"
@@ -51,20 +51,6 @@ def run(target=None, **kwargs):
     return harness.run(target or cell(), SEED, SECONDS, False, "cpu",
                        started=time.perf_counter(), shape=SHAPE, batch=BATCH,
                        log=lambda *_: None, **kwargs)
-
-
-def half_left_out(pipeline):
-    """Half of the batch left out: its elements come back as they went
-    in, and with no image made for them (zeros)."""
-    def call(batch):
-        out = pipeline(batch)
-        half = len(next(iter(batch.images.values())).data) // 2
-        for name, images in out.images.items():
-            data = images.data.clone()
-            data[half:] = batch.images[name].data[half:] if name in batch.images else 0
-            images.data = data
-        return out
-    return call
 
 
 def never_made(pipeline):
