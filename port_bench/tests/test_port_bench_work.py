@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from port_bench import inputs
+from port_bench import harness, inputs, registry
 from port_bench.registry import work_module, work_modules
 from port_bench.yardstick import THREEFRY_OPS, bound
 
@@ -111,21 +111,52 @@ def normals(history):
 
 
 DRAWN = {label: 0.5 if label < 8 else 0.0 for label in range(32)}
+VOXELS = 256**3
 
 
-@pytest.mark.parametrize("record, drawn", [
-    (labels_to_image({1: 0.5}, {1: 0.05}), 1),
-    (labels_to_image(DRAWN, DRAWN), 8),
-    (labels_to_image(dict.fromkeys(range(32), 0.3), dict.fromkeys(range(32), 0.0)), 32),
-    # a std alone, or a mean in one element only, draws the label
-    (labels_to_image([{0: 0.0, 1: 0.0}] * 3 + [{0: 0.3, 1: 0.0}], {0: 0.0, 1: 0.02}), 2),
-    # ignore_background: label 0 at zero in every element draws nothing
-    (labels_to_image({0: 0.0, 5: 0.4}, {0: 0.0, 5: 0.01}), 1),
+@pytest.mark.parametrize("record, elements", [
+    (labels_to_image({1: 0.5}, {1: 0.05}), 4),
+    (labels_to_image(DRAWN, DRAWN), 4),
+    # means alone, with zero stds, need no normal
+    (labels_to_image(dict.fromkeys(range(32), 0.3), dict.fromkeys(range(32), 0.0)), 0),
+    (labels_to_image(dict.fromkeys(range(32), 0.3), dict.fromkeys(range(32), 0.02)), 4),
+    # a std in every element, a mean in one element only
+    (labels_to_image([{0: 0.0, 1: 0.0}] * 3 + [{0: 0.3, 1: 0.0}], {0: 0.0, 1: 0.02}), 4),
+    # ignore_background: label 0 at zero is counted with the rest (an upper bound)
+    (labels_to_image({0: 0.0, 5: 0.4}, {0: 0.0, 5: 0.01}), 4),
     # a history replayed from JSON has string labels
-    (labels_to_image({"3": 0.2}, {"3": 0.0}), 1),
+    (labels_to_image({"3": 0.2}, {"3": 0.0}), 0),
+    (labels_to_image({"3": 0.2}, {"3": 0.01}), 4),
+    # an element whose stds are all zero is its means
+    (labels_to_image({1: 0.5, 2: 0.6}, [{1: 0.05, 2: 0.0}] * 3 + [{1: 0.0, 2: 0.0}]), 3),
 ])
-def test_labels_to_image_draws_a_field_a_drawn_label(record, drawn):
-    assert normals([record]) == 4 * drawn * 256**3
+def test_labels_to_image_draws_a_normal_a_voxel_of_an_element_with_a_std(record, elements):
+    assert normals([record]) == elements * VOXELS
+
+
+def test_the_synthseg_record_counts_one_normal_a_voxel():
+    """The SynthSeg cell's LabelsToImage, drawn by the port on the CPU at
+    a small shape (32 labels an element, TorchIO's default ranges),
+    counts at the cell's shape one normal a voxel of each element."""
+    import torchio_tpu_torch as tio
+
+    cell = registry.cell("synthseg-labels-b4")
+    small = inputs.images(cell.config, (32, 30, 28))
+    tensors = inputs.make(small, 4, 2**31 + 29, "cpu")
+    args = dict(cell.traffic["transforms"])["LabelsToImage"]
+    previous = tio.set_default_device("cpu")
+    try:
+        tio.seed(29)
+        out = tio.LabelsToImage(**args)(harness.make_batch(tio, small, tensors))
+    finally:
+        tio.set_default_device(previous)
+    history = [(record.name, record.raw_params()) for record in out.applied_transforms]
+    (_, params), = history
+    assert [len(stds) for stds in params["stds"]] == [32] * 4
+    assert all(0.01 <= s <= 0.1 for stds in params["stds"] for s in stds.values())
+    full = inputs.images(cell.config)
+    assert work_module("threefry").work(history, full, 4) == (4 * 4 * VOXELS,
+                                                              4 * VOXELS * THREEFRY_OPS)
 
 
 def test_a_made_image_counts_only_after_its_maker():

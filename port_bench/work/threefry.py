@@ -2,10 +2,11 @@
 coarse fields BiasField draws for the elements whose p-gate drew it (a
 (C, *small) field each, ``small`` the scaled shape, at least 4 a side),
 the noise field Noise draws for each scalar image of those elements (two
-with Rician noise), and LabelsToImage's tissue fields: a (B, 1, I, J, K)
-field, at the shape of the image it makes, for each label with a nonzero
-mean or std in some element. BiasField and Noise count a made image only
-after the record of its maker. A normal writes 4 bytes and reads
+with Rician noise), and LabelsToImage's normals: one for each voxel of
+the image it makes, in each element where some label has a nonzero std
+(an element whose stds are all zero is its means, and needs none),
+whatever the number of labels. BiasField and Noise count a made image
+only after the record of its maker. A normal writes 4 bytes and reads
 nothing; it costs ``yardstick.THREEFRY_OPS`` operations."""
 
 from __future__ import annotations
@@ -24,16 +25,17 @@ def _small(shape, scale: float) -> int:
     return voxels(max(round(s * scale), 4) for s in shape)
 
 
-def _by_label(values: dict) -> dict:
-    """A label's value by its int label (a JSON history has string keys)."""
-    return {int(label): float(v) for label, v in values.items()}
-
-
-def drawn_labels(params: dict, batch: int) -> int:
-    """LabelsToImage's fields: the labels with a nonzero mean or std in
-    some element."""
-    values = [_by_label(v) for key in ("means", "stds") for v in per_element(params, key, batch)]
-    return len({label for v in values for label, x in v.items() if x != 0})
+def tissue_elements(params: dict, batch: int) -> int:
+    """LabelsToImage's elements that need normals: those where some label
+    has a nonzero std. The history does not hold the warped map's voxels
+    a label, so such an element counts every voxel, also where some of
+    its labels have a zero std (``ignore_background``): there the count
+    is an upper bound, which no cell's traffic meets (the SynthSeg cell
+    draws every std from U(0.01, 0.1)). The label map that a one-pass
+    kernel reads is not counted, so the least time stays a lower bound
+    on what a kernel needs."""
+    return sum(1 for stds in per_element(params, "stds", batch)
+               if any(float(v) != 0 for v in stds.values()))
 
 
 def normals(history, images, batch: int) -> int:
@@ -55,7 +57,7 @@ def normals(history, images, batch: int) -> int:
         if not made:
             raise ValueError("a LabelsToImage record, and no image of the configuration"
                              " is made_by LabelsToImage")
-        count += drawn_labels(params, batch) * batch * voxels(made[0].shape)
+        count += tissue_elements(params, batch) * voxels(made[0].shape)
     return count
 
 
